@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of ``diffusionremotesensing_tpu`` for NVIDIA Hopper.
+
+The JAX package beside this one is the reference: each module here mirrors
+its namesake there (``schedules``, ``models.blocks``, ``models.unet``,
+``ops.*``, ``diffusion``, ``aggregation``, ``serving``) and is held equal to
+it by ``tests/test_torch_port_*.py``. This package imports ``torch``, numpy
+and the standard library only: nothing of JAX, flax or the JAX package, so
+it runs on a machine that has none of them.
+
+Layout follows the reference's public functions: images are NHWC, conv
+kernels handed to the ``ops`` transforms are HWIO. Inside the model the
+convolutions run as channels-last ``torch`` convolutions on permuted views,
+so no layout copies are made at the boundary.
+
+The one TPU kernel on the super-resolution path, ``ops/tap_block.py``
+(ResConvBlock-0 fused), is a hand-written CUDA kernel here
+(``csrc/tap_block.cu``), built with ``nvcc`` at first use and bound with
+``ctypes``. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; asked for ``cuda`` without a card they raise.
+"""
+
+__version__ = "0.1.0"

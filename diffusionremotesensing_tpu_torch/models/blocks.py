@@ -1,0 +1,172 @@
+"""UNet building blocks (port of ``diffusionremotesensing_tpu/models/blocks.py``).
+
+Inference only: every BatchNorm uses its running statistics, whatever the
+module's ``training`` flag, as the reference's ``train=False`` does. Blocks
+take and return NCHW tensors (channels-last in memory when the model's NHWC
+input is permuted into them). Attribute names follow the reference torch
+model, so ``state_dict()`` has the keys that
+``diffusionremotesensing_tpu.io.export_torch_state_dict`` emits, including
+the BatchNorms registered twice (as an attribute and inside a Sequential)
+and the unused per-block skip conv, which is part of the parameter count.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def TorchConv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, pad=None) -> nn.Conv2d:
+    """Conv2d with the reference's padding rule, (kernel - 1) // 2 unless given."""
+    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
+                     padding=(kernel - 1) // 2 if pad is None else pad)
+
+
+def BatchNorm(features: int) -> nn.BatchNorm2d:
+    """BatchNorm2d with torch's defaults (eps 1e-5, momentum 0.1)."""
+    return nn.BatchNorm2d(features)
+
+
+def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm with running statistics (inference), NCHW."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                        False, 0.0, bn.eps)
+
+
+def ConvTranspose2x(features: int) -> nn.ConvTranspose2d:
+    """ConvTranspose2d(k=3, s=2, p=1, output_padding=1): H -> 2H. The weight is
+    torch's (in, out, kh, kw); the reference package keeps the spatially
+    flipped HWIO kernel of the equivalent forward conv instead
+    (``convert.from_jax_variables`` flips it)."""
+    return nn.ConvTranspose2d(features, features, 3, stride=2, padding=1, output_padding=1)
+
+
+def sinusoidal_time_embedding(t: torch.Tensor, channels: int = 100) -> torch.Tensor:
+    """sin(t * inv_freq) ++ cos(t * inv_freq), inv_freq = 1/10000^(arange(0, C, 2)/C),
+    in float32; t is (B,)."""
+    t = t.to(torch.float32)[:, None]
+    inv_freq = 1.0 / (10000.0 ** (torch.arange(0, channels, 2, dtype=torch.float32,
+                                               device=t.device) / channels))
+    ang = t * inv_freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def TimeMLP(time_dim: int, features: int) -> nn.Sequential:
+    """Linear(time_dim, F) + SiLU + Linear(F, F) (keys time_mlp.0 / time_mlp.2)."""
+    return nn.Sequential(nn.Linear(time_dim, features), nn.SiLU(), nn.Linear(features, features))
+
+
+class ResConvBlock(nn.Module):
+    """h = ReLU(BN(conv3x3(x))); h += conv3x3(x_skip) if given;
+    h += ReLU(TimeMLP(t)); h = BN(conv3x3(h)); out = ReLU(BN(conv1x1(x)) + h).
+
+    ``skip_name`` is the reference's attribute name of the skip conv
+    ('conv_upsampled_lr_img' in the super-resolution model)."""
+
+    def __init__(self, in_ch: int, features: int, time_dim: int = 100,
+                 skip_name: str = "conv_upsampled_lr_img"):
+        super().__init__()
+        self.skip_name = skip_name
+        self.time_mlp = TimeMLP(time_dim, features)
+        self.batch_norm1 = BatchNorm(features)
+        self.batch_norm2 = BatchNorm(features)
+        self.shortcut_batch_norm = BatchNorm(features)
+        self.conv1 = nn.Sequential(TorchConv(in_ch, features, 3), self.batch_norm1)
+        setattr(self, skip_name, TorchConv(in_ch, features, 3))
+        self.conv2 = nn.Sequential(TorchConv(features, features, 3), self.batch_norm2)
+        self.shortcut_conv = nn.Sequential(TorchConv(in_ch, features, 1), self.shortcut_batch_norm)
+
+    @property
+    def skip_conv(self) -> nn.Conv2d:
+        return getattr(self, self.skip_name)
+
+    def time_bias(self, t_emb: torch.Tensor) -> torch.Tensor:
+        """ReLU(TimeMLP(t_emb)), (B, F)."""
+        return torch.relu(self.time_mlp(t_emb))
+
+    def forward(self, x, t_emb, x_skip=None):
+        h = torch.relu(bn_eval(self.conv1[0](x), self.batch_norm1))
+        if x_skip is not None:
+            h = h + self.skip_conv(x_skip)
+        h = h + self.time_bias(t_emb)[:, :, None, None]
+        h = bn_eval(self.conv2[0](h), self.batch_norm2)
+        s = bn_eval(self.shortcut_conv[0](x), self.shortcut_batch_norm)
+        return torch.relu(s + h)
+
+
+class AttentionGate(nn.Module):
+    """Additive attention gate: psi = sigmoid(conv1x1(ReLU(conv1x1(g) +
+    conv2x2_s2(x)))), upsampled x2 nearest; out = BN(conv1x1(psi * x))."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.w_g = nn.Sequential(TorchConv(features, features, 1))
+        self.w_x = nn.Sequential(TorchConv(features, features, 2, stride=2, pad=0))
+        self.psi = nn.Sequential(TorchConv(features, 1, 1))
+        self.result = nn.Sequential(TorchConv(features, features, 1), BatchNorm(features))
+
+    def forward(self, x, g):
+        psi = torch.relu(self.w_g(g) + self.w_x(x))
+        psi = torch.sigmoid(self.psi(psi))
+        psi = psi.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return bn_eval(self.result[0](psi * x), self.result[1])
+
+
+class UpConvBlock(nn.Module):
+    """x + ReLU(TimeMLP(t)); conv3x3 + BN + ReLU; ConvTranspose x2 upsample
+    (the time bias is added before the conv here, unlike ResConvBlock)."""
+
+    def __init__(self, features: int, time_dim: int = 100):
+        super().__init__()
+        self.time_mlp = TimeMLP(time_dim, features)
+        self.conv = TorchConv(features, features, 3)
+        self.batch_norm = BatchNorm(features)
+        self.transform = ConvTranspose2x(features)
+
+    def time_bias(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.time_mlp(t_emb))
+
+    def body(self, x, t_emb):
+        """Everything before the ConvTranspose."""
+        x = x + self.time_bias(t_emb)[:, :, None, None]
+        return torch.relu(bn_eval(self.conv(x), self.batch_norm))
+
+    def forward(self, x, t_emb):
+        return self.transform(self.body(x, t_emb))
+
+
+class GatingSignal(nn.Module):
+    """conv1x1 + BN + ReLU channel reduction."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv = TorchConv(in_ch, features, 1)
+        self.batch_norm = BatchNorm(features)
+
+    def forward(self, x):
+        return torch.relu(bn_eval(self.conv(x), self.batch_norm))
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 + ReLU + conv3x3 with identity residual (condition encoder)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = TorchConv(features, features, 3)
+        self.conv2 = TorchConv(features, features, 3)
+
+    def forward(self, x):
+        return self.conv2(torch.relu(self.conv1(x))) + x
+
+
+class RRDB(nn.Module):
+    """Condition-image encoder: chained ResidualBlocks + conv out + outer residual."""
+
+    def __init__(self, channels: int, num_blocks: int = 3):
+        super().__init__()
+        self.blocks = nn.Sequential(*[ResidualBlock(channels) for _ in range(num_blocks)])
+        self.conv_out = TorchConv(channels, channels, 3)
+
+    def forward(self, x):
+        return self.conv_out(self.blocks(x)) + x

@@ -1,0 +1,373 @@
+"""The Residual Attention UNet, super-resolution variant (port of
+``diffusionremotesensing_tpu/models/unet.py``).
+
+Skeleton: stem 3x3 conv to 16 channels plus the condition stem (RRDB
+encode, torch-bicubic x``magnification_factor`` upsample, 3x3 conv); three
+ResConvBlocks (16->32->64->128), each followed by a stride-2 3x3 conv;
+bottleneck ResConvBlock 128->256; three up stages of [gating signal ->
+additive attention gate on the skip -> UpConvBlock x2 -> concat -> 3x3
+conv]; 1x1 output conv. The stem output also feeds ResConvBlock-0 as its
+skip input.
+
+Two executions of the same function:
+
+* the plain forward, layer by layer as the reference torch model runs it;
+* the s2d forward (``s2d=True``): the full-resolution level in
+  space-to-depth layout with kernels assembled once by
+  :meth:`prepare_s2d_kernels`, the up-stage-2 head composed with the output
+  conv and the ConvTranspose (derivations in the reference's
+  ``prepare_s2d_kernels``). With ``tap44='block'`` ResConvBlock-0 is one
+  call of ``ops.tap_block.tap_block``, the hand-written CUDA kernel on the
+  card; with ``tap44=False`` it runs as dense s2d convolutions.
+
+Public tensors are NHWC, as in the reference package: ``forward`` takes x
+(B, H, W, 3), t (B,) and the LR condition (B, H/mag, W/mag, 3), and returns
+float32 (B, H, W, 3). Inference only. The compute dtype is the dtype of the
+parameters (``model.to(torch.bfloat16)``); ``prepare_s2d_kernels`` folds in
+float32 whatever the parameters' dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from diffusionremotesensing_tpu_torch.models.blocks import (
+    RRDB,
+    AttentionGate,
+    GatingSignal,
+    ResConvBlock,
+    TorchConv,
+    UpConvBlock,
+    sinusoidal_time_embedding,
+)
+from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
+from diffusionremotesensing_tpu_torch.ops.s2d import (
+    conv_nhwc,
+    depth_to_space,
+    hwio_to_oihw,
+    k1_to_blockdiag,
+    k2s2_to_1x1,
+    k3_to_s2d,
+    k3s2_to_s2d,
+    kT_to_s2d,
+    space_to_depth,
+)
+from diffusionremotesensing_tpu_torch.ops.tap_block import build_block_weights, tap_block
+
+TAP44_LEVELS = (False, "block")
+
+# kernel-dict entries that are HWIO conv kernels (stored OIHW, channels-last)
+_CONV_KEYS = ("conv0", "blk_conv1", "blk_skip", "blk_conv2", "blk_short", "down0", "att_wx",
+              "att_rc", "head_at", "head_up4", "head_fix_x", "head_fix_y")
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.detach().float().permute(2, 3, 1, 0)
+
+
+def _vec(p: torch.Tensor) -> torch.Tensor:
+    return p.detach().float()
+
+
+def _bn_dict(bn: nn.BatchNorm2d) -> dict:
+    return {"scale": _vec(bn.weight), "bias": _vec(bn.bias),
+            "mean": _vec(bn.running_mean), "var": _vec(bn.running_var)}
+
+
+def _bn_affine(bn: nn.BatchNorm2d, taps: bool = True):
+    """Inference BatchNorm as y = x * a + c, tiled over the 4 s2d taps."""
+    a = _vec(bn.weight) / torch.sqrt(_vec(bn.running_var) + bn.eps)
+    c = _vec(bn.bias) - _vec(bn.running_mean) * a
+    return (a.repeat(4), c.repeat(4)) if taps else (a, c)
+
+
+class ResidualAttentionUNet(nn.Module):
+    """Epsilon-predicting Residual Attention UNet conditioned on an LR image."""
+
+    def __init__(
+        self,
+        conditioning: str = "superres",
+        image_channels: int = 3,
+        out_dim: int = 3,
+        cond_channels: int = 3,
+        magnification_factor: int = 2,
+        time_emb_dim: int = 100,
+        down_channels: Tuple[int, ...] = (16, 32, 64, 128, 256),
+        up_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
+        s2d: bool = False,
+        tap44: object = False,
+    ):
+        super().__init__()
+        if conditioning != "superres":
+            raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
+        if tap44 not in TAP44_LEVELS:
+            raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
+        self.conditioning = conditioning
+        self.image_channels = image_channels
+        self.out_dim = out_dim
+        self.cond_channels = cond_channels
+        self.magnification_factor = magnification_factor
+        self.time_emb_dim = time_emb_dim
+        self.down_channels = tuple(down_channels)
+        self.up_channels = tuple(up_channels)
+        self.s2d = s2d
+        self.tap44 = tap44
+        dc, uc = self.down_channels, self.up_channels
+        n_lv = len(dc) - 2
+
+        self.conv0 = TorchConv(image_channels, dc[0], 3)
+        self.LR_encoder = RRDB(cond_channels, num_blocks=3)
+        self.conv_upsampled_lr_img = TorchConv(cond_channels, dc[0], 3)
+        self.conv_blocks = nn.ModuleList(
+            [ResConvBlock(dc[i], dc[i + 1], time_emb_dim) for i in range(n_lv)])
+        self.downs = nn.ModuleList(
+            [TorchConv(dc[i + 1], dc[i + 1], 3, stride=2) for i in range(n_lv)])
+        self.bottle_neck = ResConvBlock(dc[-2], dc[-1], time_emb_dim)
+        self.gating_signals = nn.ModuleList(
+            [GatingSignal(uc[i], uc[i + 1]) for i in range(n_lv)])
+        self.attention_blocks = nn.ModuleList([AttentionGate(uc[i + 1]) for i in range(n_lv)])
+        self.ups = nn.ModuleList([UpConvBlock(uc[i], time_emb_dim) for i in range(n_lv)])
+        self.up_convs = nn.ModuleList(
+            [TorchConv(uc[i] + uc[i + 1], uc[i + 1], 3) for i in range(n_lv)])
+        self.output = TorchConv(uc[n_lv], out_dim, 1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv0.weight.dtype
+
+    # ------------------------------------------------------------ condition
+
+    def encode_cond(self, cond: torch.Tensor) -> torch.Tensor:
+        """Condition stem, NHWC in and out: RRDB encode, bicubic upsample,
+        3x3 conv. Loop-invariant during sampling: samplers call it once."""
+        c = self.LR_encoder(cond.to(self.dtype).permute(0, 3, 1, 2))
+        c = upsample_bicubic(c.permute(0, 2, 3, 1), self.magnification_factor)
+        return self.conv_upsampled_lr_img(c.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def encode_cond_s2d(self, cond: torch.Tensor) -> torch.Tensor:
+        """:meth:`encode_cond` in space-to-depth layout (the s2d path's input)."""
+        return space_to_depth(self.encode_cond(cond))
+
+    # ------------------------------------------------------------- forward
+
+    def forward(self, x, t, cond=None, cond_features=None, s2d_kernels=None,
+                s2d_io: bool = False):
+        t_emb = sinusoidal_time_embedding(t, self.time_emb_dim).to(self.dtype)
+        if cond_features is None:
+            if cond is None:
+                raise ValueError("conditioning='superres' requires a condition image")
+            cond_features = self.encode_cond_s2d(cond) if self.s2d else self.encode_cond(cond)
+        if self.s2d:
+            if s2d_kernels is None:
+                s2d_kernels = self.prepare_s2d_kernels()
+            return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io)
+
+        h = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
+        h = h + cond_features.to(self.dtype).permute(0, 3, 1, 2)
+        x_skip = h
+        residuals = []
+        for i, (block, down) in enumerate(zip(self.conv_blocks, self.downs)):
+            h = block(h, t_emb, x_skip if i == 0 else None)
+            residuals.append(h)
+            h = down(h)
+        h = self.bottle_neck(h, t_emb)
+        for i in range(len(self.ups)):
+            g = self.gating_signals[i](h)
+            attn = self.attention_blocks[i](residuals[-(i + 1)], g)
+            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb), attn], dim=1))
+        return self.output(h).float().permute(0, 2, 3, 1)
+
+    # ------------------------------------------------------- s2d execution
+
+    def _upconv2_plain_concat_perm(self) -> np.ndarray:
+        """Input-channel permutation taking up_conv2's s2d kernel from the
+        tap-interleaved concat layout to the plain concat [s2d(up), s2d(attn)]."""
+        c_up, c_at = self.up_channels[2], self.up_channels[3]
+        c_tot = c_up + c_at
+        perm = np.empty((4 * c_tot,), np.int64)
+        for t in range(4):
+            for c in range(c_tot):
+                plain = t * c_up + c if c < c_up else 4 * c_up + t * c_at + (c - c_up)
+                perm[plain] = t * c_tot + c
+        return perm
+
+    @torch.no_grad()
+    def prepare_s2d_kernels(self, dtype: Optional[torch.dtype] = None) -> dict:
+        """Every s2d kernel, bias and folded BatchNorm of the s2d path, built
+        once from the parameters in float32 and cast to ``dtype`` (default:
+        the parameters' dtype). Samplers hoist this out of the step loop."""
+        dt = dtype or self.dtype
+        blk, att, up = self.conv_blocks[0], self.attention_blocks[2], self.ups[2]
+        k = {
+            "conv0": k3_to_s2d(_hwio(self.conv0)),
+            "conv0_b": _vec(self.conv0.bias).repeat(4),
+            "down0": k3s2_to_s2d(_hwio(self.downs[0])),
+            "down0_b": _vec(self.downs[0].bias),
+            "att_wx": k2s2_to_1x1(_hwio(att.w_x[0])),
+            "att_wx_b": _vec(att.w_x[0].bias),
+            "att_rc": k1_to_blockdiag(_hwio(att.result[0])),
+            "att_rc_b": _vec(att.result[0].bias).repeat(4),
+        }
+        k["att_bn_a"], k["att_bn_c"] = _bn_affine(att.result[1])
+        if self.tap44 == "block":
+            k["tap_block"] = build_block_weights(
+                _hwio(blk.conv1[0]), _vec(blk.conv1[0].bias), _bn_dict(blk.batch_norm1),
+                _hwio(blk.skip_conv), _vec(blk.skip_conv.bias),
+                _hwio(blk.conv2[0]), _vec(blk.conv2[0].bias), _bn_dict(blk.batch_norm2),
+                _hwio(blk.shortcut_conv[0]), _vec(blk.shortcut_conv[0].bias),
+                _bn_dict(blk.shortcut_batch_norm),
+            )
+        else:
+            k.update({
+                "blk_conv1": k3_to_s2d(_hwio(blk.conv1[0])),
+                "blk_b1": _vec(blk.conv1[0].bias).repeat(4),
+                "blk_skip": k3_to_s2d(_hwio(blk.skip_conv)),
+                "blk_bsk": _vec(blk.skip_conv.bias).repeat(4),
+                "blk_conv2": k3_to_s2d(_hwio(blk.conv2[0])),
+                "blk_b2": _vec(blk.conv2[0].bias).repeat(4),
+                "blk_short": k1_to_blockdiag(_hwio(blk.shortcut_conv[0])),
+                "blk_bsh": _vec(blk.shortcut_conv[0].bias).repeat(4),
+            })
+            k["bn0_a"], k["bn0_c"] = _bn_affine(blk.batch_norm1)
+            k["bn1_a"], k["bn1_c"] = _bn_affine(blk.batch_norm2)
+            k["bn2_a"], k["bn2_c"] = _bn_affine(blk.shortcut_batch_norm)
+
+        # head composition: up_conv2 feeds only the 1x1 output conv, so the
+        # two compose into one 3x3 conv; its up-branch half then composes
+        # with up2's ConvTranspose (as the s2d 2x2 kernel K2) into one 4x4
+        # conv on hh, with exact boundary strips and a bias frame
+        w_up, b_up = _hwio(self.up_convs[2]), _vec(self.up_convs[2].bias)
+        w_out, b_out = _hwio(self.output)[0, 0], _vec(self.output.bias)
+        head = torch.einsum("uvic,co->uvio", w_up, w_out)
+        head_s2d = k3_to_s2d(head)[:, :, torch.from_numpy(self._upconv2_plain_concat_perm()), :]
+        n_up = 4 * self.up_channels[2]
+        H_up = head_s2d[:, :, :n_up, :]
+        k["head_at"] = head_s2d[:, :, n_up:, :]
+        # torch ConvTranspose weight (in, out, kh, kw) -> the flipped HWIO
+        # kernel of the equivalent input-dilated forward conv
+        kT = up.transform.weight.detach().float().permute(2, 3, 0, 1).flip(0, 1)
+        K2 = kT_to_s2d(kT)
+        K4 = K2.new_zeros((4, 4, K2.shape[2], H_up.shape[3]))
+        for dy in range(3):
+            for ky in range(2):
+                for dx in range(3):
+                    for kx in range(2):
+                        K4[dy + ky, dx + kx] += K2[ky, kx] @ H_up[dy, dx]
+        k["head_up4"] = K4
+        k["head_fix_x"] = torch.stack([
+            sum(K2[1, kx] @ H_up[0, dx] for dx in range(3) for kx in range(2) if dx + kx == t)
+            for t in range(4)])[None]
+        k["head_fix_y"] = torch.stack([
+            sum(K2[ky, 1] @ H_up[dy, 0] for dy in range(3) for ky in range(2) if dy + ky == t)
+            for t in range(4)])[:, None]
+        k["head_fix_c"] = K2[1, 1] @ H_up[0, 0]
+        b_T = _vec(up.transform.bias).repeat(4)
+        k["head_b"] = (b_up @ w_out + b_out).repeat(4)
+
+        dev = self.conv0.weight.device
+        out = {}
+        for name, v in k.items():
+            if name == "tap_block":
+                out[name] = {n: w.to(dev, dt).contiguous() for n, w in v.items()}
+            elif name in _CONV_KEYS:
+                out[name] = hwio_to_oihw(v).to(dev, dt).contiguous(memory_format=torch.channels_last)
+            else:
+                out[name] = v.to(dev, dt)
+        # the ConvTranspose-bias tap table stays float32: it is reduced into
+        # the (small) bias frame, where bf16 would cost visible precision
+        out["head_bT_taps"] = torch.einsum("uvmo,m->uvo", H_up, b_T).to(dev)
+        out["frames"] = {}
+        return out
+
+    def _bias_frame(self, kern: dict, Hs: int, Ws: int) -> torch.Tensor:
+        """The head's bias over the output grid: the ConvTranspose bias reaches
+        edge rows/columns through fewer head taps. Cached per shape."""
+        frame = kern["frames"].get((Hs, Ws))
+        if frame is None:
+            taps = kern["head_bT_taps"]
+            rows = torch.ones((Hs, 3), device=taps.device)
+            rows[0, 0] = rows[Hs - 1, 2] = 0.0
+            cols = torch.ones((Ws, 3), device=taps.device)
+            cols[0, 0] = cols[Ws - 1, 2] = 0.0
+            frame = torch.einsum("yu,xv,uvo->yxo", rows, cols, taps) + kern["head_b"].float()
+            kern["frames"][(Hs, Ws)] = frame
+        return frame
+
+    def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io):
+        dt = self.dtype
+        xs = x.to(dt) if s2d_io else space_to_depth(x.to(dt))
+        h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
+        h_s = h_s + cond_s2d.to(dt)
+        blk = self.conv_blocks[0]
+        te4 = blk.time_bias(t_emb).repeat(1, 4)
+        if self.tap44 == "block":
+            res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
+        else:
+            h = conv_nhwc(h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
+            h = torch.relu(h * kern["bn0_a"] + kern["bn0_c"])
+            h = h + conv_nhwc(h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
+            h = h + te4[:, None, None, :]
+            h = conv_nhwc(h, kern["blk_conv2"], kern["blk_b2"], padding=1)
+            h = h * kern["bn1_a"] + kern["bn1_c"]
+            s = conv_nhwc(h_s, kern["blk_short"], kern["blk_bsh"])
+            res0_s = torch.relu(s * kern["bn2_a"] + kern["bn2_c"] + h)
+        return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
+
+    def _attention_s2d(self, x_s2d, g, kern):
+        """Attention gate 2 with its skip input in s2d layout: w_x's 2x2/s2
+        conv is one 1x1 over the taps, psi's nearest upsample a broadcast over
+        the taps, result_conv block-diagonal. NHWC in and out."""
+        att = self.attention_blocks[2]
+        g1 = conv_nhwc(g, att.w_g[0].weight, att.w_g[0].bias)
+        x1 = conv_nhwc(x_s2d, kern["att_wx"], kern["att_wx_b"])
+        psi = torch.relu(g1 + x1)
+        psi = torch.sigmoid(conv_nhwc(psi, att.psi[0].weight, att.psi[0].bias))
+        attn_s = conv_nhwc(x_s2d * psi, kern["att_rc"], kern["att_rc_b"])
+        return attn_s * kern["att_bn_a"] + kern["att_bn_c"]
+
+    def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io):
+        """Everything after ResConvBlock-0: down0 out of s2d, levels 1+
+        through the ordinary modules, up stage 2 and the composed head."""
+        h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
+        h = h.permute(0, 3, 1, 2)
+        res1 = h = self.conv_blocks[1](h, t_emb)
+        h = self.downs[1](h)
+        res2 = h = self.conv_blocks[2](h, t_emb)
+        h = self.downs[2](h)
+        h = self.bottle_neck(h, t_emb)
+        for i, res in ((0, res2), (1, res1)):
+            attn = self.attention_blocks[i](res, self.gating_signals[i](h))
+            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb), attn], dim=1))
+
+        attn_s = self._attention_s2d(res0_s, self.gating_signals[2](h).permute(0, 2, 3, 1), kern)
+        hh = self.ups[2].body(h, t_emb).permute(0, 2, 3, 1)
+        out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
+        out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
+        # boundary corrections: the composed conv sees hh's padding through
+        # intermediate row/column -1, which the uncomposed head zeroed
+        hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
+        out_s[:, :1] -= conv_nhwc(hh_row0, kern["head_fix_x"], padding=((0, 0), (1, 2)))
+        out_s[:, :, :1] -= conv_nhwc(hh_col0, kern["head_fix_y"], padding=((1, 2), (0, 0)))
+        out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]
+        out_s = out_s.float() + self._bias_frame(kern, out_s.shape[1], out_s.shape[2])
+        return out_s if s2d_io else depth_to_space(out_s)
+
+
+def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
+                                     magnification_factor: int = 2, s2d: bool = False,
+                                     tap44: object = False) -> ResidualAttentionUNet:
+    """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
+    return ResidualAttentionUNet(
+        conditioning="superres", image_channels=image_channels, out_dim=out_dim,
+        cond_channels=image_channels, magnification_factor=magnification_factor,
+        s2d=s2d, tap44=tap44,
+    )
+
+
+def param_count(model: nn.Module) -> int:
+    """Number of scalar parameters (a module registered twice counts once)."""
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,153 @@
+"""Fused s2d ResConvBlock-0 (port of ``diffusionremotesensing_tpu/ops/tap_block.py``).
+
+One call computes the whole first ResConvBlock of the UNet in space-to-depth
+layout, with the three inference BatchNorms folded into the weights:
+
+    X1  = im2col4x4(x)                              # shared by conv1, skip, shortcut
+    Y   = X1 @ [W_conv1' | W_skip | W_short']       # one product, 3*CO4 columns
+    h   = relu(Y_c1 + b1') + Y_sk + b_sk + te4      # rounded to x's dtype
+    out = relu(im2col4x4(h) @ W2' + b2' + Y_sh + b_sh')
+
+:func:`tap_block` launches the hand-written CUDA kernel
+``csrc/tap_block.cu`` for CUDA tensors and runs :func:`tap_block_plain`, the
+same arithmetic in ``torch`` ops, for CPU tensors. There is no fallback from
+the kernel to the plain version: a CUDA tensor the kernel cannot take
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from diffusionremotesensing_tpu_torch.ops import cuda_build
+from diffusionremotesensing_tpu_torch.ops.s2d import k3_to_s2d44
+from diffusionremotesensing_tpu_torch.ops.tap_conv import _ORDER, _w2d, im2col_s2d44
+
+# im2col pieces equal to the unshifted tile; the shortcut's rows of W1 sit on
+# exactly these pieces (piece k carries tap block k % 4)
+_CENTER_K = [k for k, (r, s) in enumerate(_ORDER) if r in (1, 2) and s in (1, 2)]
+
+_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+_COUNT_LOCK = threading.Lock()  # launches may come from several server threads
+
+
+def build_block_weights(w_conv1, b_conv1, bn0, w_skip, b_skip, w_conv2, b_conv2, bn1,
+                        w_short, b_short, bn2, eps: float = 1e-5):
+    """Fold the inference BatchNorms and assemble the kernel's weights.
+
+    Kernels are HWIO: w_conv1/w_skip (3,3,Ci,Co), w_conv2 (3,3,Co,Co),
+    w_short (1,1,Ci,Co); each bn is {'scale','bias','mean','var'}. Returns
+    {w1 (16Ci, 3*4Co), w2 (16Co, 4Co), b1, bsk, bsh, b2 (each (4Co,))} in the
+    inputs' dtype; the caller casts to the compute dtype."""
+
+    def fold(w, b, bn):
+        s = bn["scale"] / torch.sqrt(bn["var"] + eps)
+        return w * s, (b - bn["mean"]) * s + bn["bias"]
+
+    ci, co = w_conv1.shape[2], w_conv1.shape[3]
+    w1f, b1f = fold(w_conv1, b_conv1, bn0)
+    w2f, b2f = fold(w_conv2, b_conv2, bn1)
+    wshf, bshf = fold(w_short[0, 0], b_short, bn2)  # (Ci, Co)
+
+    w1_short = w_conv1.new_zeros((16 * ci, 4 * co))
+    for k in _CENTER_K:
+        t = k % 4
+        w1_short[k * ci:(k + 1) * ci, t * co:(t + 1) * co] = wshf
+    return {
+        "w1": torch.cat([_w2d(k3_to_s2d44(w1f)), _w2d(k3_to_s2d44(w_skip)), w1_short], dim=1),
+        "w2": _w2d(k3_to_s2d44(w2f)),
+        "b1": b1f.repeat(4),
+        "bsk": b_skip.repeat(4),
+        "bsh": bshf.repeat(4),
+        "b2": b2f.repeat(4),
+    }
+
+
+def tap_block_plain(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
+    """The block in ``torch`` ops: x_s2d (B,H2,W2,4Ci), te4 (B,4Co) the
+    tap-tiled relu'd time bias, bw from :func:`build_block_weights`.
+    Products accumulate in float32; h is rounded to x's dtype before conv2."""
+    dt = x_s2d.dtype
+    co4 = bw["w2"].shape[1]
+    f = lambda name: bw[name].float()  # noqa: E731
+    y = im2col_s2d44(x_s2d).float() @ f("w1")
+    h = torch.relu(y[..., :co4] + f("b1")) + y[..., co4:2 * co4] + f("bsk")
+    h = (h + te4.float()[:, None, None, :]).to(dt)
+    c2 = im2col_s2d44(h).float() @ f("w2") + f("b2")
+    return torch.relu(c2 + y[..., 2 * co4:] + f("bsh")).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load("tap_block")
+    lib.tap_block_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tap_block_launch.restype = ctypes.c_int
+    lib.tap_block_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tap_block_smem.restype = ctypes.c_size_t
+    return lib
+
+
+def _check(x_s2d, te4, bw):
+    """Raise unless the kernel takes these tensors as they are."""
+    if x_s2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tap_block takes float32 or bfloat16, got {x_s2d.dtype}")
+    if x_s2d.dim() != 4:
+        raise ValueError(f"x_s2d must be (B, H2, W2, 4Ci), got {tuple(x_s2d.shape)}")
+    B, H2, W2, C4 = x_s2d.shape
+    CO4 = bw["w2"].shape[1]
+    c4_unit = 32 if x_s2d.dtype == torch.bfloat16 else 8  # 16-byte copies of bf16 pieces
+    if C4 % c4_unit or CO4 % 128:
+        raise ValueError(f"tap_block needs 4Ci % {c4_unit} == 0 and 4Co % 128 == 0, "
+                         f"got {C4}, {CO4}")
+    want = {"te4": (B, CO4), "w1": (4 * C4, 3 * CO4), "w2": (4 * CO4, CO4),
+            "b1": (CO4,), "bsk": (CO4,), "bsh": (CO4,), "b2": (CO4,)}
+    got = dict(bw, te4=te4)
+    for name, shape in want.items():
+        t = got[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"tap_block: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != x_s2d.dtype or t.device != x_s2d.device:
+            raise ValueError(f"tap_block: {name} is {t.dtype} on {t.device}, "
+                             f"x_s2d is {x_s2d.dtype} on {x_s2d.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"tap_block: {name} is not contiguous")
+    if not x_s2d.is_contiguous():
+        raise ValueError("tap_block: x_s2d is not contiguous")
+
+
+def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
+    """Fused s2d ResConvBlock-0. CUDA tensors launch ``csrc/tap_block.cu``
+    (each launch adds one to ``tap_block.launches``); CPU tensors run
+    :func:`tap_block_plain`. Returns res0_s (B,H2,W2,4Co) in x's dtype."""
+    if x_s2d.device.type == "cpu":
+        return tap_block_plain(x_s2d, te4, bw)
+    if x_s2d.device.type != "cuda":
+        raise ValueError(f"tap_block runs on cuda or cpu tensors, got {x_s2d.device}")
+    _check(x_s2d, te4, bw)
+    B, H2, W2, C4 = x_s2d.shape
+    CO4 = bw["w2"].shape[1]
+    is_bf16 = int(x_s2d.dtype == torch.bfloat16)
+    lib = _library()
+    smem = lib.tap_block_smem(CO4, is_bf16)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"tap_block: 4Co={CO4} needs {smem} bytes of shared memory")
+    out = torch.empty((B, H2, W2, CO4), dtype=x_s2d.dtype, device=x_s2d.device)
+    with torch.cuda.device(x_s2d.device):
+        stream = torch.cuda.current_stream(x_s2d.device).cuda_stream
+        rc = lib.tap_block_launch(
+            x_s2d.data_ptr(), te4.data_ptr(), bw["w1"].data_ptr(), bw["w2"].data_ptr(),
+            bw["b1"].data_ptr(), bw["bsk"].data_ptr(), bw["bsh"].data_ptr(), bw["b2"].data_ptr(),
+            out.data_ptr(), B, H2, W2, C4, CO4, is_bf16, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tap_block launch failed with CUDA error {rc}")
+    with _COUNT_LOCK:
+        tap_block.launches += 1
+    return out
+
+
+tap_block.launches = 0

@@ -1,0 +1,117 @@
+"""Guards of the PyTorch port: it and chip_smoke.py import nothing of JAX,
+flax, msgpack, PIL, cv2 or the reference package (the card's machine has
+none of them); chip_smoke.py fails without a card and alone; and its
+golden values are what the reference package computes."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from diffusionremotesensing_tpu.io import import_torch_state_dict
+from diffusionremotesensing_tpu.models.unet import residual_attention_unet_superres as jax_superres
+from diffusionremotesensing_tpu_torch.convert import init_params
+from diffusionremotesensing_tpu_torch.models.unet import residual_attention_unet_superres
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "diffusionremotesensing_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "cv2",
+             "diffusionremotesensing_tpu"}
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_nothing_forbidden(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_importing_the_port_loads_nothing_forbidden():
+    """In a fresh interpreter, every module of the port and chip_smoke.py,
+    then sys.modules holds none of the forbidden packages."""
+    mods = ["chip_smoke"] + sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".") for p in _port_sources()
+        if p.startswith(PORT))
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    assert "[device]" in r.stdout and "FAILED" in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=300, env={**os.environ, "PYTHONPATH": ""})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_golden_values_are_the_reference_output():
+    """GOLDEN in chip_smoke.py: the reference package's float32 output for
+    the port's init_params(SEED) weights (carried over by the reference's
+    own importer) at golden_input(); the port's CPU forward agrees too."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    sd = init_params(chip_smoke.SEED, "cpu")
+    x, t, cond = chip_smoke.golden_input()
+    out = np.asarray(jax_superres(magnification_factor=2).apply(
+        import_torch_state_dict(sd), x, t, cond, train=False))
+    g = chip_smoke.GOLDEN
+    np.testing.assert_allclose(out.reshape(-1)[::g["stride"]], g["values"], atol=1e-6)
+    assert abs(np.abs(out.astype(np.float64)).sum() - g["abs_sum"]) < 1e-3
+
+    m = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44="block")
+    m.load_state_dict(sd)
+    with torch.no_grad():
+        got = m.eval()(*(torch.from_numpy(a) for a in (x, t, cond))).numpy()
+    np.testing.assert_allclose(got.reshape(-1)[::g["stride"]], g["values"], atol=chip_smoke.GOLDEN_TOL)
+
+
+def test_chip_smoke_bound_counts_the_blocks_dense_work():
+    """bound_ms counts ResConvBlock-0's own convolutions at 128x128, not the
+    structural zeros that the tap formulation's products carry."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from diffusionremotesensing_tpu_torch.models.blocks import ResConvBlock
+
+    macs = sum(m.out_channels * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+               for m in ResConvBlock(16, 32).modules() if isinstance(m, torch.nn.Conv2d))
+    dense, issued = chip_smoke.block_flops(48, 64, 64, 64, 128)
+    assert dense == 2 * 48 * 128 * 128 * macs
+    assert issued > dense
+    ms, by = chip_smoke.block_bound(48, 64, 64, 64, 128, 2, chip_smoke.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(dense / chip_smoke.PEAK_BF16 * 1e3)

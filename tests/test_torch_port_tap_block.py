@@ -1,0 +1,272 @@
+"""ops/tap_block.py of the port: the BN-folded weights and the plain version
+against the reference package's Pallas tap_block (interpret mode, as
+tests/test_tap_stem.py runs it; float32, atol 2e-5), the wrapper's CPU path
+and checks, and the CUDA source itself: its im2col table against the
+Python one, and the source compiled with g++ under a small emulation of
+the CUDA thread model (one std::thread per CUDA thread, a std::barrier for
+__syncthreads), held against the plain version. The card runs the real
+kernel in chip_smoke.py."""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusionremotesensing_tpu.ops.tap_block import (
+    build_block_weights as jax_build_block_weights,
+    tap_block as jax_tap_block,
+)
+from diffusionremotesensing_tpu_torch.ops import cuda_build
+from diffusionremotesensing_tpu_torch.ops.tap_block import (
+    build_block_weights,
+    tap_block,
+    tap_block_plain,
+)
+from diffusionremotesensing_tpu_torch.ops.tap_conv import PIECES
+
+
+def _raw_weights(seed, ci=16, co=32):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=0.1):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def bn():
+        return {"scale": 1 + r(co, scale=0.2), "bias": r(co), "mean": r(co),
+                "var": np.abs(r(co, scale=0.2)) + 0.5}
+
+    return [r(3, 3, ci, co), r(co), bn(), r(3, 3, ci, co), r(co), r(3, 3, co, co), r(co), bn(),
+            r(1, 1, ci, co), r(co), bn()]
+
+
+def _as(raw, fn):
+    return [{k: fn(v) for k, v in a.items()} if isinstance(a, dict) else fn(a) for a in raw]
+
+
+def _inputs(seed, B, H2, W2, c4=64, co4=128):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H2, W2, c4)).astype(np.float32)
+    te4 = (np.maximum(rng.standard_normal((B, co4)), 0) * 0.3).astype(np.float32)
+    return x, te4
+
+
+def test_build_block_weights_matches_reference():
+    raw = _raw_weights(0)
+    want = jax_build_block_weights(*_as(raw, jnp.asarray))
+    got = build_block_weights(*_as(raw, torch.from_numpy))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("B,H2,W2", [(2, 16, 16), (1, 8, 8)])
+def test_plain_matches_reference_kernel(B, H2, W2):
+    raw = _raw_weights(1)
+    x, te4 = _inputs(2, B, H2, W2)
+    want = jax_tap_block(jnp.asarray(x), jnp.asarray(te4),
+                         jax_build_block_weights(*_as(raw, jnp.asarray)), interpret=True)
+    got = tap_block_plain(torch.from_numpy(x), torch.from_numpy(te4),
+                          build_block_weights(*_as(raw, torch.from_numpy)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_plain_bf16_rounds_like_reference():
+    raw = _raw_weights(3)
+    x, te4 = _inputs(4, 1, 8, 8)
+    bw_j = {k: v.astype(jnp.bfloat16) for k, v in jax_build_block_weights(*_as(raw, jnp.asarray)).items()}
+    want = jax_tap_block(jnp.asarray(x, jnp.bfloat16), jnp.asarray(te4, jnp.bfloat16), bw_j,
+                         interpret=True)
+    bw_t = {k: v.to(torch.bfloat16) for k, v in build_block_weights(*_as(raw, torch.from_numpy)).items()}
+    got = tap_block_plain(torch.from_numpy(x).bfloat16(), torch.from_numpy(te4).bfloat16(), bw_t)
+    assert got.dtype == torch.bfloat16
+    want32 = np.asarray(want.astype(jnp.float32))
+    # both round h and out to bf16 after float32 sums in different orders
+    np.testing.assert_allclose(got.float().numpy(), want32, atol=1e-2 * max(1.0, np.abs(want32).max()))
+
+
+def test_wrapper_cpu_path_is_the_plain_version_and_not_counted():
+    bw = build_block_weights(*_as(_raw_weights(5), torch.from_numpy))
+    x, te4 = (torch.from_numpy(a) for a in _inputs(6, 1, 8, 8))
+    before = tap_block.launches
+    assert torch.equal(tap_block(x, te4, bw), tap_block_plain(x, te4, bw))
+    assert tap_block.launches == before
+
+
+def test_wrapper_refuses_other_devices():
+    bw = {k: v.to("meta") for k, v in build_block_weights(*_as(_raw_weights(7), torch.from_numpy)).items()}
+    x = torch.empty((1, 8, 8, 64), device="meta")
+    with pytest.raises(ValueError):
+        tap_block(x, torch.empty((1, 128), device="meta"), bw)
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """With no nvcc to be found, building raises a clear error: nothing is
+    loaded and nothing falls back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build("tap_block")
+
+
+def test_cuda_piece_table_matches_python_order():
+    with open(os.path.join(cuda_build.CSRC_DIR, "tap_block.cu")) as f:
+        src = f.read()
+
+    def table(name):
+        body = re.search(name + r"\[16\] = \{([^}]*)\}", src).group(1)
+        return [int(v) for v in body.split(",")]
+
+    rows, cols = table("kPieceRow"), table("kPieceCol")
+    assert [(r, c, k % 4) for k, (r, c) in enumerate(zip(rows, cols))] == PIECES
+
+
+_EMULATION_PRELUDE = r"""
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <math.h>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+using std::min;
+struct dim3 { unsigned x, y, z; };
+struct uint3e { unsigned x, y, z; };
+static thread_local uint3e threadIdx;
+static uint3e blockIdx;
+static std::barrier<>* g_bar;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(n)
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+struct __nv_bfloat16 { uint16_t v; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.v) << 16; float f; std::memcpy(&f, &u, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fffu + ((u >> 16) & 1u);
+  __nv_bfloat16 b; b.v = uint16_t(u >> 16); return b; }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+namespace { alignas(128) unsigned char smem_raw[232448]; }
+// WMMA: every thread of a warp holds the whole 16x16 tile (the API keeps
+// fragment contents opaque, so this is its meaning); lane 0 stores
+namespace nvcuda { namespace wmma {
+struct matrix_a {}; struct matrix_b {}; struct accumulator {}; struct row_major {};
+enum layout_t { mem_row_major };
+template <typename Use, int M, int N, int K, typename T, typename L = void>
+struct fragment { float v[256]; };
+template <typename F> inline void fill_fragment(F& f, float val) { for (float& e : f.v) e = val; }
+template <typename U, typename T, typename L>
+inline void load_matrix_sync(fragment<U, 16, 16, 16, T, L>& f, const T* p, unsigned ldm) {
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) f.v[r * 16 + c] = __bfloat162float(p[r * ldm + c]); }
+template <typename A, typename B, typename C>
+inline void mma_sync(C& d, const A& a, const B& b, const C& c) {
+  float t[256];
+  for (int m = 0; m < 16; ++m)
+    for (int n = 0; n < 16; ++n) {
+      float s = c.v[m * 16 + n];
+      for (int k = 0; k < 16; ++k) s += a.v[m * 16 + k] * b.v[k * 16 + n];
+      t[m * 16 + n] = s;
+    }
+  std::memcpy(d.v, t, sizeof(t)); }
+template <typename F>
+inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
+  if (threadIdx.x % 32 != 0) return;
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.v[r * 16 + c]; }
+}}
+"""
+
+_EMULATION_LAUNCHER = r"""
+template <typename K>
+static void emu_grid(int B, int H2, int W2, K kernel) {
+  std::memset(smem_raw, 0xff, sizeof(smem_raw));  // shared memory starts as garbage
+  for (int z = 0; z < B; ++z)
+    for (int y = 0; y < (H2 + TILE - 1) / TILE; ++y)
+      for (int xb = 0; xb < (W2 + TILE - 1) / TILE; ++xb) {
+        blockIdx = {unsigned(xb), unsigned(y), unsigned(z)};
+        std::barrier<> bar(NTHREADS);
+        g_bar = &bar;
+        std::vector<std::thread> ts;
+        for (int t = 0; t < NTHREADS; ++t)
+          ts.emplace_back([=] {
+            threadIdx = {unsigned(t), 0, 0};
+            kernel();
+          });
+        for (auto& th : ts) th.join();
+      }
+}
+extern "C" void emu_launch(const void* x, const void* te4, const void* w1, const void* w2,
+                           const void* b1, const void* bsk, const void* bsh, const void* b2,
+                           void* out, int B, int H2, int W2, int C4, int CO4, int is_bf16) {
+  typedef const __nv_bfloat16* H;
+  typedef const float* F;
+  if (is_bf16)
+    emu_grid(B, H2, W2, [=] { tap_block_tc_kernel((H)x, (H)te4, (H)w1, (H)w2, (H)b1, (H)bsk,
+                                                  (H)bsh, (H)b2, (__nv_bfloat16*)out, H2, W2,
+                                                  C4, CO4); });
+  else
+    emu_grid(B, H2, W2, [=] { tap_block_fma_kernel((F)x, (F)te4, (F)w1, (F)w2, (F)b1, (F)bsk,
+                                                   (F)bsh, (F)b2, (float*)out, H2, W2, C4,
+                                                   CO4); });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_kernel(tmp_path_factory):
+    """csrc/tap_block.cu's device code (everything above its host launcher),
+    compiled for the CPU with the emulation prelude."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the CUDA source cannot be emulated here")
+    with open(os.path.join(cuda_build.CSRC_DIR, "tap_block.cu")) as f:
+        src = f.read()
+    device_code = src.split("// ---- host launcher")[0]
+    device_code = "\n".join(ln for ln in device_code.splitlines() if not ln.startswith("#include"))
+    d = tmp_path_factory.mktemp("tap_block_emulation")
+    (d / "emu.cpp").write_text(_EMULATION_PRELUDE + device_code + _EMULATION_LAUNCHER)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o",
+                    str(d / "libemu.so"), str(d / "emu.cpp")], check=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "libemu.so"))
+    lib.emu_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    lib.emu_launch.restype = None
+    return lib
+
+
+@pytest.mark.parametrize("B,H2,W2,dtype", [
+    (1, 16, 16, torch.float32),   # the HR-32 shape of the tests
+    (2, 20, 12, torch.float32),   # several tiles, ragged edges
+    (1, 5, 33, torch.float32),    # one row of ragged tiles
+    (1, 16, 16, torch.bfloat16),  # the tensor-core path
+    (1, 20, 12, torch.bfloat16),  # ... with ragged tiles
+])
+def test_cuda_source_emulated_matches_plain(emulated_kernel, B, H2, W2, dtype):
+    bw = {k: v.to(dtype).contiguous()
+          for k, v in build_block_weights(*_as(_raw_weights(8), torch.from_numpy)).items()}
+    x, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(9, B, H2, W2))
+    out = torch.empty((B, H2, W2, 128), dtype=dtype)
+    emulated_kernel.emu_launch(
+        x.data_ptr(), te4.data_ptr(), *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
+        out.data_ptr(), B, H2, W2, 64, 128, int(dtype == torch.bfloat16))
+    want = tap_block_plain(x, te4, bw).float()
+    scale = max(1.0, want.abs().max().item())
+    # float32: the same products summed in another order; bfloat16: h and the
+    # output rounded to bf16 on either side of a boundary (chip_smoke.py)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    assert (out.float() - want).abs().max().item() <= tol * scale

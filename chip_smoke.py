@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path on one CUDA card.
+"""Drive the PyTorch/H100 port's main paths on one CUDA card.
 
     python3 chip_smoke.py [--profile]
+
+Two paths of x2 super-resolution at full width and depth (random weights
+from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
+
+* unfused: tap44='block', whose one kernel is tap_block;
+* fused:   tap44='block', fused_att=True, dec_block=True, and the ancestral
+           sampler with fused_update=True: tap_block, att_head_block,
+           dec_block and ancestral_update.
 
 Phases, each printing one line with its name, seconds and result:
 
 1. device  - require a CUDA card; print its name and nvidia-smi's name and
              power limit.
-2. build   - nvcc every CUDA source of the port (csrc/*.cu), in parallel.
-3. kernel  - hold tap_block (csrc/tap_block.cu) against tap_block_plain on
-             the card at the main path's shapes (B=48 and the B=1 remainder
-             chunk, 64x64 s2d pixels) in bfloat16 and float32; time the
-             kernel, the plain version and the cuDNN dense-s2d composition of
-             the same block (the yardstick, never called by the port).
+2. build   - nvcc every CUDA source of the port (csrc/*.cu), one process
+             per source, all started together; print each one's ptxas lines.
+3. kernel  - hold each kernel against its plain version on the card at the
+             main path's shapes (B=48 and the B=1 remainder chunk, 64x64 s2d
+             pixels) in bfloat16 and float32; time the kernel, the plain
+             version and the port's unfused ops for the same function (the
+             yardstick, which the fused path never calls). ancestral_update
+             also: its generator's words equal the plain Philox's, the given
+             bits mode, the moments of its noise, the last step exact.
 4. golden  - the full-width UNet on the card in float32 (plain forward, s2d,
-             s2d with the kernel) against values the JAX reference package
-             computed for the same weights and input (GOLDEN below).
-5. model   - the full-width UNet forward at B=48, HR 128, with the kernel
-             against the dense-s2d path, in bfloat16 and float32.
-6. serve   - InferenceServer (super-resolution x2, cosine T=1500, bfloat16,
-             s2d, tap_block) answers 4 concurrent 64x64 requests at DDIM-100,
-             2 tiles of 256x256 at DDIM-100 and 2 tiles at the ancestral
-             T=1500 chain (two of each, so that the spread within one run
-             shows); checks shapes, finiteness, range and that tap_block
-             launched exactly once per UNet forward.
+             s2d with tap_block, the fused configuration) against values the
+             JAX reference package computed for the same weights and input
+             (GOLDEN below).
+5. model   - the full-width UNet forward at B=48, HR 128: tap_block and the
+             fused configuration each against the dense-s2d path, in
+             bfloat16 and float32; and one DDIM-100 tile of the fused
+             configuration against the unfused one in float32.
+6. serve   - each path with every launch count set to 0 just before it and
+             read just after. Unfused: an InferenceServer answers 4
+             concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
+             DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused: a
+             server of the fused model answers 4 concurrent DDIM-100
+             requests and 1 DDIM-100 tile, and AggregationSampler with
+             fused_update=True on its process 1 T=1500 tile. Checks shapes,
+             finiteness, range and the exact launches of every kernel.
 7. profile - only with --profile: where one sampler step's time goes, for
-             one UNet forward of the served configuration at B=48 and B=1:
+             one UNet forward of each served configuration at B=48 and B=1:
              device ms, host ms to issue it, wall ms, and the top kernels by
              device time from torch.profiler.
 
@@ -42,20 +58,37 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler  # noqa: E402
 from diffusionremotesensing_tpu_torch.convert import init_params  # noqa: E402
-from diffusionremotesensing_tpu_torch.diffusion import make_process  # noqa: E402
+from diffusionremotesensing_tpu_torch.diffusion import ddpm_step, make_process  # noqa: E402
+from diffusionremotesensing_tpu_torch.models.blocks import bn_eval  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.unet import (  # noqa: E402
     residual_attention_unet_superres,
 )
 from diffusionremotesensing_tpu_torch.ops import cuda_build  # noqa: E402
-from diffusionremotesensing_tpu_torch.ops.s2d import conv_nhwc  # noqa: E402
+from diffusionremotesensing_tpu_torch.ops.att_block import (  # noqa: E402
+    att_head_block,
+    att_head_block_plain,
+)
+from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block, dec_block_plain  # noqa: E402
+from diffusionremotesensing_tpu_torch.ops.fused_update import (  # noqa: E402
+    ancestral_update,
+    ancestral_update_plain,
+    draw_seed,
+    philox_bits,
+    philox_bits_plain,
+    update_coefs,
+)
+from diffusionremotesensing_tpu_torch.ops.s2d import conv_nhwc, space_to_depth  # noqa: E402
 from diffusionremotesensing_tpu_torch.ops.tap_block import tap_block, tap_block_plain  # noqa: E402
+from diffusionremotesensing_tpu_torch.schedules import make_schedule  # noqa: E402
 from diffusionremotesensing_tpu_torch.serving import InferenceServer  # noqa: E402
 
 SEED = 0
@@ -64,21 +97,43 @@ DDIM_STEPS = 100
 HR = 128                      # HR patch edge of the main path (LR 64)
 TILE_LR = 256                 # LR tile edge
 B_FLAG = 48                   # patches per chunk on the main path
+N_CHUNKS = 2                  # a tile's 49 patches: one chunk of 48 and the remainder of 1
 PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor FLOP/s
 PEAK_F32 = 67e12              # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
+FUSED = dict(fused_att=True, dec_block=True)
+
+# Every kernel of the paths: its wrapper, source, the TPU kernel it
+# replaces, and the dtype its main path runs it in (the sampler's state,
+# which ancestral_update updates, is float32).
+KERNELS = {
+    "tap_block": (tap_block, "tap_block.cu", "diffusionremotesensing_tpu/ops/tap_block.py:427",
+                  torch.bfloat16),
+    "att_head_block": (att_head_block, "att_head_block.cu",
+                       "diffusionremotesensing_tpu/ops/att_block.py:155", torch.bfloat16),
+    "dec_block": (dec_block, "dec_block.cu", "diffusionremotesensing_tpu/ops/dec_block.py:178",
+                  torch.bfloat16),
+    "ancestral_update": (ancestral_update, "ancestral_update.cu",
+                         "diffusionremotesensing_tpu/ops/fused_update.py:115", torch.float32),
+}
 
 # Tolerances, max |kernel - plain| <= tol * max(1, max |plain|):
-# bfloat16: both versions round h and the output to bf16 after float32 sums
-# taken in different orders, so a value at a rounding boundary may land one
-# ulp (2**-8 relative) apart, and such an h flip moves the output by less;
-# 1e-2 is 2.5 ulps at the top of the range.
-# float32: float32 sums of up to 1024 products in different orders.
+# bfloat16: both versions round their intermediates and outputs to bf16
+# after float32 sums taken in different orders, so a value at a rounding
+# boundary may land one ulp (2**-8 relative) apart, and such a flip moves
+# what follows by less; 1e-2 is 2.5 ulps at the top of the range.
+# float32: float32 sums of up to 1728 products in different orders.
 KERNEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# whole UNet, kernel path against the dense-s2d path: float32 as above
+# whole UNet, kernel paths against the dense-s2d path: float32 as above
 # (TF32 off); bfloat16 rounds every layer's output, ~25 layers deep, and
 # read 1.5e-3 at this shape on an H100, so 1e-2 leaves ~7x headroom.
 MODEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# a DDIM-100 tile, fused against unfused, float32: 100 forwards whose
+# float32 differences (~1e-7 each) pass through the clamped x0 predictions
+TILE_TOL = 1e-3
+# the noise of one flagship state (2,359,296 draws): the standard errors of
+# its mean and standard deviation are 6.5e-4 and 4.6e-4
+Z_MOMENT_TOL = 5e-3
 GOLDEN_TOL = 1e-4
 PROFILE_N = 4  # forwards per profile reading (~200 launches each fit the launch queue)
 
@@ -140,21 +195,62 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def model_with(s2d, tap44, device, dtype=torch.float32):
-    m = residual_attention_unet_superres(magnification_factor=2, s2d=s2d, tap44=tap44)
+def model_with(s2d, tap44, device, dtype=torch.float32, fused=False):
+    m = residual_attention_unet_superres(magnification_factor=2, s2d=s2d, tap44=tap44,
+                                         **(FUSED if fused else {}))
     m.load_state_dict(init_params(SEED, "cpu"))
     return m.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
+def zero_counts():
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+# ----------------------------------------------------------- the yardsticks:
+# the port's unfused ops for the function each kernel computes (never called
+# by the fused path)
+
 def block_dense_s2d(h_s, te4, k):
-    """The yardstick: ResConvBlock-0 as cuDNN convolutions on the dense s2d
-    kernels (the port's tap44=False path, written out here)."""
+    """ResConvBlock-0 as cuDNN convolutions on the dense s2d kernels (the
+    port's tap44=False path, written out here)."""
     h = torch.relu(conv_nhwc(h_s, k["blk_conv1"], k["blk_b1"], padding=1) * k["bn0_a"] + k["bn0_c"])
     h = h + conv_nhwc(h_s, k["blk_skip"], k["blk_bsk"], padding=1) + te4[:, None, None, :]
     h = conv_nhwc(h, k["blk_conv2"], k["blk_b2"], padding=1) * k["bn1_a"] + k["bn1_c"]
     s = conv_nhwc(h_s, k["blk_short"], k["blk_bsh"]) * k["bn2_a"] + k["bn2_c"]
     return torch.relu(s + h)
 
+
+def att_unfused(m, x, h, k):
+    """Gating signal 2, attention gate 2 and head_at as the fused_att=False
+    path runs them."""
+    g = m.gating_signals[2](h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return conv_nhwc(m._attention_s2d(x, g, k), k["head_at"], padding=1)
+
+
+def dec_unfused(m, xa, xb, te, k):
+    """The concat conv, the UpConvBlock-2 body and head_up4 as the
+    dec_block=False path runs them."""
+    h = m.up_convs[1](torch.cat([xa, xb], dim=-1).permute(0, 3, 1, 2))
+    up = m.ups[2]
+    hh = torch.relu(bn_eval(up.conv(h + te[:, :, None, None]), up.batch_norm)).permute(0, 2, 3, 1)
+    return (h.permute(0, 2, 3, 1), hh[:, :1], hh[:, :, :1],
+            conv_nhwc(hh, k["head_up4"], padding=((1, 2), (1, 2))))
+
+
+def update_unfused(schedule, x, eps, i, gen):
+    """The unfused step: noise drawn in the original layout, moved to s2d,
+    then ddpm_step."""
+    b, h2, w2, c4 = x.shape
+    z = torch.randn((b, 2 * h2, 2 * w2, c4 // 4), generator=gen, device=x.device, dtype=x.dtype)
+    return ddpm_step(schedule, x, eps, i, space_to_depth(z))
+
+
+# ------------------------------------------------------------------ bounds
 
 def block_flops(B, H2, W2, C4, CO4):
     """(dense, issued) FLOPs of one tap_block call. Dense is the block's own
@@ -168,14 +264,46 @@ def block_flops(B, H2, W2, C4, CO4):
     return dense, issued
 
 
+def _bound(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def block_bound(B, H2, W2, C4, CO4, itemsize, peak):
     """Least time (ms) for one tap_block call: bytes each read or written
     once, the block's dense operations at the card's peak for the input type."""
     flops, _ = block_flops(B, H2, W2, C4, CO4)
     nbytes = itemsize * (B * H2 * W2 * C4 + B * CO4 + 4 * C4 * 3 * CO4 + 4 * CO4 * CO4
                          + 4 * CO4 + B * H2 * W2 * CO4)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, peak)
+
+
+def att_bound(B, H, W, itemsize, peak, c4=128, c=32, ch=64, out4=12):
+    """Least time (ms) for one att_head_block call: x and h read and the head
+    contribution written once, the weights once; the products of the chain
+    (gating ch->c, w_g c->c, w_x c4->c, psi c->1, result conv c4->c4) and the
+    3x3 head c4->out4 at the card's peak for the input type."""
+    macs = ch * c + c * c + c4 * c + c + c4 * c4 + 9 * c4 * out4
+    weights = ch * c + c * c + c4 * c + c + c4 * c4 + 9 * c4 * out4 + 3 * c + 1 + c4
+    return _bound(2 * B * H * W * macs, itemsize * (B * H * W * (c4 + ch + out4) + weights), peak)
+
+
+def dec_bound(B, H, W, itemsize, peak, ca=128, cb=64, cm=64, out4=12):
+    """Least time (ms) for one dec_block call: xa, xb, te read and h, the two
+    hh strips and the head contribution written once, the weights once; the
+    3x3 concat conv (ca+cb)->cm, the 3x3 conv cm->cm and the 4x4 head
+    cm->out4 at the card's peak for the input type."""
+    macs = 9 * (ca + cb) * cm + 9 * cm * cm + 16 * cm * out4
+    acts = B * H * W * (ca + cb + cm + out4) + B * cm + B * (H + W) * cm
+    return _bound(2 * B * H * W * macs, itemsize * (acts + macs + 2 * cm), peak)
+
+
+def update_bound(n, itemsize):
+    """Least time (ms) for one ancestral_update call over n elements: x and
+    eps read and x' written once; its 5 float operations an element (the
+    generator's integer work and the transcendentals not counted) at the
+    float32 peak."""
+    return _bound(5 * n, 3 * n * itemsize + 16, PEAK_F32)
 
 
 def profile_forward(proc, batch, dev):
@@ -217,6 +345,20 @@ def profile_forward(proc, batch, dev):
             "kernels": kernels[:12]}
 
 
+def max_err(got, want, dt, what):
+    """max |got - want| over the outputs, each held to KERNEL_TOL of its scale."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        check(torch.isfinite(g).all().item(), f"{what}: non-finite output")
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(err <= KERNEL_TOL[dt] * scale, f"{what}: max|err| {err} > {KERNEL_TOL[dt]} * {scale}")
+        worst = max(worst, err)
+    return worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true", help="also run the profile phase")
@@ -239,60 +381,124 @@ def main():
                 f"CUDA {torch.version.cuda}")
 
     def build():
-        b = cuda_build.build("tap_block")
-        ptxas = [ln.strip() for ln in b.log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
-        return f"tap_block: {b.seconds:.1f}s; " + " | ".join(ptxas)
+        sources = [k[1][:-3] for k in KERNELS.values()]
+        with ThreadPoolExecutor(len(sources)) as ex:
+            built = dict(zip(sources, ex.map(cuda_build.build, sources)))
+        out = []
+        for name, b in built.items():
+            ptxas = [ln.strip() for ln in b.log.splitlines()
+                     if "registers" in ln or "spill" in ln or "smem" in ln]
+            out.append(f"{name}: {b.seconds:.1f}s; " + " | ".join(ptxas))
+        return "\n".join(out)
 
     def kernel():
-        rows = []
+        rows = {name: [] for name in KERNELS}
+        sch = make_schedule("cosine", T_STEPS)
         for dt in (torch.bfloat16, torch.float32):
-            kb = model_with(True, "block", dev).prepare_s2d_kernels(dt)
-            kd = model_with(True, False, dev).prepare_s2d_kernels(dt)
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+            kf = model_with(True, "block", dev, fused=True).prepare_s2d_kernels(dt)
+            mu = model_with(True, False, dev, dt)  # the unfused modules, for the yardsticks
+            kd = mu.prepare_s2d_kernels()
             for B in (B_FLAG, 1):
                 g = torch.Generator(device=dev).manual_seed(B)
-                x = torch.randn((B, HR // 2, HR // 2, 64), generator=g, device=dev).to(dt)
-                te4 = torch.relu(torch.randn((B, 128), generator=g, device=dev)).to(dt)
-                got = tap_block(x, te4, kb["tap_block"])
-                want = tap_block_plain(x, te4, kb["tap_block"])
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                scale = max(1.0, want.float().abs().max().item())
-                check(torch.isfinite(got.float()).all().item(), f"tap_block {dt} B={B}: non-finite")
-                check(err <= KERNEL_TOL[dt] * scale,
-                      f"tap_block {dt} B={B}: max|err| {err} > {KERNEL_TOL[dt]} * {scale}")
-                row = {"dtype": str(dt).split(".")[-1], "B": B, "max_abs_err": err, "scale": scale}
+
+                def randn(*shape):
+                    return torch.randn(shape, generator=g, device=dev).to(dt)
+
+                s = HR // 2
+                x, te4 = randn(B, s, s, 64), torch.relu(randn(B, 128))
+                xs, hs = randn(B, s, s, 128), randn(B, s, s, 64)
+                xa, xb, te = randn(B, s, s, 128), randn(B, s, s, 64), torch.relu(randn(B, 64))
+                xu, eu = randn(B, s, s, 12), randn(B, s, s, 12)
+                seed, step = draw_seed(g, dev), 750
+                coefs = update_coefs(sch, step)
+                calls = {
+                    "tap_block": (lambda: tap_block(x, te4, kf["tap_block"]),
+                                  lambda: tap_block_plain(x, te4, kf["tap_block"]),
+                                  lambda: block_dense_s2d(x, te4, kd),
+                                  lambda: block_bound(B, s, s, 64, 128, x.element_size(), peak)),
+                    "att_head_block": (lambda: att_head_block(xs, hs, kf["att_fused"]),
+                                       lambda: att_head_block_plain(xs, hs, kf["att_fused"]),
+                                       lambda: att_unfused(mu, xs, hs, kd),
+                                       lambda: att_bound(B, s, s, xs.element_size(), peak)),
+                    "dec_block": (lambda: dec_block(xa, xb, te, kf["dec"]),
+                                  lambda: dec_block_plain(xa, xb, te, kf["dec"]),
+                                  lambda: dec_unfused(mu, xa, xb, te, kd),
+                                  lambda: dec_bound(B, s, s, xa.element_size(), peak)),
+                    "ancestral_update": (lambda: ancestral_update(xu, eu, coefs, seed, step),
+                                         lambda: ancestral_update_plain(xu, eu, coefs, seed, step),
+                                         lambda: update_unfused(sch, xu, eu, step, g),
+                                         lambda: update_bound(xu.numel(), xu.element_size())),
+                }
+                for name, (fn, plain, library, bound) in calls.items():
+                    got, want = fn(), plain()
+                    torch.cuda.synchronize()
+                    single = isinstance(got, torch.Tensor)
+                    err = max_err([got] if single else got, [want] if single else want, dt,
+                                  f"{name} {dt} B={B}")
+                    row = {"dtype": str(dt).split(".")[-1], "B": B, "max_abs_err": err,
+                           "ms": time_ms(fn)}
+                    if B == B_FLAG:
+                        row["plain_ms"] = time_ms(plain, reps=5)
+                        row["library_ms"] = time_ms(library)
+                        row["bound_ms"], row["bound_by"] = bound()
+                    rows[name].append(row)
                 if B == B_FLAG:
-                    row["ms"] = time_ms(lambda: tap_block(x, te4, kb["tap_block"]))
-                    row["plain_ms"] = time_ms(lambda: tap_block_plain(x, te4, kb["tap_block"]),
-                                              reps=5)
-                    row["library_ms"] = time_ms(lambda: block_dense_s2d(x, te4, kd))
-                    row["bound_ms"], row["bound_by"] = block_bound(
-                        B, HR // 2, HR // 2, 64, 128, x.element_size(),
-                        PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
-                    row["dense_gflop"], row["issued_gflop"] = (
-                        f / 1e9 for f in block_flops(B, HR // 2, HR // 2, 64, 128))
-                rows.append(row)
+                    rows["tap_block"][-1].update(zip(
+                        ("dense_gflop", "issued_gflop"),
+                        (f / 1e9 for f in block_flops(B, s, s, 64, 128))))
+                if B == B_FLAG and dt == torch.float32:
+                    rows["ancestral_update"][-1].update(
+                        check_update(sch, xu, eu, seed, step, g))
         state["kernel_rows"] = rows
         return json.dumps(rows)
+
+    def check_update(sch, x, eps, seed, step, g):
+        """The generator and the noise of ancestral_update at the flagship
+        state, float32."""
+        n = x.numel()
+        check(torch.equal(philox_bits(seed, step, n), philox_bits_plain(seed, step, n)),
+              "ancestral_update: the kernel's Philox words differ from the plain version's")
+        bits = torch.randint(-2**31, 2**31, (2, *x.shape), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        coefs = update_coefs(sch, step)
+        bits_err = max_err([ancestral_update(x, eps, coefs, None, step, bits)],
+                           [ancestral_update_plain(x, eps, coefs, None, step, bits)],
+                           torch.float32, "ancestral_update bits mode")
+        zero = torch.zeros_like(x)
+        z = ancestral_update(zero, zero, (0.0, 0.0, 1.0), seed, step).double()
+        mean, std = z.mean().item(), z.std().item()
+        check(abs(mean) < Z_MOMENT_TOL and abs(std - 1.0) < Z_MOMENT_TOL,
+              f"ancestral_update noise: mean {mean}, std {std}")
+        ca, cb, cn = update_coefs(sch, 1)
+        check(cn == 0.0 and torch.equal(ancestral_update(x, eps, (ca, cb, cn), seed, 1),
+                                         ca * x - cb * eps),
+              "ancestral_update at i == 1 is not ca*x - cb*eps")
+        return {"bits_equal": True, "bits_mode_err": bits_err, "z_mean": mean, "z_std": std,
+                "last_step_exact": True}
 
     def golden():
         check(len(GOLDEN["values"]) > 0, "GOLDEN values missing")
         x, t, cond = (torch.from_numpy(a).to(dev) for a in golden_input())
         want = np.asarray(GOLDEN["values"], np.float64)
         errs = {}
-        for s2d, tap44 in ((False, False), (True, False), (True, "block")):
-            before = tap_block.launches
+        for s2d, tap44, fused in ((False, False, False), (True, False, False),
+                                  (True, "block", False), (True, "block", True)):
+            before = read_counts()
             with torch.inference_mode():
-                out = model_with(s2d, tap44, dev)(x, t, cond).cpu().numpy().astype(np.float64)
-            if tap44 == "block":
-                check(tap_block.launches == before + 1, "golden: tap_block did not launch")
+                out = model_with(s2d, tap44, dev, fused=fused)(x, t, cond).cpu().numpy()
+            out = out.astype(np.float64)
+            ran = {k: v - before[k] for k, v in read_counts().items()}
+            want_ran = {"tap_block": int(tap44 == "block"), "att_head_block": int(fused),
+                        "dec_block": int(fused), "ancestral_update": 0}
+            check(ran == want_ran, f"golden: launches {ran}, expected {want_ran}")
             got = out.reshape(-1)[::GOLDEN["stride"]]
             err = float(np.abs(got - want).max())
             abs_sum_err = abs(float(np.abs(out).sum()) - GOLDEN["abs_sum"]) / out.size
+            what = f"s2d={s2d},tap44={tap44},fused={fused}"
             check(err <= GOLDEN_TOL and abs_sum_err <= GOLDEN_TOL,
-                  f"golden s2d={s2d} tap44={tap44}: max|err| {err}, mean |abs| err {abs_sum_err}")
-            errs[f"s2d={s2d},tap44={tap44}"] = err
+                  f"golden {what}: max|err| {err}, mean |abs| err {abs_sum_err}")
+            errs[what] = err
         return json.dumps(errs)
 
     def model():
@@ -303,77 +509,131 @@ def main():
             t = torch.randint(1, T_STEPS, (B_FLAG,), generator=g, device=dev).float()
             cond = torch.rand((B_FLAG, HR // 2, HR // 2, 3), generator=g, device=dev)
             outs = {}
-            for tap44 in ("block", False):
-                m = model_with(True, tap44, dev, dt)
+            for name, tap44, fused in (("block", "block", False), ("dense", False, False),
+                                       ("fused", "block", True)):
+                m = model_with(True, tap44, dev, dt, fused=fused)
                 with torch.inference_mode():
-                    outs[tap44] = m(x, t, cond, s2d_kernels=m.prepare_s2d_kernels())
+                    outs[name] = m(x, t, cond, s2d_kernels=m.prepare_s2d_kernels())
             torch.cuda.synchronize()
-            a, b = outs["block"], outs[False]
-            check(a.shape == (B_FLAG, HR, HR, 3) and torch.isfinite(a).all().item(),
-                  f"model {dt}: bad output {tuple(a.shape)}")
-            err = (a - b).abs().max().item()
-            scale = max(1.0, b.abs().max().item())
-            check(err <= MODEL_TOL[dt] * scale,
-                  f"model {dt}: max|block - dense| {err} > {MODEL_TOL[dt]} * {scale}")
-            res[str(dt).split(".")[-1]] = {"max_abs_diff": err, "scale": scale}
+            dense = outs["dense"]
+            scale = max(1.0, dense.abs().max().item())
+            r = {"scale": scale}
+            for name in ("block", "fused"):
+                a = outs[name]
+                check(a.shape == (B_FLAG, HR, HR, 3) and torch.isfinite(a).all().item(),
+                      f"model {name} {dt}: bad output {tuple(a.shape)}")
+                err = (a - dense).abs().max().item()
+                check(err <= MODEL_TOL[dt] * scale,
+                      f"model {dt}: max|{name} - dense| {err} > {MODEL_TOL[dt]} * {scale}")
+                r[f"max_abs_diff_{name}"] = err
+            res[str(dt).split(".")[-1]] = r
+        # one DDIM-100 tile, fused against unfused, float32, same noise
+        tile = np.random.default_rng(SEED + 1).random((TILE_LR, TILE_LR, 3)).astype(np.float32)
+        tiles = {}
+        for fused in (False, True):
+            proc = make_process(model_with(True, "block", dev, fused=fused), "cosine", T_STEPS, HR)
+            agg = AggregationSampler(proc, patch_size=HR // 2, stride=HR // 4,
+                                     magnification_factor=2, ddim_steps=DDIM_STEPS)
+            tiles[fused] = agg(tile, generator=torch.Generator(device=dev).manual_seed(3),
+                               device=dev)
+        tile_err = float(np.abs(tiles[True] - tiles[False]).max())
+        check(tile_err <= TILE_TOL, f"DDIM-100 tile, fused vs unfused: max|diff| {tile_err}")
+        res["tile_ddim100_float32_max_abs_diff"] = tile_err
         return json.dumps(res)
 
     def serve():
-        model = model_with(True, "block", dev)
         rng = np.random.default_rng(SEED)
         lrs = [rng.random((HR // 2, HR // 2, 3)).astype(np.float32) for _ in range(4)]
         tile = rng.random((TILE_LR, TILE_LR, 3)).astype(np.float32)
-        ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
-                               dtype=torch.bfloat16, device="cuda")
-        ddpm = InferenceServer(model, "cosine", T_STEPS, HR, dtype=torch.bfloat16, device="cuda")
-        secs = {}
-        try:
-            torch.cuda.synchronize()
-            tap_block.launches = 0
+        outputs = []
+
+        def requests(server, secs):
             results = [None] * 4
-            t0 = time.perf_counter()
 
             def one(i):
-                results[i] = ddim.infer_batch([lrs[i]])[0]
+                results[i] = server.infer_batch([lrs[i]])[0]
 
+            t0 = time.perf_counter()
             threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
             for th in threads:
                 th.start()
             for th in threads:
                 th.join(timeout=600)
             secs["batch_4_requests_ddim100"] = time.perf_counter() - t0
-            tiles = []
+            for r in results:
+                check(r is not None and r.shape == (HR, HR, 3), "batch request unanswered or misshapen")
+            outputs.extend(results)
+
+        def timed(secs, key, fn):
+            t0 = time.perf_counter()
+            outputs.append(fn(tile))
+            secs[key] = time.perf_counter() - t0
+
+        def expect(counts, want, path):
+            check(counts == want, f"{path} path: launches {counts}, expected {want}")
+
+        # ---- the unfused path
+        model = model_with(True, "block", dev)
+        ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
+                               dtype=torch.bfloat16, device="cuda")
+        ddpm = InferenceServer(model, "cosine", T_STEPS, HR, dtype=torch.bfloat16, device="cuda")
+        unfused = {}
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            requests(ddim, unfused)
             for i in range(2):
-                t0 = time.perf_counter()
-                tiles.append(ddim.infer_tile(tile))
-                secs[f"tile_ddim100_{i}"] = time.perf_counter() - t0
-            for i in range(2):
-                t0 = time.perf_counter()
-                tiles.append(ddpm.infer_tile(tile))
-                secs[f"tile_ddpm1500_{i}"] = time.perf_counter() - t0
-            launches = tap_block.launches
-            batches = ddim.batches_run
+                timed(unfused, f"tile_ddim100_{i}", ddim.infer_tile)
+            timed(unfused, "tile_ddpm1500", ddpm.infer_tile)
+            counts_u, batches_u = read_counts(), ddim.batches_run
         finally:
             ddim.shutdown()
             ddpm.shutdown()
-        for r in results:
-            check(r is not None and r.shape == (HR, HR, 3), "batch request unanswered or misshapen")
-            check(np.isfinite(r).all() and r.min() >= 0.0 and r.max() <= 1.0, "batch output range")
-        for tl in tiles:
-            check(tl.shape == (2 * TILE_LR, 2 * TILE_LR, 3), f"tile shape {tl.shape}")
-            check(np.isfinite(tl).all() and tl.min() >= 0.0 and tl.max() <= 1.0, "tile output range")
-        n_chunks = 2  # 49 patches: one chunk of 48 and the remainder of 1
-        expected = batches * DDIM_STEPS + 2 * n_chunks * (DDIM_STEPS + T_STEPS - 1)
-        check(launches == expected, f"tap_block launched {launches} times, expected {expected}")
-        state["launches"] = launches
-        return json.dumps({"micro_batches": batches, "tap_block_launches": launches,
-                           "seconds": secs})
+        forwards = batches_u * DDIM_STEPS + N_CHUNKS * (2 * DDIM_STEPS + T_STEPS - 1)
+        expect(counts_u, {"tap_block": forwards, "att_head_block": 0, "dec_block": 0,
+                          "ancestral_update": 0}, "unfused")
+
+        # ---- the fused path
+        fmodel = model_with(True, "block", dev, fused=True)
+        fddim = InferenceServer(fmodel, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
+                                dtype=torch.bfloat16, device="cuda")
+        fused = {}
+        try:
+            agg = AggregationSampler(fddim.process, patch_size=HR // 2, stride=HR // 4,
+                                     magnification_factor=2, fused_update=True)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            zero_counts()
+            requests(fddim, fused)
+            timed(fused, "tile_ddim100", fddim.infer_tile)
+            timed(fused, "tile_ddpm1500_fused_update",
+                  lambda t: agg(t, generator=gen, device=dev))
+            counts_f, batches_f = read_counts(), fddim.batches_run
+        finally:
+            fddim.shutdown()
+        forwards = batches_f * DDIM_STEPS + N_CHUNKS * (DDIM_STEPS + T_STEPS - 1)
+        expect(counts_f, {"tap_block": forwards, "att_head_block": forwards,
+                          "dec_block": forwards, "ancestral_update": N_CHUNKS * (T_STEPS - 1)},
+               "fused")
+
+        for out in outputs:
+            check(out.shape in ((HR, HR, 3), (2 * TILE_LR, 2 * TILE_LR, 3)), f"shape {out.shape}")
+            check(np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0, "output range")
+        state["launches"] = counts_f
+        return json.dumps({"unfused": {"micro_batches": batches_u, "launches": counts_u,
+                                       "seconds": unfused},
+                           "fused": {"micro_batches": batches_f, "launches": counts_f,
+                                     "seconds": fused}})
 
     def profile():
-        proc = make_process(model_with(True, "block", dev), "cosine", T_STEPS, HR,
-                            dtype=torch.bfloat16)
-        with torch.inference_mode():
-            return "\n".join(json.dumps(profile_forward(proc, b, dev)) for b in (B_FLAG, 1))
+        lines = []
+        for fused in (False, True):
+            proc = make_process(model_with(True, "block", dev, fused=fused), "cosine", T_STEPS, HR,
+                                dtype=torch.bfloat16)
+            with torch.inference_mode():
+                lines += [json.dumps({"fused": fused, **profile_forward(proc, b, dev)})
+                          for b in (B_FLAG, 1)]
+        return "\n".join(lines)
 
     phase("device", device)
     phase("build", build)
@@ -384,20 +644,24 @@ def main():
     if args.profile:
         phase("profile", profile)
 
-    flag = next(r for r in state["kernel_rows"] if r["dtype"] == "bfloat16" and r["B"] == B_FLAG)
-    print(json.dumps({"kernels": [{
-        "name": "tap_block",
-        "route": "cuda",
-        "source": "diffusionremotesensing_tpu_torch/csrc/tap_block.cu",
-        "replaces": "diffusionremotesensing_tpu/ops/tap_block.py:427",
-        "launches": state["launches"],
-        "max_abs_err": flag["max_abs_err"],
-        "ms": flag["ms"],
-        "plain_ms": flag["plain_ms"],
-        "bound_ms": flag["bound_ms"],
-        "bound_by": flag["bound_by"],
-        "library_ms": flag["library_ms"],
-    }]}), flush=True)
+    kernels = []
+    for name, (_, src, replaces, dt) in KERNELS.items():
+        flag = next(r for r in state["kernel_rows"][name]
+                    if r["dtype"] == str(dt).split(".")[-1] and r["B"] == B_FLAG)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"diffusionremotesensing_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": state["launches"][name],
+            "max_abs_err": flag["max_abs_err"],
+            "ms": flag["ms"],
+            "plain_ms": flag["plain_ms"],
+            "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"],
+            "library_ms": flag["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],
                                              "count": state["count"]}}), flush=True)
 

@@ -12,11 +12,14 @@ kernels handed to the ``ops`` transforms are HWIO. Inside the model the
 convolutions run as channels-last ``torch`` convolutions on permuted views,
 so no layout copies are made at the boundary.
 
-The one TPU kernel on the super-resolution path, ``ops/tap_block.py``
-(ResConvBlock-0 fused), is a hand-written CUDA kernel here
-(``csrc/tap_block.cu``), built with ``nvcc`` at first use and bound with
-``ctypes``. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; asked for ``cuda`` without a card they raise.
+The TPU kernels of the super-resolution path are hand-written CUDA kernels
+here, built with ``nvcc`` at first use and bound with ``ctypes``:
+``ops/tap_block.py`` (ResConvBlock-0 fused, ``csrc/tap_block.cu``) and, in
+the fully fused configuration, ``ops/att_block.py`` (``fused_att=True``),
+``ops/dec_block.py`` (``dec_block=True``) and ``ops/fused_update.py`` (the
+ancestral update, ``fused_update=True`` on the samplers). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; asked for ``cuda``
+without a card they raise.
 """
 
 __version__ = "0.1.0"

@@ -63,15 +63,23 @@ def squarify_sizes(width: int, height: int) -> int:
 
 class AggregationSampler:
     """Chunked tiled super-resolution through a :class:`DiffusionProcess`
-    (whose image_size is patch_size * magnification_factor)."""
+    (whose image_size is patch_size * magnification_factor). DDPM sampling
+    (``ddim_steps=None``) takes ``fused_update=True`` to run each step's
+    update as one ``ancestral_update`` kernel call."""
 
     MAX_IN_FLIGHT = 4  # chunks enqueued on the device before the oldest is gathered
 
     def __init__(self, process: DiffusionProcess, patch_size: int, stride: int,
                  magnification_factor: int, batch_size: int = 48,
-                 ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True):
+                 ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True,
+                 fused_update: bool = False):
         if stride > patch_size:
             raise ValueError("stride must be <= patch_size")
+        if fused_update and ddim_steps is not None:
+            # the fused kernel is the ancestral update: under DDIM the flag
+            # would select nothing, so the combination is refused
+            raise ValueError("fused_update applies only to DDPM ancestral sampling; "
+                             "it has no effect under ddim_steps: drop one of the two")
         self.process = process
         self.patch_size = patch_size
         self.stride = stride
@@ -79,6 +87,7 @@ class AggregationSampler:
         self.batch_size = batch_size
         self.ddim_steps = ddim_steps
         self.ddim_clip_x0 = ddim_clip_x0
+        self.fused_update = fused_update
         hr = patch_size * magnification_factor
         self.weight = gaussian_weights(hr, hr)
 
@@ -94,6 +103,8 @@ class AggregationSampler:
     def _sampler(self):
         if self.ddim_steps is not None:
             return self.process.ddim_sampler(self.ddim_steps, self.ddim_clip_x0)
+        if self.fused_update:
+            return self.process.sampler(fused_update=True)
         return self.process.sampler()
 
     def __call__(self, img_lr: np.ndarray, generator: Optional[torch.Generator] = None,

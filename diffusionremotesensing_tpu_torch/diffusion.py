@@ -13,7 +13,11 @@ Python loop of eager steps under ``torch.inference_mode``. The per-step
 schedule coefficients are computed on the host in float32, as the reference
 computes them on the device in float32, and enter the tensor ops as scalars.
 Noise comes from a ``torch.Generator`` (another stream than JAX's threefry;
-``noise_fn`` injects noise, in the original layout, for tests).
+``noise_fn`` injects noise, in the original layout, for tests). With
+``fused_update=True`` the ancestral step and its noise draw are one call of
+``ops.fused_update.ancestral_update`` (a CUDA kernel on the card), whose
+in-kernel generator gives another noise stream again: opt-in, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffusionremotesensing_tpu_torch.ops.fused_update import (
+    ancestral_update,
+    draw_seed,
+    update_coefs,
+)
 from diffusionremotesensing_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
 
@@ -57,7 +66,8 @@ def _hoisted(encode_cond_fn, prepare_fn, cond):
 def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                  encode_cond_fn: Optional[Callable] = None,
                  prepare_fn: Optional[Callable] = None,
-                 state_codec: Optional[tuple] = None):
+                 state_codec: Optional[tuple] = None,
+                 fused_update: bool = False):
     """Ancestral sampler over t = T-1 .. 1.
 
     ``apply_fn(x, t, cond, cond_features, aux) -> eps_hat``; the condition
@@ -65,18 +75,36 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
     once per call, outside the loop. ``state_codec=(encode, decode)`` keeps
     the state in another layout for the whole loop (s2d execution).
 
-    Returns ``sample(x_T, cond=None, generator=None, noise_fn=None) -> x0``."""
+    ``fused_update=True`` runs each step's update and noise draw as one
+    ``ancestral_update`` call, its noise drawn in the state's layout from a
+    generator keyed once per call from ``generator`` (no synchronisation per
+    step); ``bits_fn(i, state_shape) -> (2, *state_shape) int32`` then
+    replaces that generator's words, for tests.
+
+    Returns ``sample(x_T, cond=None, generator=None, noise_fn=None,
+    bits_fn=None) -> x0`` (``noise_fn`` for the unfused update only,
+    ``bits_fn`` for the fused one)."""
     T = schedule.noise_steps
     enc, dec = state_codec if state_codec is not None else (None, None)
+    coefs = [update_coefs(schedule, i) if i > 0 else None for i in range(T)] if fused_update else None
 
     @torch.inference_mode()
-    def sample(x_T, cond=None, generator=None, noise_fn=None):
+    def sample(x_T, cond=None, generator=None, noise_fn=None, bits_fn=None):
+        if fused_update and noise_fn is not None:
+            raise ValueError("noise_fn applies to the unfused update; the fused one takes bits_fn")
+        if not fused_update and bits_fn is not None:
+            raise ValueError("bits_fn applies to the fused update (fused_update=True)")
         feats, aux = _hoisted(encode_cond_fn, prepare_fn, cond)
         n = x_T.shape[0]
         x = enc(x_T) if enc is not None else x_T
+        seed = draw_seed(generator, x.device) if fused_update and bits_fn is None else None
         for i in range(T - 1, 0, -1):
             t = torch.full((n,), float(i), device=x.device)
             eps_hat = apply_fn(x, t, cond, feats, aux)
+            if fused_update:
+                bits = bits_fn(i, tuple(x.shape)).to(x.device) if bits_fn is not None else None
+                x = ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i], seed, i, bits)
+                continue
             if i > 1:
                 z = _noise(noise_fn, generator, i, x_T.shape, x, enc)
             else:
@@ -167,11 +195,14 @@ class DiffusionProcess:
                     prepare_fn=self.prepare_fn if self.s2d else None,
                     state_codec=self.state_codec)
 
-    def sampler(self):
-        """The ancestral sampler (cached)."""
-        if "ddpm" not in self._samplers:
-            self._samplers["ddpm"] = make_sampler(self.apply_fn, self.schedule, **self._hooks())
-        return self._samplers["ddpm"]
+    def sampler(self, fused_update: bool = False):
+        """The ancestral sampler (cached); ``fused_update`` as in
+        :func:`make_sampler`."""
+        key = ("ddpm", fused_update)
+        if key not in self._samplers:
+            self._samplers[key] = make_sampler(self.apply_fn, self.schedule,
+                                               fused_update=fused_update, **self._hooks())
+        return self._samplers[key]
 
     def ddim_sampler(self, num_steps: int, clip_x0: bool = False):
         """The DDIM sampler with ``num_steps`` model evaluations (cached)."""

@@ -18,7 +18,14 @@ Two executions of the same function:
   conv and the ConvTranspose (derivations in the reference's
   ``prepare_s2d_kernels``). With ``tap44='block'`` ResConvBlock-0 is one
   call of ``ops.tap_block.tap_block``, the hand-written CUDA kernel on the
-  card; with ``tap44=False`` it runs as dense s2d convolutions.
+  card; with ``tap44=False`` it runs as dense s2d convolutions. With
+  ``fused_att=True`` gating signal 2, attention gate 2 and the head's
+  ``head_at`` conv are one call of ``ops.att_block.att_head_block``; with
+  ``dec_block=True`` the stage-1 concat conv, the UpConvBlock-2 body and
+  the head's ``head_up4`` conv are one call of ``ops.dec_block.dec_block``
+  (CUDA kernels on the card, both). Unlike the reference, which keeps the
+  unfused chain for shapes its TPU kernels cannot hold, the fused branches
+  run for every shape when their flag is on.
 
 Public tensors are NHWC, as in the reference package: ``forward`` takes x
 (B, H, W, 3), t (B,) and the LR condition (B, H/mag, W/mag, 3), and returns
@@ -44,6 +51,9 @@ from diffusionremotesensing_tpu_torch.models.blocks import (
     UpConvBlock,
     sinusoidal_time_embedding,
 )
+from diffusionremotesensing_tpu_torch.ops.att_block import att_head_block, build_att_weights
+from diffusionremotesensing_tpu_torch.ops.dec_block import build_dec_weights
+from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block as dec_block_kernel
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 from diffusionremotesensing_tpu_torch.ops.s2d import (
     conv_nhwc,
@@ -100,12 +110,16 @@ class ResidualAttentionUNet(nn.Module):
         up_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
         s2d: bool = False,
         tap44: object = False,
+        fused_att: bool = False,
+        dec_block: bool = False,
     ):
         super().__init__()
         if conditioning != "superres":
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
         if tap44 not in TAP44_LEVELS:
             raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
+        if (fused_att or dec_block) and not s2d:
+            raise ValueError("fused_att and dec_block are branches of the s2d path: pass s2d=True")
         self.conditioning = conditioning
         self.image_channels = image_channels
         self.out_dim = out_dim
@@ -116,6 +130,8 @@ class ResidualAttentionUNet(nn.Module):
         self.up_channels = tuple(up_channels)
         self.s2d = s2d
         self.tap44 = tap44
+        self.fused_att = bool(fused_att)
+        self.dec_block = bool(dec_block)
         dc, uc = self.down_channels, self.up_channels
         n_lv = len(dc) - 2
 
@@ -267,11 +283,24 @@ class ResidualAttentionUNet(nn.Module):
         k["head_fix_c"] = K2[1, 1] @ H_up[0, 0]
         b_T = _vec(up.transform.bias).repeat(4)
         k["head_b"] = (b_up @ w_out + b_out).repeat(4)
+        if self.fused_att:
+            gat = self.gating_signals[2]
+            k["att_fused"] = build_att_weights(
+                _hwio(gat.conv), _vec(gat.conv.bias), _bn_dict(gat.batch_norm),
+                _hwio(att.w_g[0]), _vec(att.w_g[0].bias), k["att_wx"], _vec(att.w_x[0].bias),
+                _hwio(att.psi[0]), _vec(att.psi[0].bias), k["att_rc"], _vec(att.result[0].bias),
+                _bn_dict(att.result[1]), k["head_at"],
+            )
+        if self.dec_block:
+            k["dec"] = build_dec_weights(
+                _hwio(self.up_convs[1]), _vec(self.up_convs[1].bias),
+                _hwio(up.conv), _vec(up.conv.bias), _bn_dict(up.batch_norm), k["head_up4"],
+            )
 
         dev = self.conv0.weight.device
         out = {}
         for name, v in k.items():
-            if name == "tap_block":
+            if isinstance(v, dict):  # a kernel's weights, in the layout it takes
                 out[name] = {n: w.to(dev, dt).contiguous() for n, w in v.items()}
             elif name in _CONV_KEYS:
                 out[name] = hwio_to_oihw(v).to(dev, dt).contiguous(memory_format=torch.channels_last)
@@ -331,7 +360,8 @@ class ResidualAttentionUNet(nn.Module):
 
     def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io):
         """Everything after ResConvBlock-0: down0 out of s2d, levels 1+
-        through the ordinary modules, up stage 2 and the composed head."""
+        through the ordinary modules, up stage 2 and the composed head
+        (through the fused kernels where ``dec_block`` / ``fused_att`` ask)."""
         h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
         h = h.permute(0, 3, 1, 2)
         res1 = h = self.conv_blocks[1](h, t_emb)
@@ -339,17 +369,34 @@ class ResidualAttentionUNet(nn.Module):
         res2 = h = self.conv_blocks[2](h, t_emb)
         h = self.downs[2](h)
         h = self.bottle_neck(h, t_emb)
-        for i, res in ((0, res2), (1, res1)):
-            attn = self.attention_blocks[i](res, self.gating_signals[i](h))
-            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb), attn], dim=1))
+        attn = self.attention_blocks[0](res2, self.gating_signals[0](h))
+        h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb), attn], dim=1))
+        attn = self.attention_blocks[1](res1, self.gating_signals[1](h))
+        hup = self.ups[1](h, t_emb)
+        if self.dec_block:
+            # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one call;
+            # h comes back NHWC for the gating branch, hh only as its strips
+            h, hh_row0, hh_col0, out_s = dec_block_kernel(
+                hup.permute(0, 2, 3, 1).contiguous(), attn.permute(0, 2, 3, 1).contiguous(),
+                self.ups[2].time_bias(t_emb).contiguous(), kern["dec"])
+            h = h.permute(0, 3, 1, 2)
+        else:
+            h = self.up_convs[1](torch.cat([hup, attn], dim=1))
+            hh = self.ups[2].body(h, t_emb).permute(0, 2, 3, 1)
+            out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
+            hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
 
-        attn_s = self._attention_s2d(res0_s, self.gating_signals[2](h).permute(0, 2, 3, 1), kern)
-        hh = self.ups[2].body(h, t_emb).permute(0, 2, 3, 1)
-        out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
-        out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
+        if self.fused_att:
+            # gating2 + attention gate 2 + head_at in one call: attn_s never
+            # exists outside the kernel
+            out_s = out_s + att_head_block(res0_s.contiguous(),
+                                           h.permute(0, 2, 3, 1).contiguous(), kern["att_fused"])
+        else:
+            attn_s = self._attention_s2d(res0_s, self.gating_signals[2](h).permute(0, 2, 3, 1),
+                                         kern)
+            out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
         # boundary corrections: the composed conv sees hh's padding through
         # intermediate row/column -1, which the uncomposed head zeroed
-        hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
         out_s[:, :1] -= conv_nhwc(hh_row0, kern["head_fix_x"], padding=((0, 0), (1, 2)))
         out_s[:, :, :1] -= conv_nhwc(hh_col0, kern["head_fix_y"], padding=((1, 2), (0, 0)))
         out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]
@@ -359,12 +406,13 @@ class ResidualAttentionUNet(nn.Module):
 
 def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
                                      magnification_factor: int = 2, s2d: bool = False,
-                                     tap44: object = False) -> ResidualAttentionUNet:
+                                     tap44: object = False, fused_att: bool = False,
+                                     dec_block: bool = False) -> ResidualAttentionUNet:
     """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
     return ResidualAttentionUNet(
         conditioning="superres", image_channels=image_channels, out_dim=out_dim,
         cond_channels=image_channels, magnification_factor=magnification_factor,
-        s2d=s2d, tap44=tap44,
+        s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block,
     )
 
 

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers (no PyTorch
 headers), so one ``nvcc`` call takes seconds. Sources build at first use
 into ``build/`` inside this package (listed in ``.gitignore``); the library
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded.
+name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
+never loaded. :func:`check_operands` holds the tensors a wrapper hands to a
+kernel to the shapes, type, device and layout the kernel takes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -39,6 +43,7 @@ class Built:
 
 
 _LOADED: dict = {}
+_LOCKS: dict = {}  # one per source: different sources build in parallel
 _LOCK = threading.Lock()
 
 
@@ -54,14 +59,21 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
 def build(name: str) -> Built:
-    """Build ``csrc/<name>.cu`` where needed, load it, and return it."""
+    """Build ``csrc/<name>.cu`` where needed, load it, and return it.
+    Calls for different sources may run at once (one ``nvcc`` each)."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         path = _lib_path(name)
@@ -84,3 +96,17 @@ def build(name: str) -> Built:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     return build(name).lib
+
+
+def check_operands(kernel: str, ref: torch.Tensor, operands: dict) -> None:
+    """Raise unless every operand ``name: (tensor, shape)`` has that shape,
+    ``ref``'s dtype and device, and is contiguous: what a kernel of this
+    package takes as it is."""
+    for name, (t, shape) in operands.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.dtype != ref.dtype or t.device != ref.device:
+            raise ValueError(f"{kernel}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {ref.dtype} on {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")

@@ -103,20 +103,10 @@ def _check(x_s2d, te4, bw):
     if C4 % c4_unit or CO4 % 128:
         raise ValueError(f"tap_block needs 4Ci % {c4_unit} == 0 and 4Co % 128 == 0, "
                          f"got {C4}, {CO4}")
-    want = {"te4": (B, CO4), "w1": (4 * C4, 3 * CO4), "w2": (4 * CO4, CO4),
-            "b1": (CO4,), "bsk": (CO4,), "bsh": (CO4,), "b2": (CO4,)}
-    got = dict(bw, te4=te4)
-    for name, shape in want.items():
-        t = got[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"tap_block: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != x_s2d.dtype or t.device != x_s2d.device:
-            raise ValueError(f"tap_block: {name} is {t.dtype} on {t.device}, "
-                             f"x_s2d is {x_s2d.dtype} on {x_s2d.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"tap_block: {name} is not contiguous")
-    if not x_s2d.is_contiguous():
-        raise ValueError("tap_block: x_s2d is not contiguous")
+    want = {"x_s2d": (B, H2, W2, C4), "te4": (B, CO4), "w1": (4 * C4, 3 * CO4),
+            "w2": (4 * CO4, CO4), "b1": (CO4,), "bsk": (CO4,), "bsh": (CO4,), "b2": (CO4,)}
+    got = dict(bw, te4=te4, x_s2d=x_s2d)
+    cuda_build.check_operands("tap_block", x_s2d, {k: (got[k], s) for k, s in want.items()})
 
 
 def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:

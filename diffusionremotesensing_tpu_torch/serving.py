@@ -98,8 +98,10 @@ class InferenceServer:
     """Super-resolution diffusion inference with micro-batching.
 
     ``model`` is a super-resolution ``ResidualAttentionUNet`` whose weights
-    are loaded; it is moved to ``device`` (``cuda`` unless the caller asks for
-    the CPU) and computes in ``dtype`` (default: its parameters' dtype).
+    are loaded, served as its factory built it (``s2d``, ``tap44``,
+    ``fused_att``, ``dec_block``); it is moved to ``device`` (``cuda`` unless
+    the caller asks for the CPU) and computes in ``dtype`` (default: its
+    parameters' dtype).
     ``ddim_steps=None`` serves the reference's ancestral DDPM chain."""
 
     def __init__(self, model, noise_schedule: str, noise_steps: int, image_size: int,

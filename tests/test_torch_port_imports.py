@@ -115,3 +115,43 @@ def test_chip_smoke_bound_counts_the_blocks_dense_work():
     assert issued > dense
     ms, by = chip_smoke.block_bound(48, 64, 64, 64, 128, 2, chip_smoke.PEAK_BF16)
     assert by == "operations" and ms == pytest.approx(dense / chip_smoke.PEAK_BF16 * 1e3)
+
+
+def test_the_fused_path_modules_are_guarded():
+    """The import guards above walk the whole package: the modules of the
+    fused path are among what they check."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("ops/fused_update.py", "ops/att_block.py", "ops/dec_block.py", "diffusion.py",
+                "aggregation.py", "models/unet.py"):
+        assert mod.replace("/", os.sep) in checked
+
+
+def test_chip_smoke_checks_every_cuda_source():
+    """chip_smoke.py builds, checks and counts a kernel for every CUDA
+    source of the port."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    sources = {n for n in os.listdir(os.path.join(PORT, "csrc")) if n.endswith(".cu")}
+    assert {k[1] for k in chip_smoke.KERNELS.values()} == sources
+
+
+def test_chip_smoke_bounds_of_the_fused_kernels():
+    """att_head_block is bound by its bytes, dec_block by its convolutions'
+    operations (counted from the model's own layers), ancestral_update by
+    reading x and eps and writing x' once."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from diffusionremotesensing_tpu_torch.models.unet import ResidualAttentionUNet
+
+    m = ResidualAttentionUNet()
+    convs = (m.up_convs[1], m.ups[2].conv)
+    macs = sum(c.out_channels * c.in_channels * 9 for c in convs) + 16 * 64 * 12
+    ms, by = chip_smoke.dec_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(2 * 48 * 64 * 64 * macs / chip_smoke.PEAK_BF16 * 1e3)
+    ms, by = chip_smoke.att_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(48 * 64 * 64 * (128 + 64 + 12) * 2 / 3.35e12 * 1e3,
+                                                 rel=1e-3)
+    n = 48 * 64 * 64 * 12
+    ms, by = chip_smoke.update_bound(n, 4)
+    assert by == "bytes" and ms == pytest.approx(3 * n * 4 / 3.35e12 * 1e3, rel=1e-6)

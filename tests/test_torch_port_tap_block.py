@@ -30,6 +30,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
     tap_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import PIECES
+from tests.torch_port_helpers import EMULATION_PRELUDE as _EMULATION_PRELUDE
 
 
 def _raw_weights(seed, ci=16, co=32):
@@ -128,69 +129,6 @@ def test_cuda_piece_table_matches_python_order():
     rows, cols = table("kPieceRow"), table("kPieceCol")
     assert [(r, c, k % 4) for k, (r, c) in enumerate(zip(rows, cols))] == PIECES
 
-
-_EMULATION_PRELUDE = r"""
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <math.h>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-#include <thread>
-#include <vector>
-using std::min;
-struct dim3 { unsigned x, y, z; };
-struct uint3e { unsigned x, y, z; };
-static thread_local uint3e threadIdx;
-static uint3e blockIdx;
-static std::barrier<>* g_bar;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __constant__
-#define __launch_bounds__(...)
-#define __shared__
-#define __align__(n)
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
-struct __nv_bfloat16 { uint16_t v; };
-inline float __bfloat162float(__nv_bfloat16 b) {
-  uint32_t u = uint32_t(b.v) << 16; float f; std::memcpy(&f, &u, 4); return f; }
-inline __nv_bfloat16 __float2bfloat16(float f) {
-  uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fffu + ((u >> 16) & 1u);
-  __nv_bfloat16 b; b.v = uint16_t(u >> 16); return b; }
-struct alignas(16) float4 { float x, y, z, w; };
-struct alignas(16) uint4 { unsigned x, y, z, w; };
-namespace { alignas(128) unsigned char smem_raw[232448]; }
-// WMMA: every thread of a warp holds the whole 16x16 tile (the API keeps
-// fragment contents opaque, so this is its meaning); lane 0 stores
-namespace nvcuda { namespace wmma {
-struct matrix_a {}; struct matrix_b {}; struct accumulator {}; struct row_major {};
-enum layout_t { mem_row_major };
-template <typename Use, int M, int N, int K, typename T, typename L = void>
-struct fragment { float v[256]; };
-template <typename F> inline void fill_fragment(F& f, float val) { for (float& e : f.v) e = val; }
-template <typename U, typename T, typename L>
-inline void load_matrix_sync(fragment<U, 16, 16, 16, T, L>& f, const T* p, unsigned ldm) {
-  for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c) f.v[r * 16 + c] = __bfloat162float(p[r * ldm + c]); }
-template <typename A, typename B, typename C>
-inline void mma_sync(C& d, const A& a, const B& b, const C& c) {
-  float t[256];
-  for (int m = 0; m < 16; ++m)
-    for (int n = 0; n < 16; ++n) {
-      float s = c.v[m * 16 + n];
-      for (int k = 0; k < 16; ++k) s += a.v[m * 16 + k] * b.v[k * 16 + n];
-      t[m * 16 + n] = s;
-    }
-  std::memcpy(d.v, t, sizeof(t)); }
-template <typename F>
-inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
-  if (threadIdx.x % 32 != 0) return;
-  for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.v[r * 16 + c]; }
-}}
-"""
 
 _EMULATION_LAUNCHER = r"""
 template <typename K>

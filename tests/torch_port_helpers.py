@@ -1,16 +1,26 @@
 """Shared inputs for the tests of the PyTorch port (tests/test_torch_port_*.py):
 random variables in the reference package's tree layout, drawn with numpy
-(jax.eval_shape gives the tree without compiling flax's init), and the
-port's model loaded with the same weights through convert.from_jax_variables."""
+(jax.eval_shape gives the tree without compiling flax's init), the port's
+model loaded with the same weights through convert.from_jax_variables, and
+the CPU emulation of the CUDA thread model that the port's CUDA sources are
+compiled under with g++ (EMULATION_PRELUDE, compile_emulated)."""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
 
 import jax
 import numpy as np
+import pytest
 
 from diffusionremotesensing_tpu.models.unet import (
     init_unet_params,
     residual_attention_unet_superres as jax_superres,
 )
 from diffusionremotesensing_tpu_torch.convert import from_jax_variables
+from diffusionremotesensing_tpu_torch.ops import cuda_build
 from diffusionremotesensing_tpu_torch.models.unet import (
     residual_attention_unet_superres as torch_superres,
 )
@@ -51,3 +61,132 @@ def model_inputs(seed: int = 0, batch: int = 2, hr: int = 32):
     t = rng.integers(1, 1500, (batch,)).astype(np.int32)
     cond = rng.random((batch, hr // 2, hr // 2, 3)).astype(np.float32)
     return x, t, cond
+
+
+# The CUDA names the port's kernels use, for g++: one std::thread per CUDA
+# thread (threadIdx thread-local), a std::barrier for __syncthreads, bf16 as
+# its 16 bits with round-to-nearest-even, and WMMA with every thread of a
+# warp holding the whole 16x16 tile (the API keeps fragment contents
+# opaque, so this is its meaning; lane 0 stores). emu_run runs a grid.
+EMULATION_PRELUDE = r"""
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <math.h>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+using std::min;
+struct dim3 { unsigned x, y, z; };
+struct uint3e { unsigned x, y, z; };
+static thread_local uint3e threadIdx;
+static uint3e blockIdx;
+static std::barrier<>* g_bar;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(n)
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+struct __nv_bfloat16 { uint16_t v; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.v) << 16; float f; std::memcpy(&f, &u, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fffu + ((u >> 16) & 1u);
+  __nv_bfloat16 b; b.v = uint16_t(u >> 16); return b; }
+struct alignas(16) float4 { float x, y, z, w; };
+#define __host__
+static dim3 gridDim, blockDim;
+inline unsigned __umulhi(unsigned a, unsigned b) { return unsigned((uint64_t(a) * b) >> 32); }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+namespace { alignas(128) unsigned char smem_raw[232448]; }
+// WMMA: every thread of a warp holds the whole 16x16 tile (the API keeps
+// fragment contents opaque, so this is its meaning); lane 0 stores
+namespace nvcuda { namespace wmma {
+struct matrix_a {}; struct matrix_b {}; struct accumulator {}; struct row_major {};
+enum layout_t { mem_row_major };
+template <typename Use, int M, int N, int K, typename T, typename L = void>
+struct fragment { float v[256]; };
+template <typename F> inline void fill_fragment(F& f, float val) { for (float& e : f.v) e = val; }
+template <typename U, typename T, typename L>
+inline void load_matrix_sync(fragment<U, 16, 16, 16, T, L>& f, const T* p, unsigned ldm) {
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) f.v[r * 16 + c] = __bfloat162float(p[r * ldm + c]); }
+template <typename A, typename B, typename C>
+inline void mma_sync(C& d, const A& a, const B& b, const C& c) {
+  float t[256];
+  for (int m = 0; m < 16; ++m)
+    for (int n = 0; n < 16; ++n) {
+      float s = c.v[m * 16 + n];
+      for (int k = 0; k < 16; ++k) s += a.v[m * 16 + k] * b.v[k * 16 + n];
+      t[m * 16 + n] = s;
+    }
+  std::memcpy(d.v, t, sizeof(t)); }
+template <typename F>
+inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
+  if (threadIdx.x % 32 != 0) return;
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.v[r * 16 + c]; }
+}}
+
+// Run `kernel` over `grid` one block at a time, one std::thread per CUDA
+// thread, a std::barrier for __syncthreads; shared memory starts as garbage.
+template <typename K>
+static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
+  gridDim = grid;
+  blockDim = {nthreads, 1, 1};
+  std::memset(smem_raw, 0xff, sizeof(smem_raw));
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        std::barrier<> bar(nthreads);
+        g_bar = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < nthreads; ++t)
+          ts.emplace_back([=] {
+            threadIdx = {t, 0, 0};
+            kernel();
+          });
+        for (auto& th : ts) th.join();
+      }
+}
+"""
+
+
+def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s device code (everything above its host
+    launchers, local headers inlined) plus ``launcher``, compiled for the
+    CPU under EMULATION_PRELUDE. Skips the test when there is no g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the CUDA source cannot be emulated here")
+
+    def source(fname):
+        with open(os.path.join(cuda_build.CSRC_DIR, fname)) as f:
+            lines = f.read().splitlines()
+        out = []
+        for ln in lines:
+            m = re.match(r'#include "(.+)"', ln)
+            if m:
+                out.append(source(m.group(1)))
+            elif not ln.startswith("#include") and not ln.startswith("#pragma once"):
+                out.append(ln)
+        return "\n".join(out)
+
+    device_code = source(f"{name}.cu").split("// ---- host launcher")[0]
+    cpp = os.path.join(out_dir, f"{name}_emu.cpp")
+    lib = os.path.join(out_dir, f"lib{name}_emu.so")
+    with open(cpp, "w") as f:
+        f.write(EMULATION_PRELUDE + device_code + launcher)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", lib, cpp],
+                   check=True, timeout=300)
+    return ctypes.CDLL(lib)

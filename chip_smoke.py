@@ -278,24 +278,47 @@ def block_bound(B, H2, W2, C4, CO4, itemsize, peak):
     return _bound(flops, nbytes, peak)
 
 
+def att_flops(B, H, W, c4=128, c=32, ch=64, out4=12):
+    """Dense FLOPs of one att_head_block call over B x H x W s2d pixels,
+    counted from the model's layers at their own resolution, as block_flops
+    counts: the gating conv ch->c, w_g c->c and psi c->1 at H x W; w_x, the
+    2x2 stride-2 conv C->c (C = c4/4) reading the 2H x 2W skip; the result
+    conv C->C and the composed head_at, a 3x3 conv C->out4/4, at 2H x 2W.
+    The s2d forms the kernel runs (the block-diagonal rc, the 3x3 head_at
+    over all 4 sub-pixels) carry structural zeros, not counted."""
+    cf, o = c4 // 4, out4 // 4
+    macs = ch * c + c * c + c + 4 * cf * c + 4 * cf * cf + 4 * 9 * cf * o
+    return 2 * B * H * W * macs
+
+
 def att_bound(B, H, W, itemsize, peak, c4=128, c=32, ch=64, out4=12):
     """Least time (ms) for one att_head_block call: x and h read and the head
-    contribution written once, the weights once; the products of the chain
-    (gating ch->c, w_g c->c, w_x c4->c, psi c->1, result conv c4->c4) and the
-    3x3 head c4->out4 at the card's peak for the input type."""
-    macs = ch * c + c * c + c4 * c + c + c4 * c4 + 9 * c4 * out4
+    contribution written once, the weights as the kernel takes them once;
+    att_flops at the card's peak for the input type."""
     weights = ch * c + c * c + c4 * c + c + c4 * c4 + 9 * c4 * out4 + 3 * c + 1 + c4
-    return _bound(2 * B * H * W * macs, itemsize * (B * H * W * (c4 + ch + out4) + weights), peak)
+    return _bound(att_flops(B, H, W, c4, c, ch, out4),
+                  itemsize * (B * H * W * (c4 + ch + out4) + weights), peak)
+
+
+def dec_flops(B, H, W, ca=128, cb=64, cm=64, out4=12):
+    """Dense FLOPs of one dec_block call over B x H x W pixels: the 3x3
+    concat conv (ca+cb)->cm and the 3x3 conv cm->cm at H x W, and the
+    composed head_up4 (UpConvBlock-2's 3x3 stride-2 ConvTranspose, then the
+    head's 3x3 conv to out4/4 channels). Through it a full-resolution pixel
+    of even row reaches 3 rows of hh and one of odd row 2, so the four
+    sub-pixels reach 9 + 6 + 6 + 4 = 25 of the 4x4 s2d kernel's 64 taps of
+    each channel pair; the other taps are structural zeros, not counted."""
+    macs = 9 * (ca + cb) * cm + 9 * cm * cm + 25 * cm * (out4 // 4)
+    return 2 * B * H * W * macs
 
 
 def dec_bound(B, H, W, itemsize, peak, ca=128, cb=64, cm=64, out4=12):
     """Least time (ms) for one dec_block call: xa, xb, te read and h, the two
-    hh strips and the head contribution written once, the weights once; the
-    3x3 concat conv (ca+cb)->cm, the 3x3 conv cm->cm and the 4x4 head
-    cm->out4 at the card's peak for the input type."""
-    macs = 9 * (ca + cb) * cm + 9 * cm * cm + 16 * cm * out4
+    hh strips and the head contribution written once, the weights as the
+    kernel takes them once; dec_flops at the card's peak for the input type."""
     acts = B * H * W * (ca + cb + cm + out4) + B * cm + B * (H + W) * cm
-    return _bound(2 * B * H * W * macs, itemsize * (acts + macs + 2 * cm), peak)
+    weights = 9 * (ca + cb) * cm + 9 * cm * cm + 16 * cm * out4 + 2 * cm
+    return _bound(dec_flops(B, H, W, ca, cb, cm, out4), itemsize * (acts + weights), peak)
 
 
 def update_bound(n, itemsize):
@@ -447,6 +470,8 @@ def main():
                     rows["tap_block"][-1].update(zip(
                         ("dense_gflop", "issued_gflop"),
                         (f / 1e9 for f in block_flops(B, s, s, 64, 128))))
+                    rows["att_head_block"][-1]["dense_gflop"] = att_flops(B, s, s) / 1e9
+                    rows["dec_block"][-1]["dense_gflop"] = dec_flops(B, s, s) / 1e9
                 if B == B_FLAG and dt == torch.float32:
                     rows["ancestral_update"][-1].update(
                         check_update(sch, xu, eu, seed, step, g))

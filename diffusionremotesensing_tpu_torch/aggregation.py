@@ -103,9 +103,7 @@ class AggregationSampler:
     def _sampler(self):
         if self.ddim_steps is not None:
             return self.process.ddim_sampler(self.ddim_steps, self.ddim_clip_x0)
-        if self.fused_update:
-            return self.process.sampler(fused_update=True)
-        return self.process.sampler()
+        return self.process.sampler(fused_update=self.fused_update)
 
     def __call__(self, img_lr: np.ndarray, generator: Optional[torch.Generator] = None,
                  device="cuda") -> np.ndarray:

@@ -17,8 +17,10 @@
 //
 // What bounds it. At the main path's shape (B=48, 64x64 s2d pixels) the
 // function reads x and h and writes out once: 80.2 MB in bfloat16, 24 us at
-// 3.35 TB/s; its products are 14.7 GFLOP, 15 us at the 989 TFLOP/s bf16
-// tensor rate. So it is bound by bytes, and the design's aim is that
+// 3.35 TB/s; its products, the model's layers at their own resolution
+// (the s2d forms' structural zeros not counted), are 5.8 GFLOP, 6 us at
+// the 989 TFLOP/s bf16 tensor rate (87 us at the 67 TFLOP/s float32
+// rate). So in bf16 it is bound by bytes, and the design's aim is that
 // attn_s, which the unfused chain writes and reads back (50 MB in bf16),
 // never reaches device memory.
 //

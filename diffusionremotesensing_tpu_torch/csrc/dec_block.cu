@@ -14,9 +14,10 @@
 // compute type where the reference kernel rounds them.
 //
 // What bounds it. At the main path's shape (B=48, 64x64) the three convs
-// are 62.8 GFLOP, 64 us at the 989 TFLOP/s bf16 tensor rate, against
-// 105 MB read and written once (xa, xb, h, out in bf16), 31 us at 3.35 TB/s:
-// bound by operations.
+// are 59.9 GFLOP (the composed head_up4 counted at the 25 of its 64
+// sub-pixel taps that are not structural zeros), 61 us at the 989 TFLOP/s
+// bf16 tensor rate, against 105 MB read and written once (xa, xb, h, out
+// in bf16), 31 us at 3.35 TB/s: bound by operations.
 //
 // Design. The TPU kernel held a whole batch item in VMEM and packed 8 head
 // rows into the lanes of the 12-channel output (a TPU lane device not

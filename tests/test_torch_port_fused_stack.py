@@ -44,9 +44,9 @@ def test_each_fused_branch_matches_the_unfused_path(variables, flags):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
 
 
-def test_fused_flags_need_the_s2d_path():
+def test_fused_flags_need_the_s2d_path(variables):
     with pytest.raises(ValueError, match="s2d"):
-        port_model(random_jax_variables(seed=0, image_size=16), fused_att=True)
+        port_model(variables, fused_att=True)
 
 
 def _box_muller(bits):

@@ -137,21 +137,72 @@ def test_chip_smoke_checks_every_cuda_source():
 
 
 def test_chip_smoke_bounds_of_the_fused_kernels():
-    """att_head_block is bound by its bytes, dec_block by its convolutions'
-    operations (counted from the model's own layers), ancestral_update by
-    reading x and eps and writing x' once."""
+    """att_head_block is bound by its bytes in bfloat16 and by its
+    operations in float32, dec_block by its convolutions' operations,
+    ancestral_update by reading x and eps and writing x' once."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    att, dec = chip_smoke.att_flops(48, 64, 64), chip_smoke.dec_flops(48, 64, 64)
+    ms, by = chip_smoke.dec_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(dec / chip_smoke.PEAK_BF16 * 1e3)
+    ms, by = chip_smoke.att_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(48 * 64 * 64 * (128 + 64 + 12) * 2 / 3.35e12 * 1e3,
+                                                 rel=1e-3)
+    ms, by = chip_smoke.att_bound(48, 64, 64, 4, chip_smoke.PEAK_F32)
+    assert by == "operations" and ms == pytest.approx(att / chip_smoke.PEAK_F32 * 1e3)
+    n = 48 * 64 * 64 * 12
+    ms, by = chip_smoke.update_bound(n, 4)
+    assert by == "bytes" and ms == pytest.approx(3 * n * 4 / 3.35e12 * 1e3, rel=1e-6)
+
+
+def _macs(*convs):
+    """Multiply-adds a pixel of each conv's own output grid."""
+    return [c.in_channels * c.out_channels * c.kernel_size[0] * c.kernel_size[1] // c.groups
+            for c in convs]
+
+
+def test_chip_smoke_fused_flops_count_the_models_layers():
+    """The FLOPs behind the fused kernels' bounds are the model's own layers
+    at their own resolution, as block_flops counts ResConvBlock-0: per s2d
+    pixel, a conv at full resolution counts four times, and head_at is the
+    composed 3x3 conv C->out_dim, not its s2d form."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from diffusionremotesensing_tpu_torch.models.unet import ResidualAttentionUNet
 
     m = ResidualAttentionUNet()
-    convs = (m.up_convs[1], m.ups[2].conv)
-    macs = sum(c.out_channels * c.in_channels * 9 for c in convs) + 16 * 64 * 12
-    ms, by = chip_smoke.dec_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
-    assert by == "operations" and ms == pytest.approx(2 * 48 * 64 * 64 * macs / chip_smoke.PEAK_BF16 * 1e3)
-    ms, by = chip_smoke.att_bound(48, 64, 64, 2, chip_smoke.PEAK_BF16)
-    assert by == "bytes" and ms == pytest.approx(48 * 64 * 64 * (128 + 64 + 12) * 2 / 3.35e12 * 1e3,
-                                                 rel=1e-3)
-    n = 48 * 64 * 64 * 12
-    ms, by = chip_smoke.update_bound(n, 4)
-    assert by == "bytes" and ms == pytest.approx(3 * n * 4 / 3.35e12 * 1e3, rel=1e-6)
+    att, gat = m.attention_blocks[2], m.gating_signals[2].conv
+    g, wg, psi = _macs(gat, att.w_g[0], att.psi[0])
+    wx, rc = _macs(att.w_x[0], att.result[0])
+    c = att.result[0].out_channels
+    head_at = 4 * 9 * c * m.output.out_channels
+    assert chip_smoke.att_flops(48, 64, 64) == 2 * 48 * 64 * 64 * (g + wg + psi + wx + 4 * rc + head_at)
+    assert chip_smoke.att_flops(48, 64, 64) == 2 * 48 * 64 * 64 * 14752
+
+    up = m.ups[2]
+    assert up.transform.kernel_size == (3, 3) and up.transform.stride == (2, 2)
+    head_up4 = 25 * up.transform.in_channels * m.output.out_channels
+    assert chip_smoke.dec_flops(48, 64, 64) == 2 * 48 * 64 * 64 * (sum(_macs(m.up_convs[1], up.conv))
+                                                                  + head_up4)
+
+
+def test_chip_smoke_fused_flops_are_the_nonzero_weights():
+    """Per s2d pixel, the counted multiply-adds are exactly the entries of
+    the fused kernels' weights that are not structural zeros (random
+    weights: every other entry is nonzero)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from diffusionremotesensing_tpu_torch.models.unet import residual_attention_unet_superres
+
+    m = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44="block",
+                                         fused_att=True, dec_block=True).eval()
+    k = m.prepare_s2d_kernels(torch.float32)
+
+    def nonzero(w, names):
+        return sum(int((w[n] != 0).sum()) for n in names)
+
+    att = nonzero(k["att_fused"], ("gw", "wg", "wx", "wpsi", "rc", "at"))
+    dec = nonzero(k["dec"], ("wa", "wb", "k4"))
+    assert chip_smoke.att_flops(2, 64, 64) == 2 * 2 * 64 * 64 * att
+    assert chip_smoke.dec_flops(2, 64, 64) == 2 * 2 * 64 * 64 * dec

@@ -59,7 +59,7 @@ class _JaxStandIn:
 
 
 class _TorchStandIn:
-    def sampler(self):
+    def sampler(self, fused_update=False):
         return lambda x_T, cond, generator=None: (
             cond.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) * 0.8 + 0.1)
 

@@ -6,6 +6,7 @@ the CPU emulation of the CUDA thread model that the port's CUDA sources are
 compiled under with g++ (EMULATION_PRELUDE, compile_emulated)."""
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -26,9 +27,12 @@ from diffusionremotesensing_tpu_torch.models.unet import (
 )
 
 
+@functools.lru_cache(maxsize=None)
 def random_jax_variables(seed: int = 0, image_size: int = 32) -> dict:
     """{'params', 'batch_stats'} of float32 numpy arrays for the x2 model:
-    kernels U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scale/var near 1."""
+    kernels U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scale/var near 1.
+    Cached per (seed, image_size) for the whole test run, so the test files
+    share one tree: callers read it and never write to it."""
     model = jax_superres(magnification_factor=2)
     shapes = jax.eval_shape(
         lambda: init_unet_params(model, jax.random.PRNGKey(0), image_size=image_size))

@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py [--profile]
 
-Two paths of x2 super-resolution at full width and depth (random weights
+Four paths of x2 super-resolution at full width and depth (random weights
 from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
 
 * unfused: tap44='block', whose one kernel is tap_block;
 * fused:   tap44='block', fused_att=True, dec_block=True, and the ancestral
            sampler with fused_update=True: tap_block, att_head_block,
-           dec_block and ancestral_update.
+           dec_block and ancestral_update;
+* stem:    tap44='stem', fused_att=True, dec_block=True, use_pallas=True, and
+           fused_update=True: tap_stem_block, fused_attention_gate (gates 0
+           and 1), att_head_block, dec_block and ancestral_update;
+* tap:     tap44=True: tap_conv_pair (conv1 and skip) and tap_conv (conv2).
 
 Phases, each printing one line with its name, seconds and result:
 
@@ -19,33 +23,39 @@ Phases, each printing one line with its name, seconds and result:
              per source, all started together; print each one's ptxas lines.
 3. kernel  - hold each kernel against its plain version on the card at the
              main path's shapes (B=48 and the B=1 remainder chunk, 64x64 s2d
-             pixels) in bfloat16 and float32; time the kernel, the plain
-             version and the port's unfused ops for the same function (the
-             yardstick, which the fused path never calls). ancestral_update
-             also: its generator's words equal the plain Philox's, the given
-             bits mode, the moments of its noise, the last step exact.
-4. golden  - the full-width UNet on the card in float32 (plain forward, s2d,
-             s2d with tap_block, the fused configuration) against values the
-             JAX reference package computed for the same weights and input
-             (GOLDEN below).
-5. model   - the full-width UNet forward at B=48, HR 128: tap_block and the
-             fused configuration each against the dense-s2d path, in
-             bfloat16 and float32; and one DDIM-100 tile of the fused
-             configuration against the unfused one in float32.
+             pixels; the gates at gates 0 and 1's shapes, and gate 2's of
+             the plain forward) in bfloat16 and float32; time the kernel,
+             the plain version and the port's unfused ops for the same
+             function (the yardstick, which the kernel paths never call).
+             ancestral_update also: its generator's words equal the plain
+             Philox's, the given bits mode, the moments of its noise, the
+             last step exact.
+4. golden  - the full-width UNet on the card in float32 (plain forward, with
+             and without use_pallas; s2d at every tap44 level; the fused and
+             the stem configurations) against values the JAX reference
+             package computed for the same weights and input (GOLDEN below),
+             with the launches each forward makes.
+5. model   - the full-width UNet forward at B=48, HR 128: tap44 'block',
+             'conv2' and True and the fused and stem configurations each
+             against the dense-s2d path, in bfloat16 and float32; and one
+             DDIM-100 tile each of the fused and the stem configurations
+             against the unfused one in float32.
 6. serve   - each path with every launch count set to 0 just before it and
              read just after. Unfused: an InferenceServer answers 4
              concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
-             DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused: a
-             server of the fused model answers 4 concurrent DDIM-100
-             requests and 1 DDIM-100 tile, and AggregationSampler with
-             fused_update=True on its process 1 T=1500 tile. Checks shapes,
-             finiteness, range and the exact launches of every kernel.
+             DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused and
+             stem: a server of the configuration answers 4 concurrent
+             DDIM-100 requests and 1 DDIM-100 tile, and AggregationSampler
+             with fused_update=True on its process 1 T=1500 tile. Tap: 4
+             requests and 1 DDIM-100 tile. Checks shapes, finiteness, range
+             and the exact launches of every kernel.
 7. profile - only with --profile: where one sampler step's time goes, for
-             one UNet forward of each served configuration at B=48 and B=1:
-             device ms, host ms to issue it, wall ms, and the top kernels by
-             device time from torch.profiler.
+             one UNet forward of the unfused, fused and stem configurations
+             at B=48 and B=1: device ms, host ms to issue it, wall ms, and the
+             top kernels by device time from torch.profiler.
 
-Then a JSON line with each kernel's numbers, and last
+Then a JSON line with each kernel's numbers (its launches summed over the
+serve phase's paths; its times at B=48 in its main path's dtype), and last
 {"ok": true, "device": {...}}. Any failure raises: the script exits non-zero
 and prints no result. It needs one card, builds everything it runs from the
 sources beside it, and imports nothing of JAX.
@@ -77,6 +87,11 @@ from diffusionremotesensing_tpu_torch.ops.att_block import (  # noqa: E402
     att_head_block,
     att_head_block_plain,
 )
+from diffusionremotesensing_tpu_torch.ops.attention_gate import (  # noqa: E402
+    attention_gate_plain,
+    build_gate_weights,
+    fused_attention_gate,
+)
 from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block, dec_block_plain  # noqa: E402
 from diffusionremotesensing_tpu_torch.ops.fused_update import (  # noqa: E402
     ancestral_update,
@@ -87,7 +102,18 @@ from diffusionremotesensing_tpu_torch.ops.fused_update import (  # noqa: E402
     update_coefs,
 )
 from diffusionremotesensing_tpu_torch.ops.s2d import conv_nhwc, space_to_depth  # noqa: E402
-from diffusionremotesensing_tpu_torch.ops.tap_block import tap_block, tap_block_plain  # noqa: E402
+from diffusionremotesensing_tpu_torch.ops.tap_block import (  # noqa: E402
+    tap_block,
+    tap_block_plain,
+    tap_stem_block,
+    tap_stem_block_plain,
+)
+from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
+    tap_conv,
+    tap_conv_pair,
+    tap_conv_pair_plain,
+    tap_conv_plain,
+)
 from diffusionremotesensing_tpu_torch.schedules import make_schedule  # noqa: E402
 from diffusionremotesensing_tpu_torch.serving import InferenceServer  # noqa: E402
 
@@ -102,6 +128,18 @@ PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor FLOP/s
 PEAK_F32 = 67e12              # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 FUSED = dict(fused_att=True, dec_block=True)
+# the model configurations the phases build, by name
+CONFIGS = {
+    "plain": {},
+    "plain_gates": dict(use_pallas=True),
+    "dense": dict(s2d=True),
+    "conv2": dict(s2d=True, tap44="conv2"),
+    "tap": dict(s2d=True, tap44=True),
+    "block": dict(s2d=True, tap44="block"),
+    "stem_level": dict(s2d=True, tap44="stem"),
+    "fused": dict(s2d=True, tap44="block", **FUSED),
+    "stem": dict(s2d=True, tap44="stem", use_pallas=True, **FUSED),
+}
 
 # Every kernel of the paths: its wrapper, source, the TPU kernel it
 # replaces, and the dtype its main path runs it in (the sampler's state,
@@ -115,6 +153,14 @@ KERNELS = {
                   torch.bfloat16),
     "ancestral_update": (ancestral_update, "ancestral_update.cu",
                          "diffusionremotesensing_tpu/ops/fused_update.py:115", torch.float32),
+    "tap_stem_block": (tap_stem_block, "tap_stem_block.cu",
+                       "diffusionremotesensing_tpu/ops/tap_block.py:367", torch.bfloat16),
+    "tap_conv": (tap_conv, "tap_conv.cu", "diffusionremotesensing_tpu/ops/tap_conv.py:126",
+                 torch.bfloat16),
+    "tap_conv_pair": (tap_conv_pair, "tap_conv.cu",
+                      "diffusionremotesensing_tpu/ops/tap_conv.py:156", torch.bfloat16),
+    "fused_attention_gate": (fused_attention_gate, "attention_gate.cu",
+                             "diffusionremotesensing_tpu/ops/pallas_kernels.py:94", torch.bfloat16),
 }
 
 # Tolerances, max |kernel - plain| <= tol * max(1, max |plain|):
@@ -136,6 +182,11 @@ TILE_TOL = 1e-3
 Z_MOMENT_TOL = 5e-3
 GOLDEN_TOL = 1e-4
 PROFILE_N = 4  # forwards per profile reading (~200 launches each fit the launch queue)
+# the golden phase's configurations (each computes the same function) and
+# the model phase's, each held against the dense-s2d path
+GOLDEN_CONFIGS = ("plain", "plain_gates", "dense", "conv2", "tap", "block", "stem_level", "fused",
+                  "stem")
+MODEL_CONFIGS = ("block", "conv2", "tap", "fused", "stem")
 
 # Values the JAX reference package computes for init_params(SEED) and
 # golden_input() (tests/test_torch_port_imports.py recomputes them):
@@ -195,11 +246,27 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def model_with(s2d, tap44, device, dtype=torch.float32, fused=False):
-    m = residual_attention_unet_superres(magnification_factor=2, s2d=s2d, tap44=tap44,
-                                         **(FUSED if fused else {}))
+def model_with(name, device, dtype=torch.float32):
+    """The full-width model of configuration `name` (CONFIGS) with the
+    init_params(SEED) weights."""
+    m = residual_attention_unet_superres(magnification_factor=2, **CONFIGS[name])
     m.load_state_dict(init_params(SEED, "cpu"))
     return m.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
+
+
+def per_forward(name):
+    """The launches of each kernel in one UNet forward of configuration
+    `name`: the level's ResConvBlock-0 kernels, the fused decoder tail's,
+    and with use_pallas every gate the forward runs (gates 0 and 1 on the
+    s2d path, all three on the plain one)."""
+    f = CONFIGS[name]
+    level = f.get("tap44", False)
+    gates = (2 if f.get("s2d") else 3) if f.get("use_pallas") else 0
+    return {"tap_block": int(level == "block"), "att_head_block": int(f.get("fused_att", False)),
+            "dec_block": int(f.get("dec_block", False)), "ancestral_update": 0,
+            "tap_stem_block": int(level == "stem"),
+            "tap_conv": int(level is True or level == "conv2"), "tap_conv_pair": int(level is True),
+            "fused_attention_gate": gates}
 
 
 def zero_counts():
@@ -223,6 +290,19 @@ def block_dense_s2d(h_s, te4, k):
     h = conv_nhwc(h, k["blk_conv2"], k["blk_b2"], padding=1) * k["bn1_a"] + k["bn1_c"]
     s = conv_nhwc(h_s, k["blk_short"], k["blk_bsh"]) * k["bn2_a"] + k["bn2_c"]
     return torch.relu(s + h)
+
+
+def stem_dense_s2d(xs, cond, te4, k):
+    """conv0 + bias + cond add and ResConvBlock-0 as cuDNN convolutions on
+    the dense s2d kernels (the tap44=False path, written out here)."""
+    return block_dense_s2d(conv_nhwc(xs, k["conv0"], k["conv0_b"], padding=1) + cond, te4, k)
+
+
+def gates_unfused(m, pairs):
+    """Attention gates 0 and 1 (x, g NHWC) as the port's layer-by-layer
+    AttentionGate modules run them (use_pallas=False)."""
+    return tuple(m.attention_blocks[i](x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2))
+                 for i, (x, g) in enumerate(pairs))
 
 
 def att_unfused(m, x, h, k):
@@ -321,6 +401,56 @@ def dec_bound(B, H, W, itemsize, peak, ca=128, cb=64, cm=64, out4=12):
     return _bound(dec_flops(B, H, W, ca, cb, cm, out4), itemsize * (acts + weights), peak)
 
 
+def conv_flops(B, H2, W2, C4, CO4):
+    """Dense FLOPs of one tap_conv call: the model's 3x3 conv C4/4 -> CO4/4
+    at full resolution (2*H2 x 2*W2), as block_flops counts; the 4x4 tap
+    form's structural zeros are not counted."""
+    return 2 * B * (2 * H2) * (2 * W2) * 9 * (C4 // 4) * (CO4 // 4)
+
+
+def conv_bound(B, H2, W2, C4, CO4, itemsize, peak, n=1):
+    """Least time (ms) for tap_conv (n=1) or tap_conv_pair (n=2): x read, the
+    n outputs written and the n tap weight matrices read once; n dense convs
+    at the card's peak for the input type."""
+    nbytes = itemsize * (B * H2 * W2 * (C4 + n * CO4) + n * 4 * C4 * CO4)
+    return _bound(n * conv_flops(B, H2, W2, C4, CO4), nbytes, peak)
+
+
+def stem_flops(B, H2, W2, CX4=12, C14=64, CO4=128):
+    """Dense FLOPs of one tap_stem_block call: conv0, the 3x3 conv
+    CX4/4 -> C14/4 at full resolution, plus the block's (block_flops)."""
+    conv0 = 2 * B * (2 * H2) * (2 * W2) * 9 * (CX4 // 4) * (C14 // 4)
+    return conv0 + block_flops(B, H2, W2, C14, CO4)[0]
+
+
+def stem_bound(B, H2, W2, itemsize, peak, CX4=12, C14=64, CO4=128):
+    """Least time (ms) for one tap_stem_block call: x, cond and te4 read and
+    res0_s written once, the weights as the kernel takes them once;
+    stem_flops at the card's peak for the input type."""
+    weights = 4 * CX4 * C14 + C14 + 4 * C14 * 3 * CO4 + 4 * CO4 * CO4 + 4 * CO4
+    nbytes = itemsize * (B * H2 * W2 * (CX4 + C14 + CO4) + B * CO4 + weights)
+    return _bound(stem_flops(B, H2, W2, CX4, C14, CO4), nbytes, peak)
+
+
+def gate_flops(B, Hg, Wg, C):
+    """FLOPs of one fused_attention_gate call over B x Hg x Wg gating
+    pixels, the gate's layers at their own resolution: w_g C->C and psi
+    C->1 at the gating grid, w_x (2x2 stride 2, 4C->C a gating pixel) and
+    the result conv C->C at each of the 4 pixels of x above it."""
+    return 2 * B * Hg * Wg * (C * C + C + 4 * C * C + 4 * C * C)
+
+
+def gate_bound(B, gates, itemsize, peak):
+    """Least time (ms) for the fused_attention_gate calls of `gates`, a list
+    of (Hg, Wg, C): x and g read and out written once in the input type, the
+    float32 weights read once; gate_flops at the card's peak for the input
+    type (the kernel computes in float32: at 67 TFLOP/s the same products
+    take longer than the bound)."""
+    flops = sum(gate_flops(B, hg, wg, c) for hg, wg, c in gates)
+    nbytes = sum(itemsize * B * hg * wg * 9 * c + 4 * (6 * c * c + 8 * c + 1) for hg, wg, c in gates)
+    return _bound(flops, nbytes, peak)
+
+
 def update_bound(n, itemsize):
     """Least time (ms) for one ancestral_update call over n elements: x and
     eps read and x' written once; its 5 float operations an element (the
@@ -404,7 +534,7 @@ def main():
                 f"CUDA {torch.version.cuda}")
 
     def build():
-        sources = [k[1][:-3] for k in KERNELS.values()]
+        sources = sorted({k[1][:-3] for k in KERNELS.values()})
         with ThreadPoolExecutor(len(sources)) as ex:
             built = dict(zip(sources, ex.map(cuda_build.build, sources)))
         out = []
@@ -419,9 +549,16 @@ def main():
         sch = make_schedule("cosine", T_STEPS)
         for dt in (torch.bfloat16, torch.float32):
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
-            kf = model_with(True, "block", dev, fused=True).prepare_s2d_kernels(dt)
-            mu = model_with(True, False, dev, dt)  # the unfused modules, for the yardsticks
+            kf = model_with("fused", dev).prepare_s2d_kernels(dt)
+            kt = model_with("tap", dev).prepare_s2d_kernels(dt)
+            m_stem = model_with("stem", dev)
+            ks = m_stem.prepare_s2d_kernels(dt)
+            w_gate2 = build_gate_weights(m_stem.attention_blocks[2])  # the plain forward's gate 2
+            mu = model_with("dense", dev, dt)  # the unfused modules, for the yardsticks
             kd = mu.prepare_s2d_kernels()
+            # conv1 and skip as one cuDNN convolution: the pair's yardstick
+            w_pair = torch.cat([kd["blk_conv1"], kd["blk_skip"]]).contiguous(
+                memory_format=torch.channels_last)
             for B in (B_FLAG, 1):
                 g = torch.Generator(device=dev).manual_seed(B)
 
@@ -433,6 +570,12 @@ def main():
                 xs, hs = randn(B, s, s, 128), randn(B, s, s, 64)
                 xa, xb, te = randn(B, s, s, 128), randn(B, s, s, 64), torch.relu(randn(B, 64))
                 xu, eu = randn(B, s, s, 12), randn(B, s, s, 12)
+                x0, cond = randn(B, s, s, 12), randn(B, s, s, 64)
+                h2 = randn(B, s, s, 128)
+                # gates 0 and 1 of the s2d path: x at levels 2 and 1, g at half of it
+                gates = [(randn(B, s // 2, s // 2, 128), randn(B, s // 4, s // 4, 128)),
+                         (randn(B, s, s, 64), randn(B, s // 2, s // 2, 64))]
+                gw = [ks["gate0"], ks["gate1"]]
                 seed, step = draw_seed(g, dev), 750
                 coefs = update_coefs(sch, step)
                 calls = {
@@ -452,6 +595,27 @@ def main():
                                          lambda: ancestral_update_plain(xu, eu, coefs, seed, step),
                                          lambda: update_unfused(sch, xu, eu, step, g),
                                          lambda: update_bound(xu.numel(), xu.element_size())),
+                    "tap_stem_block": (
+                        lambda: tap_stem_block(x0, cond, te4, ks["conv0_b"], ks["tap_stem"]),
+                        lambda: tap_stem_block_plain(x0, cond, te4, ks["conv0_b"], ks["tap_stem"]),
+                        lambda: stem_dense_s2d(x0, cond, te4, kd),
+                        lambda: stem_bound(B, s, s, x0.element_size(), peak)),
+                    "tap_conv": (lambda: tap_conv(h2, kt["blk_conv2_44"]),
+                                 lambda: tap_conv_plain(h2, kt["blk_conv2_44"]),
+                                 lambda: conv_nhwc(h2, kd["blk_conv2"], padding=1),
+                                 lambda: conv_bound(B, s, s, 128, 128, h2.element_size(), peak)),
+                    "tap_conv_pair": (
+                        lambda: tap_conv_pair(x, kt["blk_conv1_44"], kt["blk_skip_44"]),
+                        lambda: tap_conv_pair_plain(x, kt["blk_conv1_44"], kt["blk_skip_44"]),
+                        lambda: conv_nhwc(x, w_pair, padding=1),
+                        lambda: conv_bound(B, s, s, 64, 128, x.element_size(), peak, n=2)),
+                    # one forward's two launches: gates 0 and 1
+                    "fused_attention_gate": (
+                        lambda: tuple(fused_attention_gate(a, b, w) for (a, b), w in zip(gates, gw)),
+                        lambda: tuple(attention_gate_plain(a, b, w) for (a, b), w in zip(gates, gw)),
+                        lambda: gates_unfused(mu, gates),
+                        lambda: gate_bound(B, [(s // 4, s // 4, 128), (s // 2, s // 2, 64)],
+                                           x.element_size(), peak)),
                 }
                 for name, (fn, plain, library, bound) in calls.items():
                     got, want = fn(), plain()
@@ -466,12 +630,28 @@ def main():
                         row["library_ms"] = time_ms(library)
                         row["bound_ms"], row["bound_by"] = bound()
                     rows[name].append(row)
+                gate_row = rows["fused_attention_gate"][-1]
+                # the plain forward's gate 2 (C=32, x 2s x 2s), checked here
+                x2, g2 = randn(B, 2 * s, 2 * s, 32), randn(B, s, s, 32)
+                gate_row["gate2_max_abs_err"] = max_err(
+                    [fused_attention_gate(x2, g2, w_gate2)], [attention_gate_plain(x2, g2, w_gate2)],
+                    dt, f"fused_attention_gate gate 2 {dt} B={B}")
+                gate_row["gate2_ms"] = time_ms(lambda: fused_attention_gate(x2, g2, w_gate2))
                 if B == B_FLAG:
+                    for i, ((a, b), w) in enumerate(zip(gates, gw)):
+                        gate_row[f"gate{i}_ms"] = time_ms(lambda: fused_attention_gate(a, b, w))
+                        gate_row[f"gate{i}_library_ms"] = time_ms(
+                            lambda: mu.attention_blocks[i](a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)))
                     rows["tap_block"][-1].update(zip(
                         ("dense_gflop", "issued_gflop"),
                         (f / 1e9 for f in block_flops(B, s, s, 64, 128))))
                     rows["att_head_block"][-1]["dense_gflop"] = att_flops(B, s, s) / 1e9
                     rows["dec_block"][-1]["dense_gflop"] = dec_flops(B, s, s) / 1e9
+                    rows["tap_stem_block"][-1]["dense_gflop"] = stem_flops(B, s, s) / 1e9
+                    rows["tap_conv"][-1]["dense_gflop"] = conv_flops(B, s, s, 128, 128) / 1e9
+                    rows["tap_conv_pair"][-1]["dense_gflop"] = 2 * conv_flops(B, s, s, 64, 128) / 1e9
+                    gate_row["dense_gflop"] = (gate_flops(B, s // 4, s // 4, 128)
+                                               + gate_flops(B, s // 2, s // 2, 64)) / 1e9
                 if B == B_FLAG and dt == torch.float32:
                     rows["ancestral_update"][-1].update(
                         check_update(sch, xu, eu, seed, step, g))
@@ -507,23 +687,19 @@ def main():
         x, t, cond = (torch.from_numpy(a).to(dev) for a in golden_input())
         want = np.asarray(GOLDEN["values"], np.float64)
         errs = {}
-        for s2d, tap44, fused in ((False, False, False), (True, False, False),
-                                  (True, "block", False), (True, "block", True)):
+        for name in GOLDEN_CONFIGS:
             before = read_counts()
             with torch.inference_mode():
-                out = model_with(s2d, tap44, dev, fused=fused)(x, t, cond).cpu().numpy()
+                out = model_with(name, dev)(x, t, cond).cpu().numpy()
             out = out.astype(np.float64)
             ran = {k: v - before[k] for k, v in read_counts().items()}
-            want_ran = {"tap_block": int(tap44 == "block"), "att_head_block": int(fused),
-                        "dec_block": int(fused), "ancestral_update": 0}
-            check(ran == want_ran, f"golden: launches {ran}, expected {want_ran}")
+            check(ran == per_forward(name), f"golden {name}: launches {ran}, expected {per_forward(name)}")
             got = out.reshape(-1)[::GOLDEN["stride"]]
             err = float(np.abs(got - want).max())
             abs_sum_err = abs(float(np.abs(out).sum()) - GOLDEN["abs_sum"]) / out.size
-            what = f"s2d={s2d},tap44={tap44},fused={fused}"
             check(err <= GOLDEN_TOL and abs_sum_err <= GOLDEN_TOL,
-                  f"golden {what}: max|err| {err}, mean |abs| err {abs_sum_err}")
-            errs[what] = err
+                  f"golden {name}: max|err| {err}, mean |abs| err {abs_sum_err}")
+            errs[name] = err
         return json.dumps(errs)
 
     def model():
@@ -534,16 +710,16 @@ def main():
             t = torch.randint(1, T_STEPS, (B_FLAG,), generator=g, device=dev).float()
             cond = torch.rand((B_FLAG, HR // 2, HR // 2, 3), generator=g, device=dev)
             outs = {}
-            for name, tap44, fused in (("block", "block", False), ("dense", False, False),
-                                       ("fused", "block", True)):
-                m = model_with(True, tap44, dev, dt, fused=fused)
+            for name in ("dense",) + MODEL_CONFIGS:
+                m = model_with(name, dev, dt)
                 with torch.inference_mode():
                     outs[name] = m(x, t, cond, s2d_kernels=m.prepare_s2d_kernels())
+                del m
             torch.cuda.synchronize()
             dense = outs["dense"]
             scale = max(1.0, dense.abs().max().item())
             r = {"scale": scale}
-            for name in ("block", "fused"):
+            for name in MODEL_CONFIGS:
                 a = outs[name]
                 check(a.shape == (B_FLAG, HR, HR, 3) and torch.isfinite(a).all().item(),
                       f"model {name} {dt}: bad output {tuple(a.shape)}")
@@ -552,18 +728,20 @@ def main():
                       f"model {dt}: max|{name} - dense| {err} > {MODEL_TOL[dt]} * {scale}")
                 r[f"max_abs_diff_{name}"] = err
             res[str(dt).split(".")[-1]] = r
-        # one DDIM-100 tile, fused against unfused, float32, same noise
+        # one DDIM-100 tile each, the fused and stem configurations against
+        # the unfused one, float32, same noise
         tile = np.random.default_rng(SEED + 1).random((TILE_LR, TILE_LR, 3)).astype(np.float32)
         tiles = {}
-        for fused in (False, True):
-            proc = make_process(model_with(True, "block", dev, fused=fused), "cosine", T_STEPS, HR)
+        for name in ("block", "fused", "stem"):
+            proc = make_process(model_with(name, dev), "cosine", T_STEPS, HR)
             agg = AggregationSampler(proc, patch_size=HR // 2, stride=HR // 4,
                                      magnification_factor=2, ddim_steps=DDIM_STEPS)
-            tiles[fused] = agg(tile, generator=torch.Generator(device=dev).manual_seed(3),
-                               device=dev)
-        tile_err = float(np.abs(tiles[True] - tiles[False]).max())
-        check(tile_err <= TILE_TOL, f"DDIM-100 tile, fused vs unfused: max|diff| {tile_err}")
-        res["tile_ddim100_float32_max_abs_diff"] = tile_err
+            tiles[name] = agg(tile, generator=torch.Generator(device=dev).manual_seed(3),
+                              device=dev)
+        for name in ("fused", "stem"):
+            tile_err = float(np.abs(tiles[name] - tiles["block"]).max())
+            check(tile_err <= TILE_TOL, f"DDIM-100 tile, {name} vs unfused: max|diff| {tile_err}")
+            res[f"tile_ddim100_float32_max_abs_diff_{name}"] = tile_err
         return json.dumps(res)
 
     def serve():
@@ -594,69 +772,63 @@ def main():
             outputs.append(fn(tile))
             secs[key] = time.perf_counter() - t0
 
-        def expect(counts, want, path):
-            check(counts == want, f"{path} path: launches {counts}, expected {want}")
+        def run_path(name, ddim_tiles, ddpm):
+            """4 concurrent DDIM-100 requests, `ddim_tiles` DDIM-100 tiles and
+            a T=1500 tile: from a second server of the unfused sampler
+            (ddpm='server'), through AggregationSampler with fused_update
+            (ddpm='fused_update'), or none (ddpm=None). Every count is set to
+            0 just before and read just after, and must be exact."""
+            model = model_with(name, dev)
+            ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
+                                   dtype=torch.bfloat16, device="cuda")
+            servers, secs = [ddim], {}
+            try:
+                if ddpm == "server":
+                    servers.append(InferenceServer(model, "cosine", T_STEPS, HR,
+                                                   dtype=torch.bfloat16, device="cuda"))
+                if ddpm == "fused_update":
+                    agg = AggregationSampler(ddim.process, patch_size=HR // 2, stride=HR // 4,
+                                             magnification_factor=2, fused_update=True)
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                torch.cuda.synchronize()
+                zero_counts()
+                requests(ddim, secs)
+                for i in range(ddim_tiles):
+                    timed(secs, f"tile_ddim100_{i}" if ddim_tiles > 1 else "tile_ddim100",
+                          ddim.infer_tile)
+                if ddpm == "server":
+                    timed(secs, "tile_ddpm1500", servers[1].infer_tile)
+                elif ddpm == "fused_update":
+                    timed(secs, "tile_ddpm1500_fused_update",
+                          lambda t: agg(t, generator=gen, device=dev))
+                counts, batches = read_counts(), ddim.batches_run
+            finally:
+                for server in servers:
+                    server.shutdown()
+            forwards = batches * DDIM_STEPS + N_CHUNKS * (ddim_tiles * DDIM_STEPS
+                                                          + (T_STEPS - 1 if ddpm else 0))
+            want = {k: n * forwards for k, n in per_forward(name).items()}
+            if ddpm == "fused_update":
+                want["ancestral_update"] = N_CHUNKS * (T_STEPS - 1)
+            check(counts == want, f"{name} path: launches {counts}, expected {want}")
+            return {"config": name, "micro_batches": batches, "launches": counts, "seconds": secs}
 
-        # ---- the unfused path
-        model = model_with(True, "block", dev)
-        ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
-                               dtype=torch.bfloat16, device="cuda")
-        ddpm = InferenceServer(model, "cosine", T_STEPS, HR, dtype=torch.bfloat16, device="cuda")
-        unfused = {}
-        try:
-            torch.cuda.synchronize()
-            zero_counts()
-            requests(ddim, unfused)
-            for i in range(2):
-                timed(unfused, f"tile_ddim100_{i}", ddim.infer_tile)
-            timed(unfused, "tile_ddpm1500", ddpm.infer_tile)
-            counts_u, batches_u = read_counts(), ddim.batches_run
-        finally:
-            ddim.shutdown()
-            ddpm.shutdown()
-        forwards = batches_u * DDIM_STEPS + N_CHUNKS * (2 * DDIM_STEPS + T_STEPS - 1)
-        expect(counts_u, {"tap_block": forwards, "att_head_block": 0, "dec_block": 0,
-                          "ancestral_update": 0}, "unfused")
-
-        # ---- the fused path
-        fmodel = model_with(True, "block", dev, fused=True)
-        fddim = InferenceServer(fmodel, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
-                                dtype=torch.bfloat16, device="cuda")
-        fused = {}
-        try:
-            agg = AggregationSampler(fddim.process, patch_size=HR // 2, stride=HR // 4,
-                                     magnification_factor=2, fused_update=True)
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            torch.cuda.synchronize()
-            zero_counts()
-            requests(fddim, fused)
-            timed(fused, "tile_ddim100", fddim.infer_tile)
-            timed(fused, "tile_ddpm1500_fused_update",
-                  lambda t: agg(t, generator=gen, device=dev))
-            counts_f, batches_f = read_counts(), fddim.batches_run
-        finally:
-            fddim.shutdown()
-        forwards = batches_f * DDIM_STEPS + N_CHUNKS * (DDIM_STEPS + T_STEPS - 1)
-        expect(counts_f, {"tap_block": forwards, "att_head_block": forwards,
-                          "dec_block": forwards, "ancestral_update": N_CHUNKS * (T_STEPS - 1)},
-               "fused")
-
+        paths = {"unfused": run_path("block", 2, "server"),
+                 "fused": run_path("fused", 1, "fused_update"),
+                 "stem": run_path("stem", 1, "fused_update"),
+                 "tap": run_path("tap", 1, None)}
         for out in outputs:
             check(out.shape in ((HR, HR, 3), (2 * TILE_LR, 2 * TILE_LR, 3)), f"shape {out.shape}")
             check(np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0, "output range")
-        state["launches"] = counts_f
-        return json.dumps({"unfused": {"micro_batches": batches_u, "launches": counts_u,
-                                       "seconds": unfused},
-                           "fused": {"micro_batches": batches_f, "launches": counts_f,
-                                     "seconds": fused}})
+        state["launches"] = {k: sum(p["launches"][k] for p in paths.values()) for k in KERNELS}
+        return json.dumps(paths)
 
     def profile():
         lines = []
-        for fused in (False, True):
-            proc = make_process(model_with(True, "block", dev, fused=fused), "cosine", T_STEPS, HR,
-                                dtype=torch.bfloat16)
+        for name in ("block", "fused", "stem"):
+            proc = make_process(model_with(name, dev), "cosine", T_STEPS, HR, dtype=torch.bfloat16)
             with torch.inference_mode():
-                lines += [json.dumps({"fused": fused, **profile_forward(proc, b, dev)})
+                lines += [json.dumps({"config": name, **profile_forward(proc, b, dev)})
                           for b in (B_FLAG, 1)]
         return "\n".join(lines)
 

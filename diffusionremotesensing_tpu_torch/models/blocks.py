@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weights, fused_attention_gate
+
 
 def TorchConv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, pad=None) -> nn.Conv2d:
     """Conv2d with the reference's padding rule, (kernel - 1) // 2 unless given."""
@@ -97,16 +99,29 @@ class ResConvBlock(nn.Module):
 
 class AttentionGate(nn.Module):
     """Additive attention gate: psi = sigmoid(conv1x1(ReLU(conv1x1(g) +
-    conv2x2_s2(x)))), upsampled x2 nearest; out = BN(conv1x1(psi * x))."""
+    conv2x2_s2(x)))), upsampled x2 nearest; out = BN(conv1x1(psi * x)).
 
-    def __init__(self, features: int):
+    ``use_pallas=True`` (the reference's flag name) runs the whole gate as
+    one ``ops.attention_gate.fused_attention_gate`` call, the hand-written
+    CUDA kernel on the card, in float32 with only its output rounded; ``w``
+    is its weights from ``build_gate_weights(self)``, built per call when not
+    given (samplers hoist them with the s2d kernels)."""
+
+    def __init__(self, features: int, use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = bool(use_pallas)
         self.w_g = nn.Sequential(TorchConv(features, features, 1))
         self.w_x = nn.Sequential(TorchConv(features, features, 2, stride=2, pad=0))
         self.psi = nn.Sequential(TorchConv(features, 1, 1))
         self.result = nn.Sequential(TorchConv(features, features, 1), BatchNorm(features))
 
-    def forward(self, x, g):
+    def forward(self, x, g, w=None):
+        if self.use_pallas:
+            # NHWC views of the channels-last trunk tensors: no copy; on the
+            # card the wrapper refuses a view that is not contiguous
+            out = fused_attention_gate(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
+                                       build_gate_weights(self) if w is None else w)
+            return out.permute(0, 3, 1, 2)
         psi = torch.relu(self.w_g(g) + self.w_x(x))
         psi = torch.sigmoid(self.psi(psi))
         psi = psi.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)

@@ -16,9 +16,14 @@ Two executions of the same function:
   space-to-depth layout with kernels assembled once by
   :meth:`prepare_s2d_kernels`, the up-stage-2 head composed with the output
   conv and the ConvTranspose (derivations in the reference's
-  ``prepare_s2d_kernels``). With ``tap44='block'`` ResConvBlock-0 is one
-  call of ``ops.tap_block.tap_block``, the hand-written CUDA kernel on the
-  card; with ``tap44=False`` it runs as dense s2d convolutions. With
+  ``prepare_s2d_kernels``). ResConvBlock-0 runs by ``tap44`` level:
+  False, dense s2d convolutions; 'conv2', its conv2 through
+  ``ops.tap_conv.tap_conv``; True, also conv1 and the skip conv through one
+  ``tap_conv_pair`` call; 'block', the whole block as one
+  ``ops.tap_block.tap_block`` call; 'stem', the stem's conv0 + bias + cond
+  add and the whole block as one ``tap_stem_block`` call, so its input h_s
+  never reaches device memory (hand-written CUDA kernels on the card, all
+  four). With
   ``fused_att=True`` gating signal 2, attention gate 2 and the head's
   ``head_at`` conv are one call of ``ops.att_block.att_head_block``; with
   ``dec_block=True`` the stage-1 concat conv, the UpConvBlock-2 body and
@@ -26,6 +31,11 @@ Two executions of the same function:
   (CUDA kernels on the card, both). Unlike the reference, which keeps the
   unfused chain for shapes its TPU kernels cannot hold, the fused branches
   run for every shape when their flag is on.
+
+``use_pallas=True`` (the reference's flag name) runs every attention gate
+the forward computes through ``ops.attention_gate.fused_attention_gate``,
+one CUDA kernel a gate on the card: all three on the plain forward, gates 0
+and 1 on the s2d path (gate 2 there is the s2d gate or ``att_head_block``).
 
 Public tensors are NHWC, as in the reference package: ``forward`` takes x
 (B, H, W, 3), t (B,) and the LR condition (B, H/mag, W/mag, 3), and returns
@@ -52,6 +62,7 @@ from diffusionremotesensing_tpu_torch.models.blocks import (
     sinusoidal_time_embedding,
 )
 from diffusionremotesensing_tpu_torch.ops.att_block import att_head_block, build_att_weights
+from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weights
 from diffusionremotesensing_tpu_torch.ops.dec_block import build_dec_weights
 from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block as dec_block_kernel
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
@@ -66,9 +77,15 @@ from diffusionremotesensing_tpu_torch.ops.s2d import (
     kT_to_s2d,
     space_to_depth,
 )
-from diffusionremotesensing_tpu_torch.ops.tap_block import build_block_weights, tap_block
+from diffusionremotesensing_tpu_torch.ops.tap_block import (
+    build_block_weights,
+    build_stem_weights,
+    tap_block,
+    tap_stem_block,
+)
+from diffusionremotesensing_tpu_torch.ops.tap_conv import tap_conv, tap_conv_pair, tap_weight
 
-TAP44_LEVELS = (False, "block")
+TAP44_LEVELS = (False, "conv2", True, "block", "stem")
 
 # kernel-dict entries that are HWIO conv kernels (stored OIHW, channels-last)
 _CONV_KEYS = ("conv0", "blk_conv1", "blk_skip", "blk_conv2", "blk_short", "down0", "att_wx",
@@ -112,11 +129,12 @@ class ResidualAttentionUNet(nn.Module):
         tap44: object = False,
         fused_att: bool = False,
         dec_block: bool = False,
+        use_pallas: bool = False,
     ):
         super().__init__()
         if conditioning != "superres":
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
-        if tap44 not in TAP44_LEVELS:
+        if not isinstance(tap44, (bool, str)) or tap44 not in TAP44_LEVELS:
             raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
         if (fused_att or dec_block) and not s2d:
             raise ValueError("fused_att and dec_block are branches of the s2d path: pass s2d=True")
@@ -132,6 +150,7 @@ class ResidualAttentionUNet(nn.Module):
         self.tap44 = tap44
         self.fused_att = bool(fused_att)
         self.dec_block = bool(dec_block)
+        self.use_pallas = bool(use_pallas)
         dc, uc = self.down_channels, self.up_channels
         n_lv = len(dc) - 2
 
@@ -145,7 +164,8 @@ class ResidualAttentionUNet(nn.Module):
         self.bottle_neck = ResConvBlock(dc[-2], dc[-1], time_emb_dim)
         self.gating_signals = nn.ModuleList(
             [GatingSignal(uc[i], uc[i + 1]) for i in range(n_lv)])
-        self.attention_blocks = nn.ModuleList([AttentionGate(uc[i + 1]) for i in range(n_lv)])
+        self.attention_blocks = nn.ModuleList(
+            [AttentionGate(uc[i + 1], use_pallas=self.use_pallas) for i in range(n_lv)])
         self.ups = nn.ModuleList([UpConvBlock(uc[i], time_emb_dim) for i in range(n_lv)])
         self.up_convs = nn.ModuleList(
             [TorchConv(uc[i] + uc[i + 1], uc[i + 1], 3) for i in range(n_lv)])
@@ -219,7 +239,6 @@ class ResidualAttentionUNet(nn.Module):
         dt = dtype or self.dtype
         blk, att, up = self.conv_blocks[0], self.attention_blocks[2], self.ups[2]
         k = {
-            "conv0": k3_to_s2d(_hwio(self.conv0)),
             "conv0_b": _vec(self.conv0.bias).repeat(4),
             "down0": k3s2_to_s2d(_hwio(self.downs[0])),
             "down0_b": _vec(self.downs[0].bias),
@@ -229,25 +248,40 @@ class ResidualAttentionUNet(nn.Module):
             "att_rc_b": _vec(att.result[0].bias).repeat(4),
         }
         k["att_bn_a"], k["att_bn_c"] = _bn_affine(att.result[1])
-        if self.tap44 == "block":
-            k["tap_block"] = build_block_weights(
+        if self.tap44 != "stem":
+            k["conv0"] = k3_to_s2d(_hwio(self.conv0))
+        if self.tap44 in ("block", "stem"):
+            bw = build_block_weights(
                 _hwio(blk.conv1[0]), _vec(blk.conv1[0].bias), _bn_dict(blk.batch_norm1),
                 _hwio(blk.skip_conv), _vec(blk.skip_conv.bias),
                 _hwio(blk.conv2[0]), _vec(blk.conv2[0].bias), _bn_dict(blk.batch_norm2),
                 _hwio(blk.shortcut_conv[0]), _vec(blk.shortcut_conv[0].bias),
                 _bn_dict(blk.shortcut_batch_norm),
             )
+            if self.tap44 == "stem":
+                k["tap_stem"] = build_stem_weights(_hwio(self.conv0), bw)
+            else:
+                k["tap_block"] = bw
         else:
+            # tap44 False, 'conv2' or True: each conv dense or as a tap
+            # matrix (ops.tap_conv.tap_weight), built once here
             k.update({
-                "blk_conv1": k3_to_s2d(_hwio(blk.conv1[0])),
                 "blk_b1": _vec(blk.conv1[0].bias).repeat(4),
-                "blk_skip": k3_to_s2d(_hwio(blk.skip_conv)),
                 "blk_bsk": _vec(blk.skip_conv.bias).repeat(4),
-                "blk_conv2": k3_to_s2d(_hwio(blk.conv2[0])),
                 "blk_b2": _vec(blk.conv2[0].bias).repeat(4),
                 "blk_short": k1_to_blockdiag(_hwio(blk.shortcut_conv[0])),
                 "blk_bsh": _vec(blk.shortcut_conv[0].bias).repeat(4),
             })
+            if self.tap44 is True:
+                k["blk_conv1_44"] = tap_weight(_hwio(blk.conv1[0]))
+                k["blk_skip_44"] = tap_weight(_hwio(blk.skip_conv))
+            else:
+                k["blk_conv1"] = k3_to_s2d(_hwio(blk.conv1[0]))
+                k["blk_skip"] = k3_to_s2d(_hwio(blk.skip_conv))
+            if self.tap44:
+                k["blk_conv2_44"] = tap_weight(_hwio(blk.conv2[0]))
+            else:
+                k["blk_conv2"] = k3_to_s2d(_hwio(blk.conv2[0]))
             k["bn0_a"], k["bn0_c"] = _bn_affine(blk.batch_norm1)
             k["bn1_a"], k["bn1_c"] = _bn_affine(blk.batch_norm2)
             k["bn2_a"], k["bn2_c"] = _bn_affine(blk.shortcut_batch_norm)
@@ -309,6 +343,10 @@ class ResidualAttentionUNet(nn.Module):
         # the ConvTranspose-bias tap table stays float32: it is reduced into
         # the (small) bias frame, where bf16 would cost visible precision
         out["head_bT_taps"] = torch.einsum("uvmo,m->uvo", H_up, b_T).to(dev)
+        if self.use_pallas:
+            # the fused gates' weights stay float32, as the gate computes
+            for i in (0, 1):
+                out[f"gate{i}"] = build_gate_weights(self.attention_blocks[i])
         out["frames"] = {}
         return out
 
@@ -329,18 +367,31 @@ class ResidualAttentionUNet(nn.Module):
     def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io):
         dt = self.dtype
         xs = x.to(dt) if s2d_io else space_to_depth(x.to(dt))
-        h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
-        h_s = h_s + cond_s2d.to(dt)
         blk = self.conv_blocks[0]
         te4 = blk.time_bias(t_emb).repeat(1, 4)
+        if self.tap44 == "stem":
+            # conv0 + bias + cond and the whole block in one call
+            res0_s = tap_stem_block(xs.contiguous(), cond_s2d.to(dt).contiguous(),
+                                    te4.contiguous(), kern["conv0_b"], kern["tap_stem"])
+            return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
+        h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
+        h_s = h_s + cond_s2d.to(dt)
         if self.tap44 == "block":
             res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
         else:
-            h = conv_nhwc(h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
-            h = torch.relu(h * kern["bn0_a"] + kern["bn0_c"])
-            h = h + conv_nhwc(h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
+            if self.tap44 is True:
+                c1, sk = tap_conv_pair(h_s.contiguous(), kern["blk_conv1_44"], kern["blk_skip_44"])
+                c1, sk = c1 + kern["blk_b1"], sk + kern["blk_bsk"]
+            else:
+                c1 = conv_nhwc(h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
+                sk = conv_nhwc(h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
+            h = torch.relu(c1 * kern["bn0_a"] + kern["bn0_c"])
+            h = h + sk
             h = h + te4[:, None, None, :]
-            h = conv_nhwc(h, kern["blk_conv2"], kern["blk_b2"], padding=1)
+            if self.tap44:  # 'conv2' and True
+                h = tap_conv(h.contiguous(), kern["blk_conv2_44"]) + kern["blk_b2"]
+            else:
+                h = conv_nhwc(h, kern["blk_conv2"], kern["blk_b2"], padding=1)
             h = h * kern["bn1_a"] + kern["bn1_c"]
             s = conv_nhwc(h_s, kern["blk_short"], kern["blk_bsh"])
             res0_s = torch.relu(s * kern["bn2_a"] + kern["bn2_c"] + h)
@@ -369,9 +420,9 @@ class ResidualAttentionUNet(nn.Module):
         res2 = h = self.conv_blocks[2](h, t_emb)
         h = self.downs[2](h)
         h = self.bottle_neck(h, t_emb)
-        attn = self.attention_blocks[0](res2, self.gating_signals[0](h))
+        attn = self.attention_blocks[0](res2, self.gating_signals[0](h), kern.get("gate0"))
         h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb), attn], dim=1))
-        attn = self.attention_blocks[1](res1, self.gating_signals[1](h))
+        attn = self.attention_blocks[1](res1, self.gating_signals[1](h), kern.get("gate1"))
         hup = self.ups[1](h, t_emb)
         if self.dec_block:
             # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one call;
@@ -407,12 +458,13 @@ class ResidualAttentionUNet(nn.Module):
 def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
                                      magnification_factor: int = 2, s2d: bool = False,
                                      tap44: object = False, fused_att: bool = False,
-                                     dec_block: bool = False) -> ResidualAttentionUNet:
+                                     dec_block: bool = False,
+                                     use_pallas: bool = False) -> ResidualAttentionUNet:
     """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
     return ResidualAttentionUNet(
         conditioning="superres", image_channels=image_channels, out_dim=out_dim,
         cond_channels=image_channels, magnification_factor=magnification_factor,
-        s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block,
+        s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas,
     )
 
 

@@ -8,11 +8,22 @@ layout, with the three inference BatchNorms folded into the weights:
     h   = relu(Y_c1 + b1') + Y_sk + b_sk + te4      # rounded to x's dtype
     out = relu(im2col4x4(h) @ W2' + b2' + Y_sh + b_sh')
 
-:func:`tap_block` launches the hand-written CUDA kernel
-``csrc/tap_block.cu`` for CUDA tensors and runs :func:`tap_block_plain`, the
+:func:`tap_stem_block` (``tap44='stem'``) extends it down through the
+stem: x_s2d is the raw s2d model input and the block's input is computed in
+the same call,
+
+    h_s = round(im2col4x4(x) @ W0 + round(b0 + cond))
+
+so h_s never reaches device memory. It takes the flat s2d condition
+features (B, H2, W2, 4*16) that every other level takes; the reference's
+row-slab layout of ``build_cond_slabs`` is a VMEM device and is not carried
+over, only its one rounding of bias + cond in the compute dtype.
+
+:func:`tap_block` and :func:`tap_stem_block` launch the hand-written CUDA
+kernels ``csrc/tap_block.cu`` and ``csrc/tap_stem_block.cu`` for CUDA
+tensors and run :func:`tap_block_plain` / :func:`tap_stem_block_plain`, the
 same arithmetic in ``torch`` ops, for CPU tensors. There is no fallback from
-the kernel to the plain version: a CUDA tensor the kernel cannot take
-raises.
+a kernel to its plain version: a CUDA tensor the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import torch
 
 from diffusionremotesensing_tpu_torch.ops import cuda_build
 from diffusionremotesensing_tpu_torch.ops.s2d import k3_to_s2d44
-from diffusionremotesensing_tpu_torch.ops.tap_conv import _ORDER, _w2d, im2col_s2d44
+from diffusionremotesensing_tpu_torch.ops.tap_conv import _ORDER, _w2d, im2col_s2d44, tap_weight
 
 # im2col pieces equal to the unshifted tile; the shortcut's rows of W1 sit on
 # exactly these pieces (piece k carries tap block k % 4)
@@ -141,3 +152,88 @@ def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
 
 
 tap_block.launches = 0
+
+
+def build_stem_weights(w_conv0: torch.Tensor, bw: dict) -> dict:
+    """The weights :func:`tap_stem_block` takes: conv0's HWIO kernel
+    (3,3,Cx,C1) as the (16Cx, 4C1) tap matrix ``w0`` beside the block's
+    weights from :func:`build_block_weights`."""
+    return {"w0": tap_weight(w_conv0), **bw}
+
+
+def tap_stem_block_plain(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tensor,
+                         b0: torch.Tensor, sw: dict) -> torch.Tensor:
+    """Stem + block in ``torch`` ops: x_s2d (B,H2,W2,4Cx) the s2d model
+    input, cond_s2d (B,H2,W2,4C1) the s2d condition features, te4 (B,4Co),
+    b0 (4C1,) conv0's tap-tiled bias, sw from :func:`build_stem_weights`, all
+    in x's dtype. bias + cond is summed in x's dtype, added to conv0's
+    float32 product, and h_s rounded once."""
+    dt = x_s2d.dtype
+    base = (b0.to(dt) + cond_s2d.to(dt)).float()
+    h_s = (im2col_s2d44(x_s2d).float() @ sw["w0"].float() + base).to(dt)
+    return tap_block_plain(h_s, te4, sw)
+
+
+# the widths csrc/tap_stem_block.cu is compiled for: the x2 model's level 0
+_STEM_CX4, _STEM_C14, _STEM_CO4 = 12, 64, 128
+_STEM_ORDER = ("x_s2d", "cond_s2d", "te4", "w0", "b0", "w1", "w2", "b1", "bsk", "bsh", "b2")
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_library():
+    lib = cuda_build.load("tap_stem_block")
+    lib.tap_stem_block_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.tap_stem_block_launch.restype = ctypes.c_int
+    lib.tap_stem_block_smem.argtypes = [ctypes.c_int]
+    lib.tap_stem_block_smem.restype = ctypes.c_size_t
+    return lib
+
+
+def _check_stem(x_s2d, cond_s2d, te4, b0, sw):
+    """Raise unless the stem kernel takes these tensors as they are."""
+    if x_s2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tap_stem_block takes float32 or bfloat16, got {x_s2d.dtype}")
+    if x_s2d.dim() != 4 or x_s2d.shape[3] != _STEM_CX4:
+        raise ValueError(f"tap_stem_block: x_s2d must be (B, H2, W2, {_STEM_CX4}), "
+                         f"got {tuple(x_s2d.shape)}")
+    B, H2, W2, _ = x_s2d.shape
+    c14, co4 = _STEM_C14, _STEM_CO4
+    want = {"x_s2d": (B, H2, W2, _STEM_CX4), "cond_s2d": (B, H2, W2, c14), "te4": (B, co4),
+            "w0": (4 * _STEM_CX4, c14), "b0": (c14,), "w1": (4 * c14, 3 * co4),
+            "w2": (4 * co4, co4), "b1": (co4,), "bsk": (co4,), "bsh": (co4,), "b2": (co4,)}
+    got = dict(sw, x_s2d=x_s2d, cond_s2d=cond_s2d, te4=te4, b0=b0)
+    cuda_build.check_operands("tap_stem_block", x_s2d, {k: (got[k], s) for k, s in want.items()})
+
+
+def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tensor,
+                   b0: torch.Tensor, sw: dict) -> torch.Tensor:
+    """Fused stem + s2d ResConvBlock-0. CUDA tensors launch
+    ``csrc/tap_stem_block.cu`` (each launch adds one to
+    ``tap_stem_block.launches``); CPU tensors run
+    :func:`tap_stem_block_plain`. Returns res0_s (B,H2,W2,4Co) in x's dtype."""
+    if x_s2d.device.type == "cpu":
+        return tap_stem_block_plain(x_s2d, cond_s2d, te4, b0, sw)
+    if x_s2d.device.type != "cuda":
+        raise ValueError(f"tap_stem_block runs on cuda or cpu tensors, got {x_s2d.device}")
+    _check_stem(x_s2d, cond_s2d, te4, b0, sw)
+    B, H2, W2, _ = x_s2d.shape
+    is_bf16 = int(x_s2d.dtype == torch.bfloat16)
+    lib = _stem_library()
+    smem = lib.tap_stem_block_smem(is_bf16)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"tap_stem_block needs {smem} bytes of shared memory")
+    out = torch.empty((B, H2, W2, _STEM_CO4), dtype=x_s2d.dtype, device=x_s2d.device)
+    ops = dict(sw, x_s2d=x_s2d, cond_s2d=cond_s2d, te4=te4, b0=b0)
+    ptrs = (ctypes.c_void_p * len(_STEM_ORDER))(*(ops[k].data_ptr() for k in _STEM_ORDER))
+    with torch.cuda.device(x_s2d.device):
+        rc = lib.tap_stem_block_launch(ptrs, out.data_ptr(), B, H2, W2, is_bf16,
+                                       torch.cuda.current_stream(x_s2d.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tap_stem_block launch failed with CUDA error {rc}")
+    with _COUNT_LOCK:
+        tap_stem_block.launches += 1
+    return out
+
+
+tap_stem_block.launches = 0

@@ -8,12 +8,27 @@ im2col concatenates 16 pieces, one per window position (r, s); piece
 tap block tb. The piece order ``_ORDER`` is the reference's (chosen there
 for the TPU's lane layout); it is kept so that the weight matrices built by
 ``tap_block.build_block_weights`` are the same matrices, row for row.
+
+:func:`tap_conv` and :func:`tap_conv_pair` (``tap44`` True and 'conv2')
+launch the hand-written CUDA kernels of ``csrc/tap_conv.cu`` for CUDA
+tensors and run :func:`tap_conv_plain` / :func:`tap_conv_pair_plain`, the
+im2col times the weight matrix in ``torch`` ops, for CPU tensors. A CUDA
+tensor the kernel cannot take raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
+
 import torch
 import torch.nn.functional as F
+
+from diffusionremotesensing_tpu_torch.ops import cuda_build
+from diffusionremotesensing_tpu_torch.ops.s2d import k3_to_s2d44
+
+_COUNT_LOCK = threading.Lock()  # launches may come from several server threads
 
 # window position r -> (row offset into the 1-padded s2d tile, tap row):
 # original row 2i + r - 1 is s2d row i + ar - 1, tap q
@@ -44,3 +59,97 @@ def im2col_s2d44(x: torch.Tensor) -> torch.Tensor:
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))  # one zero s2d pixel on every side
     pieces = [xp[:, ar:ar + H2, as_:as_ + W2, tb * C:(tb + 1) * C] for (ar, as_, tb) in PIECES]
     return torch.cat(pieces, dim=-1)
+
+
+def tap_weight(w: torch.Tensor) -> torch.Tensor:
+    """3x3 HWIO kernel (3,3,C,Co) -> the (16C, 4Co) matrix :func:`tap_conv`
+    takes (``_w2d`` of ``k3_to_s2d44``)."""
+    return _w2d(k3_to_s2d44(w))
+
+
+def tap_conv_plain(x_s2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The s2d-layout 3x3 SAME conv in ``torch`` ops: x_s2d (B,H2,W2,4C), w
+    (16C, 4Co) from :func:`tap_weight` in x's dtype. The product accumulates
+    in float32 and is rounded once to x's dtype."""
+    return (im2col_s2d44(x_s2d).float() @ w.float()).to(x_s2d.dtype)
+
+
+def tap_conv_pair_plain(x_s2d: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor):
+    """Two convs of one input off one im2col: (conv(x, wa), conv(x, wb))."""
+    xc = im2col_s2d44(x_s2d).float()
+    return (xc @ wa.float()).to(x_s2d.dtype), (xc @ wb.float()).to(x_s2d.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load("tap_conv")
+    lib.tap_conv_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tap_conv_pair_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.tap_conv_launch.restype = lib.tap_conv_pair_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, x_s2d, ws):
+    """Raise unless the kernel takes x_s2d and the weights ws as they are."""
+    if x_s2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x_s2d.dtype}")
+    if x_s2d.dim() != 4:
+        raise ValueError(f"{name}: x_s2d must be (B, H2, W2, 4C), got {tuple(x_s2d.shape)}")
+    C4, CO4 = x_s2d.shape[3], ws[0].shape[-1]
+    c4_unit = 64 if x_s2d.dtype == torch.bfloat16 else 4  # WMMA's 16-channel pieces
+    if C4 % c4_unit or CO4 % 64:
+        raise ValueError(f"{name} needs 4C % {c4_unit} == 0 and 4Co % 64 == 0, got {C4}, {CO4}")
+    ops = {"x_s2d": (x_s2d, tuple(x_s2d.shape))}
+    ops.update({f"w{i}": (w, (4 * C4, CO4)) for i, w in enumerate(ws)})
+    cuda_build.check_operands(name, x_s2d, ops)
+
+
+def _launch(name, x_s2d, ws):
+    if x_s2d.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {x_s2d.device}")
+    _check(name, x_s2d, ws)
+    B, H2, W2, C4 = x_s2d.shape
+    CO4 = ws[0].shape[1]
+    outs = [torch.empty((B, H2, W2, CO4), dtype=x_s2d.dtype, device=x_s2d.device) for _ in ws]
+    lib = _library()
+    fn = lib.tap_conv_launch if len(ws) == 1 else lib.tap_conv_pair_launch
+    with torch.cuda.device(x_s2d.device):
+        rc = fn(x_s2d.data_ptr(), *(w.data_ptr() for w in ws), *(o.data_ptr() for o in outs),
+                B, H2, W2, C4, CO4, int(x_s2d.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x_s2d.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    return outs
+
+
+def tap_conv(x_s2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """s2d-layout 3x3 SAME conv: x_s2d (B,H2,W2,4C), w (16C, 4Co) from
+    :func:`tap_weight`. CUDA tensors launch ``csrc/tap_conv.cu`` (each launch
+    adds one to ``tap_conv.launches``); CPU tensors run
+    :func:`tap_conv_plain`. Returns (B,H2,W2,4Co) in x's dtype."""
+    if x_s2d.device.type == "cpu":
+        return tap_conv_plain(x_s2d, w)
+    (out,) = _launch("tap_conv", x_s2d, [w])
+    with _COUNT_LOCK:
+        tap_conv.launches += 1
+    return out
+
+
+def tap_conv_pair(x_s2d: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor):
+    """Two s2d-layout 3x3 SAME convs of one input, (conv(x, wa), conv(x, wb)),
+    off one staged input. CUDA tensors launch ``csrc/tap_conv.cu``'s pair
+    kernel (each launch adds one to ``tap_conv_pair.launches``); CPU tensors
+    run :func:`tap_conv_pair_plain`."""
+    if x_s2d.device.type == "cpu":
+        return tap_conv_pair_plain(x_s2d, wa, wb)
+    if wa.shape != wb.shape:
+        raise ValueError(f"tap_conv_pair: weights of shapes {tuple(wa.shape)}, {tuple(wb.shape)}")
+    oa, ob = _launch("tap_conv_pair", x_s2d, [wa, wb])
+    with _COUNT_LOCK:
+        tap_conv_pair.launches += 1
+    return oa, ob
+
+
+tap_conv.launches = 0
+tap_conv_pair.launches = 0

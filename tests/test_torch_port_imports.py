@@ -206,3 +206,81 @@ def test_chip_smoke_fused_flops_are_the_nonzero_weights():
     dec = nonzero(k["dec"], ("wa", "wb", "k4"))
     assert chip_smoke.att_flops(2, 64, 64) == 2 * 2 * 64 * 64 * att
     assert chip_smoke.dec_flops(2, 64, 64) == 2 * 2 * 64 * 64 * dec
+
+
+def test_the_third_slice_modules_are_guarded():
+    """The modules of the tap44 levels and of use_pallas are among what the
+    import guards above check."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("ops/tap_conv.py", "ops/tap_block.py", "ops/attention_gate.py",
+                "models/blocks.py"):
+        assert mod.replace("/", os.sep) in checked
+
+
+@pytest.mark.parametrize("name", ["plain_gates", "conv2", "tap", "stem_level", "stem"])
+def test_chip_smoke_golden_configurations_agree_on_the_cpu(name):
+    """Each configuration the golden phase adds computes GOLDEN on the CPU
+    too (its kernels' plain versions), at the phase's tolerance."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert name in chip_smoke.GOLDEN_CONFIGS
+    m = residual_attention_unet_superres(magnification_factor=2, **chip_smoke.CONFIGS[name])
+    m.load_state_dict(init_params(chip_smoke.SEED, "cpu"))
+    x, t, cond = chip_smoke.golden_input()
+    with torch.no_grad():
+        got = m.eval()(*(torch.from_numpy(a) for a in (x, t, cond))).numpy()
+    g = chip_smoke.GOLDEN
+    np.testing.assert_allclose(got.reshape(-1)[::g["stride"]], g["values"], atol=chip_smoke.GOLDEN_TOL)
+
+
+def test_chip_smoke_third_slice_flops_are_the_nonzero_weights():
+    """Per s2d pixel (gating pixel for the gate), the multiply-adds behind
+    the new kernels' bounds are exactly the entries of the weights they take
+    that are not structural zeros; the result conv counts at each of the 4
+    pixels of x above a gating pixel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    def nnz(*ws):
+        return sum(int((w != 0).sum()) for w in ws)
+
+    kt = residual_attention_unet_superres(magnification_factor=2, s2d=True,
+                                          tap44=True).eval().prepare_s2d_kernels(torch.float32)
+    m = residual_attention_unet_superres(magnification_factor=2,
+                                         **chip_smoke.CONFIGS["stem"]).eval()
+    ks = m.prepare_s2d_kernels(torch.float32)
+    n = 2 * 2 * 64 * 64
+    assert chip_smoke.conv_flops(2, 64, 64, 128, 128) == n * nnz(kt["blk_conv2_44"])
+    assert 2 * chip_smoke.conv_flops(2, 64, 64, 64, 128) == n * nnz(kt["blk_conv1_44"],
+                                                                    kt["blk_skip_44"])
+    st = ks["tap_stem"]
+    assert chip_smoke.stem_flops(2, 64, 64) == n * nnz(st["w0"], st["w1"], st["w2"])
+    for i, (hg, c) in enumerate(((16, 128), (32, 64))):
+        w = ks[f"gate{i}"]
+        assert chip_smoke.gate_flops(2, hg, hg, c) == 2 * 2 * hg * hg * (
+            nnz(w["wg"], w["wx"], w["wpsi"]) + 4 * nnz(w["wr"]))
+
+
+def test_chip_smoke_bounds_of_the_third_slice_kernels():
+    """At B=48 bf16: tap_conv and tap_conv_pair are bound by their bytes,
+    tap_stem_block by its operations, the gates by their bytes; the float32
+    gates by their operations."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    ms, by = cs.conv_bound(48, 64, 64, 128, 128, 2, cs.PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(
+        2 * (48 * 64 * 64 * 256 + 512 * 128) / 3.35e12 * 1e3)
+    ms, by = cs.conv_bound(48, 64, 64, 64, 128, 2, cs.PEAK_BF16, n=2)
+    assert by == "bytes" and ms == pytest.approx(
+        2 * (48 * 64 * 64 * (64 + 256) + 2 * 256 * 128) / 3.35e12 * 1e3)
+    ms, by = cs.stem_bound(48, 64, 64, 2, cs.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(cs.stem_flops(48, 64, 64) / cs.PEAK_BF16 * 1e3)
+    assert cs.stem_flops(48, 64, 64) == 2 * 48 * 128 * 128 * (9 * 3 * 16 + 2 * 9 * 16 * 32
+                                                              + 9 * 32 * 32 + 16 * 32)
+    gates = [(16, 16, 128), (32, 32, 64)]
+    assert cs.gate_bound(48, gates, 2, cs.PEAK_BF16)[1] == "bytes"
+    ms, by = cs.gate_bound(48, gates, 4, cs.PEAK_F32)
+    flops = sum(cs.gate_flops(48, *g) for g in gates)
+    assert by == "operations" and ms == pytest.approx(flops / cs.PEAK_F32 * 1e3)

@@ -96,6 +96,9 @@ static std::barrier<>* g_bar;
 #define __shared__
 #define __align__(n)
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+static std::vector<std::barrier<>*>* g_warp_bars;  // one per warp of the running block
+inline void __syncwarp() { (*g_warp_bars)[threadIdx.x / 32]->arrive_and_wait(); }
+inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 struct __nv_bfloat16 { uint16_t v; };
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = uint32_t(b.v) << 16; float f; std::memcpy(&f, &u, 4); return f; }
@@ -142,7 +145,8 @@ inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
 }}
 
 // Run `kernel` over `grid` one block at a time, one std::thread per CUDA
-// thread, a std::barrier for __syncthreads; shared memory starts as garbage.
+// thread, a std::barrier for __syncthreads and one per warp for __syncwarp;
+// shared memory starts as garbage.
 template <typename K>
 static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
   gridDim = grid;
@@ -154,6 +158,10 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
         blockIdx = {x, y, z};
         std::barrier<> bar(nthreads);
         g_bar = &bar;
+        std::vector<std::barrier<>*> warps;
+        for (unsigned w = 0; w * 32 < nthreads; ++w)
+          warps.push_back(new std::barrier<>(std::min(32u, nthreads - 32 * w)));
+        g_warp_bars = &warps;
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nthreads; ++t)
           ts.emplace_back([=] {
@@ -161,6 +169,7 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
             kernel();
           });
         for (auto& th : ts) th.join();
+        for (auto* w : warps) delete w;
       }
 }
 """

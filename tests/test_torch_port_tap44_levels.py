@@ -8,7 +8,7 @@ in interpret mode; the others against the reference's dense forward of
 the same path, which the reference's own tests pin equal to its kernel
 configurations (interpret mode there costs a JAX compile each, ~5-10 s).
 Each also against the port's dense-s2d forward (float32, atol 1e-5: the
-same function, sums in other orders). Then what each level prepares, the
+same function, sums in other orders), at HR 32. Then what each level prepares, the
 stem configuration in bfloat16 against dense-s2d, and a DDIM-3 sample of
 the stem process against the 'block' process."""
 
@@ -36,12 +36,12 @@ _JAX_OUT = {}  # the reference's outputs by flags, computed once per session
 
 @pytest.fixture(scope="module")
 def variables():
-    return random_jax_variables(seed=11, image_size=16)
+    return random_jax_variables(seed=11, image_size=32)
 
 
 @pytest.fixture(scope="module")
 def inputs():
-    return model_inputs(seed=15, batch=2, hr=16)
+    return model_inputs(seed=15, batch=2, hr=32)
 
 
 def _port(variables, inputs, **flags):
@@ -74,15 +74,14 @@ def test_forward_matches_jax_and_dense_s2d(variables, inputs, dense, name):
      {"blk_conv1", "blk_skip", "blk_conv2", "tap_block"}),
     ("stem", {"tap_stem", "conv0_b"}, {"conv0", "tap_block", "blk_conv1", "blk_short"}),
 ])
-def test_each_level_prepares_what_it_uses(tap44, has, lacks):
-    k = port_model(random_jax_variables(seed=11, image_size=16), s2d=True,
-                   tap44=tap44).prepare_s2d_kernels()
+def test_each_level_prepares_what_it_uses(variables, tap44, has, lacks):
+    k = port_model(variables, s2d=True, tap44=tap44).prepare_s2d_kernels()
     assert has <= set(k) and not lacks & set(k)
     assert "gate0" not in k
 
 
-def test_use_pallas_prepares_float32_gate_weights():
-    m = port_model(random_jax_variables(seed=11, image_size=16), s2d=True, use_pallas=True)
+def test_use_pallas_prepares_float32_gate_weights(variables):
+    m = port_model(variables, s2d=True, use_pallas=True)
     k = m.prepare_s2d_kernels(torch.bfloat16)
     assert k["conv0"].dtype == torch.bfloat16
     assert {k["gate0"]["wx"].shape, k["gate1"]["wx"].shape} == {(512, 128), (256, 64)}
@@ -103,9 +102,9 @@ def test_stem_configuration_bf16_close_to_dense(variables, inputs):
 
 def test_stem_ddim3_sample_matches_block(variables):
     rng = np.random.default_rng(16)
-    x_T = torch.from_numpy(rng.standard_normal((2, 16, 16, 3)).astype(np.float32))
-    cond = torch.from_numpy(rng.random((2, 8, 8, 3)).astype(np.float32))
-    outs = [make_process(port_model(variables, **flags), "cosine", 50, 16)
+    x_T = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    cond = torch.from_numpy(rng.random((2, 16, 16, 3)).astype(np.float32))
+    outs = [make_process(port_model(variables, **flags), "cosine", 50, 32)
             .ddim_sampler(3, clip_x0=True)(x_T, cond).numpy()
             for flags in (dict(s2d=True, tap44="block"), STEM)]
     np.testing.assert_allclose(outs[1], outs[0], atol=1e-5)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Four paths of x2 super-resolution at full width and depth (random weights
+Six paths of x2 super-resolution at full width and depth (random weights
 from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
 
 * unfused: tap44='block', whose one kernel is tap_block;
@@ -13,7 +13,15 @@ from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
 * stem:    tap44='stem', fused_att=True, dec_block=True, use_pallas=True, and
            fused_update=True: tap_stem_block, fused_attention_gate (gates 0
            and 1), att_head_block, dec_block and ancestral_update;
-* tap:     tap44=True: tap_conv_pair (conv1 and skip) and tap_conv (conv2).
+* tap:     tap44=True: tap_conv_pair (conv1 and skip) and tap_conv (conv2);
+* packed:  tap44='block', packed_head=True: tap_block and packed_head (the
+           head's head_up4 and head_at convs on the unfused tail);
+* l1:      tap44='l1': tap_block twice a forward, ResConvBlock-0 and, at
+           level 1 in s2d without its skip conv, ResConvBlock-1.
+
+packed_conv is on no path: the JAX model never calls its TPU kernel, so the
+port has no caller either. It is held against its plain version and timed
+in the kernel phase, and its launches in the kernels line are that phase's.
 
 Phases, each printing one line with its name, seconds and result:
 
@@ -24,38 +32,42 @@ Phases, each printing one line with its name, seconds and result:
 3. kernel  - hold each kernel against its plain version on the card at the
              main path's shapes (B=48 and the B=1 remainder chunk, 64x64 s2d
              pixels; the gates at gates 0 and 1's shapes, and gate 2's of
-             the plain forward) in bfloat16 and float32; time the kernel,
+             the plain forward; tap_block also at level 1's, 32x32 s2d
+             pixels, 4Ci=128, 4Co=256, no skip; packed_conv at 64->64 and
+             192->64, 64x64 pixels) in bfloat16 and float32; time the kernel,
              the plain version and the port's unfused ops for the same
              function (the yardstick, which the kernel paths never call).
              ancestral_update also: its generator's words equal the plain
              Philox's, the given bits mode, the moments of its noise, the
              last step exact.
 4. golden  - the full-width UNet on the card in float32 (plain forward, with
-             and without use_pallas; s2d at every tap44 level; the fused and
-             the stem configurations) against values the JAX reference
+             and without use_pallas; s2d at every tap44 level; the fused,
+             stem, packed and l1 configurations) against values the JAX reference
              package computed for the same weights and input (GOLDEN below),
              with the launches each forward makes.
 5. model   - the full-width UNet forward at B=48, HR 128: tap44 'block',
-             'conv2' and True and the fused and stem configurations each
-             against the dense-s2d path, in bfloat16 and float32; and one
-             DDIM-100 tile each of the fused and the stem configurations
-             against the unfused one in float32.
+             'conv2' and True and the fused, stem, packed, l1 and l1_fused
+             configurations each against the dense-s2d path, in bfloat16 and
+             float32; and one DDIM-100 tile each of the fused, stem and l1
+             configurations against the unfused one in float32.
 6. serve   - each path with every launch count set to 0 just before it and
              read just after. Unfused: an InferenceServer answers 4
              concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
              DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused and
              stem: a server of the configuration answers 4 concurrent
              DDIM-100 requests and 1 DDIM-100 tile, and AggregationSampler
-             with fused_update=True on its process 1 T=1500 tile. Tap: 4
-             requests and 1 DDIM-100 tile. Checks shapes, finiteness, range
-             and the exact launches of every kernel.
+             with fused_update=True on its process 1 T=1500 tile. Tap and
+             l1: 4 requests and 1 DDIM-100 tile. Packed: 4 requests, 1
+             DDIM-100 tile and 1 T=1500 tile from a second server. Checks
+             shapes, finiteness, range and the exact launches of every kernel.
 7. profile - only with --profile: where one sampler step's time goes, for
-             one UNet forward of the unfused, fused and stem configurations
-             at B=48 and B=1: device ms, host ms to issue it, wall ms, and the
-             top kernels by device time from torch.profiler.
+             one UNet forward of the unfused, fused, stem, packed and l1
+             configurations at B=48 and B=1: device ms, host ms to issue it,
+             wall ms, and the top kernels by device time from torch.profiler.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
-serve phase's paths; its times at B=48 in its main path's dtype), and last
+serve phase's paths, packed_conv's the kernel phase's; its times at B=48 in
+its main path's dtype), and last
 {"ok": true, "device": {...}}. Any failure raises: the script exits non-zero
 and prints no result. It needs one card, builds everything it runs from the
 sources beside it, and imports nothing of JAX.
@@ -101,7 +113,21 @@ from diffusionremotesensing_tpu_torch.ops.fused_update import (  # noqa: E402
     philox_bits_plain,
     update_coefs,
 )
-from diffusionremotesensing_tpu_torch.ops.s2d import conv_nhwc, space_to_depth  # noqa: E402
+from diffusionremotesensing_tpu_torch.ops.packed_conv import (  # noqa: E402
+    packed_conv,
+    packed_conv_plain,
+)
+from diffusionremotesensing_tpu_torch.ops.packed_head import (  # noqa: E402
+    packed_head,
+    packed_head_plain,
+)
+from diffusionremotesensing_tpu_torch.ops.s2d import (  # noqa: E402
+    conv_nhwc,
+    hwio_to_oihw,
+    k1_to_blockdiag,
+    k3_to_s2d,
+    space_to_depth,
+)
 from diffusionremotesensing_tpu_torch.ops.tap_block import (  # noqa: E402
     tap_block,
     tap_block_plain,
@@ -139,6 +165,9 @@ CONFIGS = {
     "stem_level": dict(s2d=True, tap44="stem"),
     "fused": dict(s2d=True, tap44="block", **FUSED),
     "stem": dict(s2d=True, tap44="stem", use_pallas=True, **FUSED),
+    "packed": dict(s2d=True, tap44="block", packed_head=True),
+    "l1": dict(s2d=True, tap44="l1"),
+    "l1_fused": dict(s2d=True, tap44="l1", use_pallas=True, **FUSED),
 }
 
 # Every kernel of the paths: its wrapper, source, the TPU kernel it
@@ -161,6 +190,10 @@ KERNELS = {
                       "diffusionremotesensing_tpu/ops/tap_conv.py:156", torch.bfloat16),
     "fused_attention_gate": (fused_attention_gate, "attention_gate.cu",
                              "diffusionremotesensing_tpu/ops/pallas_kernels.py:94", torch.bfloat16),
+    "packed_head": (packed_head, "packed_head.cu",
+                    "diffusionremotesensing_tpu/ops/packed_head.py:133", torch.bfloat16),
+    "packed_conv": (packed_conv, "packed_conv.cu",
+                    "diffusionremotesensing_tpu/ops/packed_conv.py:90", torch.bfloat16),
 }
 
 # Tolerances, max |kernel - plain| <= tol * max(1, max |plain|):
@@ -185,8 +218,8 @@ PROFILE_N = 4  # forwards per profile reading (~200 launches each fit the launch
 # the golden phase's configurations (each computes the same function) and
 # the model phase's, each held against the dense-s2d path
 GOLDEN_CONFIGS = ("plain", "plain_gates", "dense", "conv2", "tap", "block", "stem_level", "fused",
-                  "stem")
-MODEL_CONFIGS = ("block", "conv2", "tap", "fused", "stem")
+                  "stem", "packed", "l1", "l1_fused")
+MODEL_CONFIGS = ("block", "conv2", "tap", "fused", "stem", "packed", "l1", "l1_fused")
 
 # Values the JAX reference package computes for init_params(SEED) and
 # golden_input() (tests/test_torch_port_imports.py recomputes them):
@@ -256,17 +289,22 @@ def model_with(name, device, dtype=torch.float32):
 
 def per_forward(name):
     """The launches of each kernel in one UNet forward of configuration
-    `name`: the level's ResConvBlock-0 kernels, the fused decoder tail's,
-    and with use_pallas every gate the forward runs (gates 0 and 1 on the
-    s2d path, all three on the plain one)."""
+    `name`: the level's ResConvBlock-0 kernels ('l1' also ResConvBlock-1's),
+    the fused decoder tail's, packed_head on the unfused tail, and with
+    use_pallas every gate the forward runs through the fused gate (gates 0
+    and 1 on the s2d path, gate 0 alone under 'l1', all three on the plain
+    one)."""
     f = CONFIGS[name]
     level = f.get("tap44", False)
-    gates = (2 if f.get("s2d") else 3) if f.get("use_pallas") else 0
-    return {"tap_block": int(level == "block"), "att_head_block": int(f.get("fused_att", False)),
-            "dec_block": int(f.get("dec_block", False)), "ancestral_update": 0,
+    fused_att, dec = f.get("fused_att", False), f.get("dec_block", False)
+    gates = (2 - (level == "l1") if f.get("s2d") else 3) if f.get("use_pallas") else 0
+    return {"tap_block": int(level == "block") + 2 * (level == "l1"),
+            "att_head_block": int(fused_att), "dec_block": int(dec), "ancestral_update": 0,
             "tap_stem_block": int(level == "stem"),
             "tap_conv": int(level is True or level == "conv2"), "tap_conv_pair": int(level is True),
-            "fused_attention_gate": gates}
+            "fused_attention_gate": gates,
+            "packed_head": int(f.get("packed_head", False) and not (fused_att or dec)),
+            "packed_conv": 0}
 
 
 def zero_counts():
@@ -290,6 +328,46 @@ def block_dense_s2d(h_s, te4, k):
     h = conv_nhwc(h, k["blk_conv2"], k["blk_b2"], padding=1) * k["bn1_a"] + k["bn1_c"]
     s = conv_nhwc(h_s, k["blk_short"], k["blk_bsh"]) * k["bn2_a"] + k["bn2_c"]
     return torch.relu(s + h)
+
+
+@torch.no_grad()
+def block1_dense_kernels(m, dt):
+    """ResConvBlock-1's dense s2d kernels (level 1 in s2d: 4Ci=128, 4Co=256,
+    no skip conv) and folded BatchNorms, for block1_dense_s2d."""
+    blk = m.conv_blocks[1]
+
+    def conv(c, to_s2d):
+        w = to_s2d(c.weight.float().permute(2, 3, 1, 0))
+        return hwio_to_oihw(w).to(dt).contiguous(memory_format=torch.channels_last)
+
+    def affine(bn):
+        a = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+        return a.repeat(4).to(dt), (bn.bias.float() - bn.running_mean.float() * a).repeat(4).to(dt)
+
+    k = {"c1": conv(blk.conv1[0], k3_to_s2d), "b1": blk.conv1[0].bias.repeat(4).to(dt),
+         "c2": conv(blk.conv2[0], k3_to_s2d), "b2": blk.conv2[0].bias.repeat(4).to(dt),
+         "sh": conv(blk.shortcut_conv[0], k1_to_blockdiag),
+         "bsh": blk.shortcut_conv[0].bias.repeat(4).to(dt)}
+    for name, bn in (("bn0", blk.batch_norm1), ("bn1", blk.batch_norm2),
+                     ("bn2", blk.shortcut_batch_norm)):
+        k[f"{name}_a"], k[f"{name}_c"] = affine(bn)
+    return k
+
+
+def block1_dense_s2d(x, te4, k):
+    """ResConvBlock-1 in s2d as cuDNN convolutions on the dense s2d kernels
+    (block_dense_s2d without the skip conv)."""
+    h = torch.relu(conv_nhwc(x, k["c1"], k["b1"], padding=1) * k["bn0_a"] + k["bn0_c"])
+    h = conv_nhwc(h + te4[:, None, None, :], k["c2"], k["b2"], padding=1) * k["bn1_a"] + k["bn1_c"]
+    s = conv_nhwc(x, k["sh"], k["bsh"]) * k["bn2_a"] + k["bn2_c"]
+    return torch.relu(s + h)
+
+
+def head_unfused(hh, attn_s, k):
+    """head_up4 on hh plus head_at on attn_s as two cuDNN convolutions, as
+    the packed_head=False tail runs them."""
+    return (conv_nhwc(hh, k["head_up4"], padding=((1, 2), (1, 2)))
+            + conv_nhwc(attn_s, k["head_at"], padding=1))
 
 
 def stem_dense_s2d(xs, cond, te4, k):
@@ -332,15 +410,16 @@ def update_unfused(schedule, x, eps, i, gen):
 
 # ------------------------------------------------------------------ bounds
 
-def block_flops(B, H2, W2, C4, CO4):
+def block_flops(B, H2, W2, C4, CO4, skip=True):
     """(dense, issued) FLOPs of one tap_block call. Dense is the block's own
     work at full resolution (2*H2 x 2*W2 pixels, Ci = C4/4 in, Co = CO4/4
-    out): conv1 and skip 3x3 Ci->Co, conv2 3x3 Co->Co, shortcut 1x1 Ci->Co.
-    Issued is the size of the tap-formulation products the kernel runs
-    (X1 @ W1 and im2col(h) @ W2), structural zeros included."""
-    ci, co = C4 // 4, CO4 // 4
-    dense = 2 * B * (2 * H2) * (2 * W2) * (2 * 9 * ci * co + 9 * co * co + ci * co)
-    issued = 2 * B * H2 * W2 * (4 * C4 * 3 * CO4 + 4 * CO4 * CO4)
+    out): conv1 and (with `skip`, level 0) the skip conv 3x3 Ci->Co, conv2
+    3x3 Co->Co, shortcut 1x1 Ci->Co. Issued is the size of the
+    tap-formulation products the kernel runs (X1 @ W1 and im2col(h) @ W2),
+    structural zeros included."""
+    ci, co, n1 = C4 // 4, CO4 // 4, 3 if skip else 2
+    dense = 2 * B * (2 * H2) * (2 * W2) * ((n1 - 1) * 9 * ci * co + 9 * co * co + ci * co)
+    issued = 2 * B * H2 * W2 * (4 * C4 * n1 * CO4 + 4 * CO4 * CO4)
     return dense, issued
 
 
@@ -349,12 +428,12 @@ def _bound(flops, nbytes, peak):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def block_bound(B, H2, W2, C4, CO4, itemsize, peak):
+def block_bound(B, H2, W2, C4, CO4, itemsize, peak, skip=True):
     """Least time (ms) for one tap_block call: bytes each read or written
     once, the block's dense operations at the card's peak for the input type."""
-    flops, _ = block_flops(B, H2, W2, C4, CO4)
-    nbytes = itemsize * (B * H2 * W2 * C4 + B * CO4 + 4 * C4 * 3 * CO4 + 4 * CO4 * CO4
-                         + 4 * CO4 + B * H2 * W2 * CO4)
+    flops, _ = block_flops(B, H2, W2, C4, CO4, skip)
+    nbytes = itemsize * (B * H2 * W2 * C4 + B * CO4 + 4 * C4 * (3 if skip else 2) * CO4
+                         + 4 * CO4 * CO4 + 4 * CO4 + B * H2 * W2 * CO4)
     return _bound(flops, nbytes, peak)
 
 
@@ -399,6 +478,36 @@ def dec_bound(B, H, W, itemsize, peak, ca=128, cb=64, cm=64, out4=12):
     acts = B * H * W * (ca + cb + cm + out4) + B * cm + B * (H + W) * cm
     weights = 9 * (ca + cb) * cm + 9 * cm * cm + 16 * cm * out4 + 2 * cm
     return _bound(dec_flops(B, H, W, ca, cb, cm, out4), itemsize * (acts + weights), peak)
+
+
+def head_flops(B, H, W, c1=64, c2=128, out4=12):
+    """Dense FLOPs of one packed_head call over B x H x W s2d pixels:
+    head_up4 as dec_flops counts it (25 nonzero taps of each channel pair),
+    head_at as att_flops counts it (the composed 3x3 conv C->out4/4 at each
+    of the 4 full-resolution pixels of an s2d pixel, C = c2/4); the s2d
+    forms' structural zeros are not counted."""
+    o = out4 // 4
+    return 2 * B * H * W * (25 * c1 * o + 4 * 9 * (c2 // 4) * o)
+
+
+def head_bound(B, H, W, itemsize, peak, c1=64, c2=128, out4=12):
+    """Least time (ms) for one packed_head call: hh and attn_s read and out
+    written once, the two HWIO kernels read once; head_flops at the card's
+    peak for the input type."""
+    nbytes = itemsize * (B * H * W * (c1 + c2 + out4) + 16 * c1 * out4 + 9 * c2 * out4)
+    return _bound(head_flops(B, H, W, c1, c2, out4), nbytes, peak)
+
+
+def pconv_flops(B, H, W, ci, co):
+    """FLOPs of one packed_conv call: a 3x3 conv ci->co over B x H x W."""
+    return 2 * B * H * W * 9 * ci * co
+
+
+def pconv_bound(B, H, W, ci, co, itemsize, peak):
+    """Least time (ms) for one packed_conv call with bias: x read, out written,
+    the kernel and bias read once; pconv_flops at the card's peak."""
+    nbytes = itemsize * (B * H * W * (ci + co) + 9 * ci * co + co)
+    return _bound(pconv_flops(B, H, W, ci, co), nbytes, peak)
 
 
 def conv_flops(B, H2, W2, C4, CO4):
@@ -547,10 +656,14 @@ def main():
     def kernel():
         rows = {name: [] for name in KERNELS}
         sch = make_schedule("cosine", T_STEPS)
+        packed_conv.launches = 0  # packed_conv's launches are this phase's
         for dt in (torch.bfloat16, torch.float32):
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
             kf = model_with("fused", dev).prepare_s2d_kernels(dt)
             kt = model_with("tap", dev).prepare_s2d_kernels(dt)
+            kp = model_with("packed", dev).prepare_s2d_kernels(dt)["packed_head"]
+            m_l1 = model_with("l1", dev)
+            kl1, kd1 = m_l1.prepare_s2d_kernels(dt)["tap_block1"], block1_dense_kernels(m_l1, dt)
             m_stem = model_with("stem", dev)
             ks = m_stem.prepare_s2d_kernels(dt)
             w_gate2 = build_gate_weights(m_stem.attention_blocks[2])  # the plain forward's gate 2
@@ -576,6 +689,14 @@ def main():
                 gates = [(randn(B, s // 2, s // 2, 128), randn(B, s // 4, s // 4, 128)),
                          (randn(B, s, s, 64), randn(B, s // 2, s // 2, 64))]
                 gw = [ks["gate0"], ks["gate1"]]
+                # level 1 in s2d: 32x32 s2d pixels, 4Ci=128 in, 4Co=256 out
+                x1, te1 = randn(B, s // 2, s // 2, 128), torch.relu(randn(B, 256))
+                hh, at = randn(B, s, s, 64), randn(B, s, s, 128)
+                # packed_conv at its docstring's level-1 shapes, with bias
+                convs = {ci: (randn(B, s, s, ci), (0.05 * randn(3, 3, ci, 64)).contiguous(),
+                              randn(64)) for ci in (64, 192)}
+                w_convs = {ci: hwio_to_oihw(k).contiguous(memory_format=torch.channels_last)
+                           for ci, (_, k, _) in convs.items()}
                 seed, step = draw_seed(g, dev), 750
                 coefs = update_coefs(sch, step)
                 calls = {
@@ -616,6 +737,15 @@ def main():
                         lambda: gates_unfused(mu, gates),
                         lambda: gate_bound(B, [(s // 4, s // 4, 128), (s // 2, s // 2, 64)],
                                            x.element_size(), peak)),
+                    "packed_head": (lambda: packed_head(hh, at, kp["up4"], kp["at"]),
+                                    lambda: packed_head_plain(hh, at, kp["up4"], kp["at"]),
+                                    lambda: head_unfused(hh, at, kd),
+                                    lambda: head_bound(B, s, s, hh.element_size(), peak)),
+                    "packed_conv": (lambda: packed_conv(*convs[64]),
+                                    lambda: packed_conv_plain(*convs[64]),
+                                    lambda: conv_nhwc(convs[64][0], w_convs[64], convs[64][2],
+                                                      padding=1),
+                                    lambda: pconv_bound(B, s, s, 64, 64, hh.element_size(), peak)),
                 }
                 for name, (fn, plain, library, bound) in calls.items():
                     got, want = fn(), plain()
@@ -637,7 +767,33 @@ def main():
                     [fused_attention_gate(x2, g2, w_gate2)], [attention_gate_plain(x2, g2, w_gate2)],
                     dt, f"fused_attention_gate gate 2 {dt} B={B}")
                 gate_row["gate2_ms"] = time_ms(lambda: fused_attention_gate(x2, g2, w_gate2))
+                # tap_block at level 1's shape (no skip conv), against the
+                # cuDNN dense-s2d level-1 block
+                tb_row = rows["tap_block"][-1]
+                tb_row["l1_max_abs_err"] = max_err(
+                    [tap_block(x1, te1, kl1)], [tap_block_plain(x1, te1, kl1)], dt,
+                    f"tap_block level 1 {dt} B={B}")
+                tb_row["l1_ms"] = time_ms(lambda: tap_block(x1, te1, kl1))
+                # packed_conv 192->64 (the up-stage concat conv's shape)
+                pc_row = rows["packed_conv"][-1]
+                pc_row["c192_max_abs_err"] = max_err(
+                    [packed_conv(*convs[192])], [packed_conv_plain(*convs[192])], dt,
+                    f"packed_conv 192->64 {dt} B={B}")
+                pc_row["c192_ms"] = time_ms(lambda: packed_conv(*convs[192]))
                 if B == B_FLAG:
+                    tb_row["l1_plain_ms"] = time_ms(lambda: tap_block_plain(x1, te1, kl1), reps=5)
+                    tb_row["l1_library_ms"] = time_ms(lambda: block1_dense_s2d(x1, te1, kd1))
+                    tb_row["l1_bound_ms"], tb_row["l1_bound_by"] = block_bound(
+                        B, s // 2, s // 2, 128, 256, x1.element_size(), peak, skip=False)
+                    tb_row["l1_dense_gflop"] = block_flops(B, s // 2, s // 2, 128, 256, False)[0] / 1e9
+                    pc_row["c192_plain_ms"] = time_ms(lambda: packed_conv_plain(*convs[192]), reps=5)
+                    pc_row["c192_library_ms"] = time_ms(
+                        lambda: conv_nhwc(convs[192][0], w_convs[192], convs[192][2], padding=1))
+                    pc_row["c192_bound_ms"], pc_row["c192_bound_by"] = pconv_bound(
+                        B, s, s, 192, 64, hh.element_size(), peak)
+                    pc_row["dense_gflop"] = pconv_flops(B, s, s, 64, 64) / 1e9
+                    pc_row["c192_dense_gflop"] = pconv_flops(B, s, s, 192, 64) / 1e9
+                    rows["packed_head"][-1]["dense_gflop"] = head_flops(B, s, s) / 1e9
                     for i, ((a, b), w) in enumerate(zip(gates, gw)):
                         gate_row[f"gate{i}_ms"] = time_ms(lambda: fused_attention_gate(a, b, w))
                         gate_row[f"gate{i}_library_ms"] = time_ms(
@@ -656,6 +812,7 @@ def main():
                     rows["ancestral_update"][-1].update(
                         check_update(sch, xu, eu, seed, step, g))
         state["kernel_rows"] = rows
+        state["packed_conv_launches"] = packed_conv.launches
         return json.dumps(rows)
 
     def check_update(sch, x, eps, seed, step, g):
@@ -732,13 +889,13 @@ def main():
         # the unfused one, float32, same noise
         tile = np.random.default_rng(SEED + 1).random((TILE_LR, TILE_LR, 3)).astype(np.float32)
         tiles = {}
-        for name in ("block", "fused", "stem"):
+        for name in ("block", "fused", "stem", "l1"):
             proc = make_process(model_with(name, dev), "cosine", T_STEPS, HR)
             agg = AggregationSampler(proc, patch_size=HR // 2, stride=HR // 4,
                                      magnification_factor=2, ddim_steps=DDIM_STEPS)
             tiles[name] = agg(tile, generator=torch.Generator(device=dev).manual_seed(3),
                               device=dev)
-        for name in ("fused", "stem"):
+        for name in ("fused", "stem", "l1"):
             tile_err = float(np.abs(tiles[name] - tiles["block"]).max())
             check(tile_err <= TILE_TOL, f"DDIM-100 tile, {name} vs unfused: max|diff| {tile_err}")
             res[f"tile_ddim100_float32_max_abs_diff_{name}"] = tile_err
@@ -816,7 +973,9 @@ def main():
         paths = {"unfused": run_path("block", 2, "server"),
                  "fused": run_path("fused", 1, "fused_update"),
                  "stem": run_path("stem", 1, "fused_update"),
-                 "tap": run_path("tap", 1, None)}
+                 "tap": run_path("tap", 1, None),
+                 "packed": run_path("packed", 1, "server"),
+                 "l1": run_path("l1", 1, None)}
         for out in outputs:
             check(out.shape in ((HR, HR, 3), (2 * TILE_LR, 2 * TILE_LR, 3)), f"shape {out.shape}")
             check(np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0, "output range")
@@ -825,7 +984,7 @@ def main():
 
     def profile():
         lines = []
-        for name in ("block", "fused", "stem"):
+        for name in ("block", "fused", "stem", "packed", "l1"):
             proc = make_process(model_with(name, dev), "cosine", T_STEPS, HR, dtype=torch.bfloat16)
             with torch.inference_mode():
                 lines += [json.dumps({"config": name, **profile_forward(proc, b, dev)})
@@ -841,6 +1000,8 @@ def main():
     if args.profile:
         phase("profile", profile)
 
+    # packed_conv is on no path: its launches are the kernel phase's
+    state["launches"]["packed_conv"] = state["packed_conv_launches"]
     kernels = []
     for name, (_, src, replaces, dt) in KERNELS.items():
         flag = next(r for r in state["kernel_rows"][name]

@@ -22,20 +22,27 @@ Two executions of the same function:
   ``tap_conv_pair`` call; 'block', the whole block as one
   ``ops.tap_block.tap_block`` call; 'stem', the stem's conv0 + bias + cond
   add and the whole block as one ``tap_stem_block`` call, so its input h_s
-  never reaches device memory (hand-written CUDA kernels on the card, all
-  four). With
+  never reaches device memory; 'l1', 'block' plus level 1 in s2d: down0
+  emits s2d, ResConvBlock-1 is a second ``tap_block`` call without its skip
+  conv, and down1 and attention gate 1 read s2d. The kernels are
+  hand-written CUDA on the card, all of them. With
   ``fused_att=True`` gating signal 2, attention gate 2 and the head's
   ``head_at`` conv are one call of ``ops.att_block.att_head_block``; with
   ``dec_block=True`` the stage-1 concat conv, the UpConvBlock-2 body and
   the head's ``head_up4`` conv are one call of ``ops.dec_block.dec_block``
-  (CUDA kernels on the card, both). Unlike the reference, which keeps the
-  unfused chain for shapes its TPU kernels cannot hold, the fused branches
-  run for every shape when their flag is on.
+  (CUDA kernels on the card, both). With ``packed_head=True`` and neither
+  of those two, the head's ``head_up4`` and ``head_at`` convs are one call
+  of ``ops.packed_head.packed_head`` (a CUDA kernel on the card); with
+  either of them the flag has no effect, as in the reference, since those
+  kernels already hold the head's convs. Unlike the reference, which keeps
+  the unfused chain for shapes its TPU kernels cannot hold, the fused
+  branches run for every shape when their flag is on.
 
 ``use_pallas=True`` (the reference's flag name) runs every attention gate
 the forward computes through ``ops.attention_gate.fused_attention_gate``,
 one CUDA kernel a gate on the card: all three on the plain forward, gates 0
-and 1 on the s2d path (gate 2 there is the s2d gate or ``att_head_block``).
+and 1 on the s2d path (gate 2 there is the s2d gate or ``att_head_block``;
+under ``tap44='l1'`` gate 1 is the s2d gate too).
 
 Public tensors are NHWC, as in the reference package: ``forward`` takes x
 (B, H, W, 3), t (B,) and the LR condition (B, H/mag, W/mag, 3), and returns
@@ -65,6 +72,7 @@ from diffusionremotesensing_tpu_torch.ops.att_block import att_head_block, build
 from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weights
 from diffusionremotesensing_tpu_torch.ops.dec_block import build_dec_weights
 from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block as dec_block_kernel
+from diffusionremotesensing_tpu_torch.ops.packed_head import packed_head as packed_head_kernel
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 from diffusionremotesensing_tpu_torch.ops.s2d import (
     conv_nhwc,
@@ -74,6 +82,7 @@ from diffusionremotesensing_tpu_torch.ops.s2d import (
     k2s2_to_1x1,
     k3_to_s2d,
     k3s2_to_s2d,
+    kdown_to_s2d_out,
     kT_to_s2d,
     space_to_depth,
 )
@@ -85,11 +94,12 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import tap_conv, tap_conv_pair, tap_weight
 
-TAP44_LEVELS = (False, "conv2", True, "block", "stem")
+TAP44_LEVELS = (False, "conv2", True, "block", "stem", "l1")
 
 # kernel-dict entries that are HWIO conv kernels (stored OIHW, channels-last)
 _CONV_KEYS = ("conv0", "blk_conv1", "blk_skip", "blk_conv2", "blk_short", "down0", "att_wx",
-              "att_rc", "head_at", "head_up4", "head_fix_x", "head_fix_y")
+              "att_rc", "head_at", "head_up4", "head_fix_x", "head_fix_y", "down0_s2d",
+              "down1_s2d", "att1_wx", "att1_rc")
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -130,14 +140,16 @@ class ResidualAttentionUNet(nn.Module):
         fused_att: bool = False,
         dec_block: bool = False,
         use_pallas: bool = False,
+        packed_head: bool = False,
     ):
         super().__init__()
         if conditioning != "superres":
             raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
         if not isinstance(tap44, (bool, str)) or tap44 not in TAP44_LEVELS:
             raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
-        if (fused_att or dec_block) and not s2d:
-            raise ValueError("fused_att and dec_block are branches of the s2d path: pass s2d=True")
+        if (fused_att or dec_block or packed_head) and not s2d:
+            raise ValueError("fused_att, dec_block and packed_head are branches of the s2d path: "
+                             "pass s2d=True")
         self.conditioning = conditioning
         self.image_channels = image_channels
         self.out_dim = out_dim
@@ -151,6 +163,7 @@ class ResidualAttentionUNet(nn.Module):
         self.fused_att = bool(fused_att)
         self.dec_block = bool(dec_block)
         self.use_pallas = bool(use_pallas)
+        self.packed_head = bool(packed_head)
         dc, uc = self.down_channels, self.up_channels
         n_lv = len(dc) - 2
 
@@ -174,6 +187,12 @@ class ResidualAttentionUNet(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.conv0.weight.dtype
+
+    @property
+    def _packed_tail(self) -> bool:
+        """Whether the unfused tail runs its head through packed_head: with
+        fused_att or dec_block the head's convs live in those kernels."""
+        return self.packed_head and not (self.fused_att or self.dec_block)
 
     # ------------------------------------------------------------ condition
 
@@ -238,19 +257,31 @@ class ResidualAttentionUNet(nn.Module):
         the parameters' dtype). Samplers hoist this out of the step loop."""
         dt = dtype or self.dtype
         blk, att, up = self.conv_blocks[0], self.attention_blocks[2], self.ups[2]
-        k = {
-            "conv0_b": _vec(self.conv0.bias).repeat(4),
-            "down0": k3s2_to_s2d(_hwio(self.downs[0])),
-            "down0_b": _vec(self.downs[0].bias),
-            "att_wx": k2s2_to_1x1(_hwio(att.w_x[0])),
-            "att_wx_b": _vec(att.w_x[0].bias),
-            "att_rc": k1_to_blockdiag(_hwio(att.result[0])),
-            "att_rc_b": _vec(att.result[0].bias).repeat(4),
-        }
-        k["att_bn_a"], k["att_bn_c"] = _bn_affine(att.result[1])
+        k = {"conv0_b": _vec(self.conv0.bias).repeat(4)}
+        k.update(self._gate_s2d_kernels(2))
+        down0 = k3s2_to_s2d(_hwio(self.downs[0]))
+        if self.tap44 == "l1":
+            # level 1 in s2d: down0 emits the s2d of its output, ResConvBlock-1
+            # is a second tap_block without its skip conv, down1 and gate 1
+            # read s2d
+            blk1 = self.conv_blocks[1]
+            k["down0_s2d"] = kdown_to_s2d_out(down0)
+            k["down0_s2d_b"] = _vec(self.downs[0].bias).repeat(4)
+            k["tap_block1"] = build_block_weights(
+                _hwio(blk1.conv1[0]), _vec(blk1.conv1[0].bias), _bn_dict(blk1.batch_norm1),
+                None, None,
+                _hwio(blk1.conv2[0]), _vec(blk1.conv2[0].bias), _bn_dict(blk1.batch_norm2),
+                _hwio(blk1.shortcut_conv[0]), _vec(blk1.shortcut_conv[0].bias),
+                _bn_dict(blk1.shortcut_batch_norm),
+            )
+            k["down1_s2d"] = k3s2_to_s2d(_hwio(self.downs[1]))
+            k["down1_b"] = _vec(self.downs[1].bias)
+            k.update(self._gate_s2d_kernels(1))
+        else:
+            k["down0"], k["down0_b"] = down0, _vec(self.downs[0].bias)
         if self.tap44 != "stem":
             k["conv0"] = k3_to_s2d(_hwio(self.conv0))
-        if self.tap44 in ("block", "stem"):
+        if self.tap44 in ("block", "stem", "l1"):
             bw = build_block_weights(
                 _hwio(blk.conv1[0]), _vec(blk.conv1[0].bias), _bn_dict(blk.batch_norm1),
                 _hwio(blk.skip_conv), _vec(blk.skip_conv.bias),
@@ -330,6 +361,9 @@ class ResidualAttentionUNet(nn.Module):
                 _hwio(self.up_convs[1]), _vec(self.up_convs[1].bias),
                 _hwio(up.conv), _vec(up.conv.bias), _bn_dict(up.batch_norm), k["head_up4"],
             )
+        if self._packed_tail:
+            # the two head convs as the HWIO kernels packed_head takes
+            k["packed_head"] = {"up4": k.pop("head_up4"), "at": k.pop("head_at")}
 
         dev = self.conv0.weight.device
         out = {}
@@ -344,8 +378,9 @@ class ResidualAttentionUNet(nn.Module):
         # the (small) bias frame, where bf16 would cost visible precision
         out["head_bT_taps"] = torch.einsum("uvmo,m->uvo", H_up, b_T).to(dev)
         if self.use_pallas:
-            # the fused gates' weights stay float32, as the gate computes
-            for i in (0, 1):
+            # the fused gates' weights stay float32, as the gate computes;
+            # under 'l1' gate 1 is the s2d gate
+            for i in ((0,) if self.tap44 == "l1" else (0, 1)):
                 out[f"gate{i}"] = build_gate_weights(self.attention_blocks[i])
         out["frames"] = {}
         return out
@@ -376,7 +411,7 @@ class ResidualAttentionUNet(nn.Module):
             return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
         h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
         h_s = h_s + cond_s2d.to(dt)
-        if self.tap44 == "block":
+        if self.tap44 in ("block", "l1"):
             res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
         else:
             if self.tap44 is True:
@@ -397,32 +432,59 @@ class ResidualAttentionUNet(nn.Module):
             res0_s = torch.relu(s * kern["bn2_a"] + kern["bn2_c"] + h)
         return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
 
-    def _attention_s2d(self, x_s2d, g, kern):
-        """Attention gate 2 with its skip input in s2d layout: w_x's 2x2/s2
-        conv is one 1x1 over the taps, psi's nearest upsample a broadcast over
-        the taps, result_conv block-diagonal. NHWC in and out."""
-        att = self.attention_blocks[2]
+    def _gate_s2d_kernels(self, gate: int) -> dict:
+        """The s2d kernels of attention gate ``gate`` (2, or 1 under 'l1'),
+        keyed 'att_*' for gate 2 and 'att1_*' for gate 1."""
+        att, p = self.attention_blocks[gate], "att" if gate == 2 else f"att{gate}"
+        k = {f"{p}_wx": k2s2_to_1x1(_hwio(att.w_x[0])), f"{p}_wx_b": _vec(att.w_x[0].bias),
+             f"{p}_rc": k1_to_blockdiag(_hwio(att.result[0])),
+             f"{p}_rc_b": _vec(att.result[0].bias).repeat(4)}
+        k[f"{p}_bn_a"], k[f"{p}_bn_c"] = _bn_affine(att.result[1])
+        return k
+
+    def _attention_s2d(self, x_s2d, g, kern, gate: int = 2):
+        """Attention gate ``gate`` (2, or 1 under 'l1') with its skip input
+        in s2d layout: w_x's 2x2/s2 conv is one 1x1 over the taps, psi's
+        nearest upsample a broadcast over the taps, result_conv
+        block-diagonal. NHWC in and out."""
+        att, p = self.attention_blocks[gate], "att" if gate == 2 else f"att{gate}"
         g1 = conv_nhwc(g, att.w_g[0].weight, att.w_g[0].bias)
-        x1 = conv_nhwc(x_s2d, kern["att_wx"], kern["att_wx_b"])
+        x1 = conv_nhwc(x_s2d, kern[f"{p}_wx"], kern[f"{p}_wx_b"])
         psi = torch.relu(g1 + x1)
         psi = torch.sigmoid(conv_nhwc(psi, att.psi[0].weight, att.psi[0].bias))
-        attn_s = conv_nhwc(x_s2d * psi, kern["att_rc"], kern["att_rc_b"])
-        return attn_s * kern["att_bn_a"] + kern["att_bn_c"]
+        attn_s = conv_nhwc(x_s2d * psi, kern[f"{p}_rc"], kern[f"{p}_rc_b"])
+        return attn_s * kern[f"{p}_bn_a"] + kern[f"{p}_bn_c"]
 
     def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io):
         """Everything after ResConvBlock-0: down0 out of s2d, levels 1+
-        through the ordinary modules, up stage 2 and the composed head
-        (through the fused kernels where ``dec_block`` / ``fused_att`` ask)."""
-        h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
-        h = h.permute(0, 3, 1, 2)
-        res1 = h = self.conv_blocks[1](h, t_emb)
-        h = self.downs[1](h)
+        through the ordinary modules (level 1 in s2d under 'l1'), up stage 2
+        and the composed head (through the fused kernels where
+        ``dec_block`` / ``fused_att`` / ``packed_head`` ask)."""
+        l1 = self.tap44 == "l1"
+        if l1:
+            # down0 at stride 2 emitting s2d, ResConvBlock-1 as one tap_block
+            # call (no skip conv), down1 from s2d back to the normal layout
+            h1_s = conv_nhwc(res0_s, kern["down0_s2d"], kern["down0_s2d_b"],
+                             padding=((1, 0), (1, 0)), stride=2)
+            te1 = self.conv_blocks[1].time_bias(t_emb).repeat(1, 4)
+            res1_s = tap_block(h1_s.contiguous(), te1.contiguous(), kern["tap_block1"])
+            h = conv_nhwc(res1_s, kern["down1_s2d"], kern["down1_b"], padding=((1, 0), (1, 0)))
+            h = h.permute(0, 3, 1, 2)
+        else:
+            h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
+            h = h.permute(0, 3, 1, 2)
+            res1 = h = self.conv_blocks[1](h, t_emb)
+            h = self.downs[1](h)
         res2 = h = self.conv_blocks[2](h, t_emb)
         h = self.downs[2](h)
         h = self.bottle_neck(h, t_emb)
         attn = self.attention_blocks[0](res2, self.gating_signals[0](h), kern.get("gate0"))
         h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb), attn], dim=1))
-        attn = self.attention_blocks[1](res1, self.gating_signals[1](h), kern.get("gate1"))
+        if l1:
+            g = self.gating_signals[1](h).permute(0, 2, 3, 1)
+            attn = depth_to_space(self._attention_s2d(res1_s, g, kern, gate=1)).permute(0, 3, 1, 2)
+        else:
+            attn = self.attention_blocks[1](res1, self.gating_signals[1](h), kern.get("gate1"))
         hup = self.ups[1](h, t_emb)
         if self.dec_block:
             # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one call;
@@ -434,7 +496,8 @@ class ResidualAttentionUNet(nn.Module):
         else:
             h = self.up_convs[1](torch.cat([hup, attn], dim=1))
             hh = self.ups[2].body(h, t_emb).permute(0, 2, 3, 1)
-            out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
+            if not self._packed_tail:
+                out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
             hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
 
         if self.fused_att:
@@ -445,7 +508,13 @@ class ResidualAttentionUNet(nn.Module):
         else:
             attn_s = self._attention_s2d(res0_s, self.gating_signals[2](h).permute(0, 2, 3, 1),
                                          kern)
-            out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
+            if self._packed_tail:
+                # head_up4 on hh + head_at on attn_s in one call
+                kp = kern["packed_head"]
+                out_s = packed_head_kernel(hh.contiguous(), attn_s.contiguous(), kp["up4"],
+                                           kp["at"])
+            else:
+                out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
         # boundary corrections: the composed conv sees hh's padding through
         # intermediate row/column -1, which the uncomposed head zeroed
         out_s[:, :1] -= conv_nhwc(hh_row0, kern["head_fix_x"], padding=((0, 0), (1, 2)))
@@ -458,13 +527,14 @@ class ResidualAttentionUNet(nn.Module):
 def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
                                      magnification_factor: int = 2, s2d: bool = False,
                                      tap44: object = False, fused_att: bool = False,
-                                     dec_block: bool = False,
-                                     use_pallas: bool = False) -> ResidualAttentionUNet:
+                                     dec_block: bool = False, use_pallas: bool = False,
+                                     packed_head: bool = False) -> ResidualAttentionUNet:
     """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
     return ResidualAttentionUNet(
         conditioning="superres", image_channels=image_channels, out_dim=out_dim,
         cond_channels=image_channels, magnification_factor=magnification_factor,
         s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas,
+        packed_head=packed_head,
     )
 
 

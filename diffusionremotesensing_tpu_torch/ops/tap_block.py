@@ -8,6 +8,10 @@ layout, with the three inference BatchNorms folded into the weights:
     h   = relu(Y_c1 + b1') + Y_sk + b_sk + te4      # rounded to x's dtype
     out = relu(im2col4x4(h) @ W2' + b2' + Y_sh + b_sh')
 
+Level 1's block (``tap44='l1'``) has no skip conv: W1 is
+``[W_conv1' | W_short']`` (2*CO4 columns), the Y_sk term is absent and b_sk
+is zero, as in the reference's ``build_block_weights(..., w_skip=None)``.
+
 :func:`tap_stem_block` (``tap44='stem'``) extends it down through the
 stem: x_s2d is the raw s2d model input and the block's input is computed in
 the same call,
@@ -53,7 +57,9 @@ def build_block_weights(w_conv1, b_conv1, bn0, w_skip, b_skip, w_conv2, b_conv2,
     Kernels are HWIO: w_conv1/w_skip (3,3,Ci,Co), w_conv2 (3,3,Co,Co),
     w_short (1,1,Ci,Co); each bn is {'scale','bias','mean','var'}. Returns
     {w1 (16Ci, 3*4Co), w2 (16Co, 4Co), b1, bsk, bsh, b2 (each (4Co,))} in the
-    inputs' dtype; the caller casts to the compute dtype."""
+    inputs' dtype; the caller casts to the compute dtype. With
+    ``w_skip=None`` (the blocks of levels 1+, whose skip conv is never
+    applied) w1 is (16Ci, 2*4Co), [conv1' | shortcut'], and bsk is zero."""
 
     def fold(w, b, bn):
         s = bn["scale"] / torch.sqrt(bn["var"] + eps)
@@ -68,11 +74,12 @@ def build_block_weights(w_conv1, b_conv1, bn0, w_skip, b_skip, w_conv2, b_conv2,
     for k in _CENTER_K:
         t = k % 4
         w1_short[k * ci:(k + 1) * ci, t * co:(t + 1) * co] = wshf
+    skip = [] if w_skip is None else [_w2d(k3_to_s2d44(w_skip))]
     return {
-        "w1": torch.cat([_w2d(k3_to_s2d44(w1f)), _w2d(k3_to_s2d44(w_skip)), w1_short], dim=1),
+        "w1": torch.cat([_w2d(k3_to_s2d44(w1f)), *skip, w1_short], dim=1),
         "w2": _w2d(k3_to_s2d44(w2f)),
         "b1": b1f.repeat(4),
-        "bsk": b_skip.repeat(4),
+        "bsk": (torch.zeros_like(b_conv1) if b_skip is None else b_skip).repeat(4),
         "bsh": bshf.repeat(4),
         "b2": b2f.repeat(4),
     }
@@ -86,16 +93,23 @@ def tap_block_plain(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.T
     co4 = bw["w2"].shape[1]
     f = lambda name: bw[name].float()  # noqa: E731
     y = im2col_s2d44(x_s2d).float() @ f("w1")
-    h = torch.relu(y[..., :co4] + f("b1")) + y[..., co4:2 * co4] + f("bsk")
-    h = (h + te4.float()[:, None, None, :]).to(dt)
+    h = torch.relu(y[..., :co4] + f("b1"))
+    if _has_skip(bw):
+        h = h + y[..., co4:2 * co4]
+    h = (h + f("bsk") + te4.float()[:, None, None, :]).to(dt)
     c2 = im2col_s2d44(h).float() @ f("w2") + f("b2")
-    return torch.relu(c2 + y[..., 2 * co4:] + f("bsh")).to(dt)
+    return torch.relu(c2 + y[..., -co4:] + f("bsh")).to(dt)
+
+
+def _has_skip(bw: dict) -> bool:
+    """Whether w1 carries the skip conv's columns (level 0) or not (1+)."""
+    return bw["w1"].shape[1] == 3 * bw["w2"].shape[1]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("tap_block")
-    lib.tap_block_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tap_block_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.tap_block_launch.restype = ctypes.c_int
     lib.tap_block_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tap_block_smem.restype = ctypes.c_size_t
@@ -111,19 +125,21 @@ def _check(x_s2d, te4, bw):
     B, H2, W2, C4 = x_s2d.shape
     CO4 = bw["w2"].shape[1]
     c4_unit = 32 if x_s2d.dtype == torch.bfloat16 else 8  # 16-byte copies of bf16 pieces
-    if C4 % c4_unit or CO4 % 128:
-        raise ValueError(f"tap_block needs 4Ci % {c4_unit} == 0 and 4Co % 128 == 0, "
+    if C4 % c4_unit or CO4 % 128 or CO4 > 256:
+        raise ValueError(f"tap_block needs 4Ci % {c4_unit} == 0 and 4Co in (128, 256), "
                          f"got {C4}, {CO4}")
-    want = {"x_s2d": (B, H2, W2, C4), "te4": (B, CO4), "w1": (4 * C4, 3 * CO4),
+    n1 = (3 if _has_skip(bw) else 2) * CO4
+    want = {"x_s2d": (B, H2, W2, C4), "te4": (B, CO4), "w1": (4 * C4, n1),
             "w2": (4 * CO4, CO4), "b1": (CO4,), "bsk": (CO4,), "bsh": (CO4,), "b2": (CO4,)}
     got = dict(bw, te4=te4, x_s2d=x_s2d)
     cuda_build.check_operands("tap_block", x_s2d, {k: (got[k], s) for k, s in want.items()})
 
 
 def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
-    """Fused s2d ResConvBlock-0. CUDA tensors launch ``csrc/tap_block.cu``
-    (each launch adds one to ``tap_block.launches``); CPU tensors run
-    :func:`tap_block_plain`. Returns res0_s (B,H2,W2,4Co) in x's dtype."""
+    """Fused s2d ResConvBlock (level 0, or level 1 without the skip conv).
+    CUDA tensors launch ``csrc/tap_block.cu`` (each launch adds one to
+    ``tap_block.launches``); CPU tensors run :func:`tap_block_plain`.
+    Returns res_s (B,H2,W2,4Co) in x's dtype."""
     if x_s2d.device.type == "cpu":
         return tap_block_plain(x_s2d, te4, bw)
     if x_s2d.device.type != "cuda":
@@ -142,7 +158,7 @@ def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
         rc = lib.tap_block_launch(
             x_s2d.data_ptr(), te4.data_ptr(), bw["w1"].data_ptr(), bw["w2"].data_ptr(),
             bw["b1"].data_ptr(), bw["bsk"].data_ptr(), bw["bsh"].data_ptr(), bw["b2"].data_ptr(),
-            out.data_ptr(), B, H2, W2, C4, CO4, is_bf16, stream,
+            out.data_ptr(), B, H2, W2, C4, CO4, int(_has_skip(bw)), is_bf16, stream,
         )
     if rc != 0:
         raise RuntimeError(f"tap_block launch failed with CUDA error {rc}")

@@ -217,7 +217,8 @@ def test_the_third_slice_modules_are_guarded():
         assert mod.replace("/", os.sep) in checked
 
 
-@pytest.mark.parametrize("name", ["plain_gates", "conv2", "tap", "stem_level", "stem"])
+@pytest.mark.parametrize("name", ["plain_gates", "conv2", "tap", "stem_level", "stem", "packed",
+                                  "l1", "l1_fused"])
 def test_chip_smoke_golden_configurations_agree_on_the_cpu(name):
     """Each configuration the golden phase adds computes GOLDEN on the CPU
     too (its kernels' plain versions), at the phase's tolerance."""
@@ -284,3 +285,76 @@ def test_chip_smoke_bounds_of_the_third_slice_kernels():
     ms, by = cs.gate_bound(48, gates, 4, cs.PEAK_F32)
     flops = sum(cs.gate_flops(48, *g) for g in gates)
     assert by == "operations" and ms == pytest.approx(flops / cs.PEAK_F32 * 1e3)
+
+
+def test_the_fourth_slice_modules_are_guarded():
+    """The modules of packed_head and packed_conv are among what the import
+    guards above check."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("ops/packed_head.py", "ops/packed_conv.py"):
+        assert mod.replace("/", os.sep) in checked
+
+
+def test_chip_smoke_fourth_slice_flops_are_the_nonzero_weights():
+    """Per s2d pixel, the multiply-adds behind packed_head's and the level-1
+    tap_block's bounds are exactly the entries of the weights they take that
+    are not structural zeros; packed_conv's are the model's level-1 convs
+    its docstring names (conv_block1.conv2, 64->64, and up_conv1, 192->64)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    def nnz(*ws):
+        return sum(int((w != 0).sum()) for w in ws)
+
+    m = residual_attention_unet_superres(magnification_factor=2,
+                                         **chip_smoke.CONFIGS["packed"]).eval()
+    kp = m.prepare_s2d_kernels(torch.float32)["packed_head"]
+    assert chip_smoke.head_flops(2, 64, 64) == 2 * 2 * 64 * 64 * nnz(kp["up4"], kp["at"])
+    kl = residual_attention_unet_superres(
+        magnification_factor=2, **chip_smoke.CONFIGS["l1"]).eval().prepare_s2d_kernels(torch.float32)
+    for key, c4, co4, skip in (("tap_block", 64, 128, True), ("tap_block1", 128, 256, False)):
+        dense, issued = chip_smoke.block_flops(2, 32, 32, c4, co4, skip)
+        assert dense == 2 * 2 * 32 * 32 * nnz(kl[key]["w1"], kl[key]["w2"])
+        assert issued == 2 * 2 * 32 * 32 * (kl[key]["w1"].numel() + kl[key]["w2"].numel())
+    c2, uc1 = _macs(m.conv_blocks[1].conv2[0], m.up_convs[1])
+    assert chip_smoke.pconv_flops(2, 64, 64, 64, 64) == 2 * 2 * 64 * 64 * c2
+    assert chip_smoke.pconv_flops(2, 64, 64, 192, 64) == 2 * 2 * 64 * 64 * uc1
+
+
+def test_chip_smoke_bounds_of_the_fourth_slice_kernels():
+    """At B=48 bf16: packed_head (3.25 GFLOP, 80.3 MB) and packed_conv
+    64->64 are bound by their bytes, packed_conv 192->64 and the level-1
+    tap_block (22.5 GFLOP) by their operations."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    assert cs.head_flops(48, 64, 64) == pytest.approx(3.246e9, rel=1e-3)
+    ms, by = cs.head_bound(48, 64, 64, 2, cs.PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(
+        2 * (48 * 64 * 64 * (64 + 128 + 12) + 16 * 64 * 12 + 9 * 128 * 12) / 3.35e12 * 1e3)
+    ms, by = cs.pconv_bound(48, 64, 64, 64, 64, 2, cs.PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(
+        2 * (48 * 64 * 64 * 128 + 9 * 64 * 64 + 64) / 3.35e12 * 1e3)
+    ms, by = cs.pconv_bound(48, 64, 64, 192, 64, 2, cs.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(cs.pconv_flops(48, 64, 64, 192, 64)
+                                                      / cs.PEAK_BF16 * 1e3)
+    dense, _ = cs.block_flops(48, 32, 32, 128, 256, skip=False)
+    assert dense == pytest.approx(22.55e9, rel=1e-3)
+    ms, by = cs.block_bound(48, 32, 32, 128, 256, 2, cs.PEAK_BF16, skip=False)
+    assert by == "operations" and ms == pytest.approx(dense / cs.PEAK_BF16 * 1e3)
+
+
+@pytest.mark.parametrize("name,tap_block,gates,packed", [
+    ("block", 1, 0, 0), ("packed", 1, 0, 1), ("l1", 2, 0, 0), ("l1_fused", 2, 1, 0),
+    ("stem", 0, 2, 0)])
+def test_chip_smoke_per_forward_counts_the_new_paths(name, tap_block, gates, packed):
+    """The launches chip_smoke.py expects of one forward: 'l1' runs
+    tap_block twice and, with use_pallas, only gate 0 through the fused
+    gate; packed_head runs once on the unfused tail; packed_conv never."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = chip_smoke.per_forward(name)
+    assert (want["tap_block"], want["fused_attention_gate"], want["packed_head"]) == (
+        tap_block, gates, packed)
+    assert want["packed_conv"] == 0

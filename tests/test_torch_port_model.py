@@ -76,7 +76,8 @@ def test_init_params_is_seeded_and_loads_strict():
     residual_attention_unet_superres().load_state_dict(a, strict=True)
 
 
-@pytest.mark.parametrize("kwargs", [{"conditioning": "class"}, {"tap44": "l1"}, {"tap44": 1}])
+# tap44='l1' is ported now; 'l2' is no level of the reference either
+@pytest.mark.parametrize("kwargs", [{"conditioning": "class"}, {"tap44": "l2"}, {"tap44": 1}])
 def test_unported_options_raise(kwargs):
     with pytest.raises((ValueError, NotImplementedError)):
         ResidualAttentionUNet(**kwargs)

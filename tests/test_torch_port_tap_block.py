@@ -33,7 +33,9 @@ from diffusionremotesensing_tpu_torch.ops.tap_conv import PIECES
 from tests.torch_port_helpers import EMULATION_PRELUDE as _EMULATION_PRELUDE
 
 
-def _raw_weights(seed, ci=16, co=32):
+def _raw_weights(seed, ci=16, co=32, skip=True):
+    """build_block_weights' arguments; skip=False: level 1's block, whose
+    skip conv is None."""
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=0.1):
@@ -43,12 +45,14 @@ def _raw_weights(seed, ci=16, co=32):
         return {"scale": 1 + r(co, scale=0.2), "bias": r(co), "mean": r(co),
                 "var": np.abs(r(co, scale=0.2)) + 0.5}
 
-    return [r(3, 3, ci, co), r(co), bn(), r(3, 3, ci, co), r(co), r(3, 3, co, co), r(co), bn(),
+    sk = [r(3, 3, ci, co), r(co)] if skip else [None, None]
+    return [r(3, 3, ci, co), r(co), bn(), *sk, r(3, 3, co, co), r(co), bn(),
             r(1, 1, ci, co), r(co), bn()]
 
 
 def _as(raw, fn):
-    return [{k: fn(v) for k, v in a.items()} if isinstance(a, dict) else fn(a) for a in raw]
+    return [{k: fn(v) for k, v in a.items()} if isinstance(a, dict)
+            else None if a is None else fn(a) for a in raw]
 
 
 def _inputs(seed, B, H2, W2, c4=64, co4=128):
@@ -56,6 +60,11 @@ def _inputs(seed, B, H2, W2, c4=64, co4=128):
     x = rng.standard_normal((B, H2, W2, c4)).astype(np.float32)
     te4 = (np.maximum(rng.standard_normal((B, co4)), 0) * 0.3).astype(np.float32)
     return x, te4
+
+
+# level 0 (the block with its skip conv) and level 1 (tap44='l1': Ci=32,
+# Co=64, no skip conv)
+LEVELS = {0: dict(ci=16, co=32, skip=True), 1: dict(ci=32, co=64, skip=False)}
 
 
 def test_build_block_weights_matches_reference():
@@ -67,10 +76,34 @@ def test_build_block_weights_matches_reference():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-6, err_msg=k)
 
 
+def test_build_block_weights_without_skip_matches_reference():
+    """Level 1's block: w_skip=None gives w1 = [conv1' | shortcut'] of
+    (16Ci, 2*4Co) and a zero bsk, as the reference builds them."""
+    raw = _raw_weights(0, **LEVELS[1])
+    want = jax_build_block_weights(*_as(raw, jnp.asarray))
+    got = build_block_weights(*_as(raw, torch.from_numpy))
+    assert set(got) == set(want)
+    assert tuple(got["w1"].shape) == (16 * 32, 2 * 256) and not got["bsk"].any()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-6, err_msg=k)
+
+
 @pytest.mark.parametrize("B,H2,W2", [(2, 16, 16), (1, 8, 8)])
 def test_plain_matches_reference_kernel(B, H2, W2):
     raw = _raw_weights(1)
     x, te4 = _inputs(2, B, H2, W2)
+    want = jax_tap_block(jnp.asarray(x), jnp.asarray(te4),
+                         jax_build_block_weights(*_as(raw, jnp.asarray)), interpret=True)
+    got = tap_block_plain(torch.from_numpy(x), torch.from_numpy(te4),
+                          build_block_weights(*_as(raw, torch.from_numpy)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_plain_level1_matches_reference_kernel():
+    """Level 1 (4Ci=128, 4Co=256, no skip conv) at the golden input's level-1
+    size, 8x8 s2d pixels."""
+    raw = _raw_weights(1, **LEVELS[1])
+    x, te4 = _inputs(2, 1, 8, 8, 128, 256)
     want = jax_tap_block(jnp.asarray(x), jnp.asarray(te4),
                          jax_build_block_weights(*_as(raw, jnp.asarray)), interpret=True)
     got = tap_block_plain(torch.from_numpy(x), torch.from_numpy(te4),
@@ -132,11 +165,11 @@ def test_cuda_piece_table_matches_python_order():
 
 _EMULATION_LAUNCHER = r"""
 template <typename K>
-static void emu_grid(int B, int H2, int W2, K kernel) {
+static void emu_grid(int B, int H2, int W2, int TH, K kernel) {
   std::memset(smem_raw, 0xff, sizeof(smem_raw));  // shared memory starts as garbage
   for (int z = 0; z < B; ++z)
-    for (int y = 0; y < (H2 + TILE - 1) / TILE; ++y)
-      for (int xb = 0; xb < (W2 + TILE - 1) / TILE; ++xb) {
+    for (int y = 0; y < (H2 + TH - 1) / TH; ++y)
+      for (int xb = 0; xb < (W2 + TW - 1) / TW; ++xb) {
         blockIdx = {unsigned(xb), unsigned(y), unsigned(z)};
         std::barrier<> bar(NTHREADS);
         g_bar = &bar;
@@ -149,19 +182,34 @@ static void emu_grid(int B, int H2, int W2, K kernel) {
         for (auto& th : ts) th.join();
       }
 }
-extern "C" void emu_launch(const void* x, const void* te4, const void* w1, const void* w2,
-                           const void* b1, const void* bsk, const void* bsh, const void* b2,
-                           void* out, int B, int H2, int W2, int C4, int CO4, int is_bf16) {
+template <int TH, bool SKIP>
+static void emu_block(const void* x, const void* te4, const void* w1, const void* w2,
+                      const void* b1, const void* bsk, const void* bsh, const void* b2, void* out,
+                      int B, int H2, int W2, int C4, int CO4, int is_bf16) {
   typedef const __nv_bfloat16* H;
   typedef const float* F;
   if (is_bf16)
-    emu_grid(B, H2, W2, [=] { tap_block_tc_kernel((H)x, (H)te4, (H)w1, (H)w2, (H)b1, (H)bsk,
-                                                  (H)bsh, (H)b2, (__nv_bfloat16*)out, H2, W2,
-                                                  C4, CO4); });
+    emu_grid(B, H2, W2, TH, [=] {
+      tap_block_tc_kernel<TH, SKIP>((H)x, (H)te4, (H)w1, (H)w2, (H)b1, (H)bsk, (H)bsh, (H)b2,
+                                    (__nv_bfloat16*)out, H2, W2, C4, CO4); });
   else
-    emu_grid(B, H2, W2, [=] { tap_block_fma_kernel((F)x, (F)te4, (F)w1, (F)w2, (F)b1, (F)bsk,
-                                                   (F)bsh, (F)b2, (float*)out, H2, W2, C4,
-                                                   CO4); });
+    emu_grid(B, H2, W2, TH, [=] {
+      tap_block_fma_kernel<TH, SKIP>((F)x, (F)te4, (F)w1, (F)w2, (F)b1, (F)bsk, (F)bsh, (F)b2,
+                                     (float*)out, H2, W2, C4, CO4); });
+}
+extern "C" void emu_launch(const void* x, const void* te4, const void* w1, const void* w2,
+                           const void* b1, const void* bsk, const void* bsh, const void* b2,
+                           void* out, int B, int H2, int W2, int C4, int CO4, int has_skip,
+                           int is_bf16) {
+  if (tile_rows(CO4) == 16 && has_skip)
+    emu_block<16, true>(x, te4, w1, w2, b1, bsk, bsh, b2, out, B, H2, W2, C4, CO4, is_bf16);
+  else if (tile_rows(CO4) == 8 && !has_skip)
+    emu_block<8, false>(x, te4, w1, w2, b1, bsk, bsh, b2, out, B, H2, W2, C4, CO4, is_bf16);
+  else
+    std::abort();  // the two instantiations the model launches
+}
+extern "C" size_t emu_smem(int CO4, int is_bf16) {
+  return is_bf16 ? tc_smem_bytes(CO4) : fma_smem_bytes(CO4);
 }
 """
 
@@ -182,8 +230,10 @@ def emulated_kernel(tmp_path_factory):
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o",
                     str(d / "libemu.so"), str(d / "emu.cpp")], check=True, timeout=300)
     lib = ctypes.CDLL(str(d / "libemu.so"))
-    lib.emu_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    lib.emu_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
     lib.emu_launch.restype = None
+    lib.emu_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.emu_smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -201,10 +251,54 @@ def test_cuda_source_emulated_matches_plain(emulated_kernel, B, H2, W2, dtype):
     out = torch.empty((B, H2, W2, 128), dtype=dtype)
     emulated_kernel.emu_launch(
         x.data_ptr(), te4.data_ptr(), *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
-        out.data_ptr(), B, H2, W2, 64, 128, int(dtype == torch.bfloat16))
+        out.data_ptr(), B, H2, W2, 64, 128, 1, int(dtype == torch.bfloat16))
     want = tap_block_plain(x, te4, bw).float()
     scale = max(1.0, want.abs().max().item())
     # float32: the same products summed in another order; bfloat16: h and the
     # output rounded to bf16 on either side of a boundary (chip_smoke.py)
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
     assert (out.float() - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("B,H2,W2,dtype", [
+    (1, 10, 20, torch.float32),   # level 1, 4Ci=128, 4Co=256: 2x2 tiles of 8x16, ragged
+    (1, 10, 8, torch.bfloat16),   # ... on the tensor cores, two tile rows
+])
+def test_cuda_source_emulated_level1_matches_plain(emulated_kernel, B, H2, W2, dtype):
+    """Level 1's block (no skip conv, tile 8x16) against the plain version,
+    on images that cross the tile edges."""
+    lv = LEVELS[1]
+    bw = {k: v.to(dtype).contiguous()
+          for k, v in build_block_weights(*_as(_raw_weights(13, **lv), torch.from_numpy)).items()}
+    x, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(14, B, H2, W2, 128, 256))
+    out = torch.empty((B, H2, W2, 256), dtype=dtype)
+    emulated_kernel.emu_launch(
+        x.data_ptr(), te4.data_ptr(), *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
+        out.data_ptr(), B, H2, W2, 128, 256, 0, int(dtype == torch.bfloat16))
+    want = tap_block_plain(x, te4, bw).float()
+    scale = max(1.0, want.abs().max().item())
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    assert (out.float() - want).abs().max().item() <= tol * scale
+
+
+def test_shared_memory_fits_at_both_levels(emulated_kernel):
+    """Level 0 keeps its 16x16 tile (220,160 bytes in bfloat16); level 1's
+    8x16 tile fits 4Co=256 in both types under Hopper's 232,448 bytes."""
+    assert emulated_kernel.emu_smem(128, 1) == 220160
+    for co4 in (128, 256):
+        for bf in (0, 1):
+            assert emulated_kernel.emu_smem(co4, bf) <= 232448
+
+
+def test_wrapper_checks_the_level1_weights():
+    """The no-skip w1 is (16Ci, 2*4Co); a w1 of the other width is refused."""
+    from diffusionremotesensing_tpu_torch.ops import tap_block as tb
+
+    bw = build_block_weights(*_as(_raw_weights(15, **LEVELS[1]), torch.from_numpy))
+    x, te4 = (torch.from_numpy(a) for a in _inputs(16, 1, 8, 8, 128, 256))
+    tb._check(x, te4, bw)
+    with pytest.raises(ValueError, match="w1"):
+        tb._check(x, te4, dict(bw, w1=torch.zeros((512, 3 * 256 + 1))))
+    with pytest.raises(ValueError, match="4Co in"):
+        tb._check(torch.zeros((1, 8, 8, 128)), torch.zeros((1, 384)),
+                  dict(bw, w2=torch.zeros((4 * 384, 384))))

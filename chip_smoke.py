@@ -61,7 +61,7 @@ Phases, each printing one line with its name, seconds and result:
              DDIM-100 tile and 1 T=1500 tile from a second server. Checks
              shapes, finiteness, range and the exact launches of every kernel.
 7. profile - only with --profile: where one sampler step's time goes, for
-             one UNet forward of the unfused, fused, stem, packed and l1
+             one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it,
              wall ms, and the top kernels by device time from torch.profiler.
 
@@ -984,7 +984,7 @@ def main():
 
     def profile():
         lines = []
-        for name in ("block", "fused", "stem", "packed", "l1"):
+        for name in ("block", "fused", "stem", "tap", "packed", "l1"):
             proc = make_process(model_with(name, dev), "cosine", T_STEPS, HR, dtype=torch.bfloat16)
             with torch.inference_mode():
                 lines += [json.dumps({"config": name, **profile_forward(proc, b, dev)})

@@ -90,6 +90,20 @@ def _library():
     return lib
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory a block may have on an H100
+
+
+def smem_bytes(C4: int, CO4: int, n_weights: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of ``csrc/tap_conv.cu`` needs: bfloat16, the
+    whole W (``n_weights`` of them), two x slabs (each 4C / 64 planes of
+    10 x 18 pixels x 128 bytes, a plane rounded up to 1024 bytes), 1024
+    bytes of alignment and 5 mbarriers; float32, one x slab (each pixel
+    padded by 4 channels) and the warps' epilogue buffers."""
+    if dtype == torch.bfloat16:
+        return 1024 + n_weights * 2 * 4 * C4 * CO4 + 2 * (C4 // 64) * 23552 + 40
+    return -(-4 * 10 * 18 * (C4 + 4) // 128) * 128 + 4 * 8 * 16 * 68
+
+
 def _check(name, x_s2d, ws):
     """Raise unless the kernel takes x_s2d and the weights ws as they are."""
     if x_s2d.dtype not in (torch.float32, torch.bfloat16):
@@ -97,12 +111,21 @@ def _check(name, x_s2d, ws):
     if x_s2d.dim() != 4:
         raise ValueError(f"{name}: x_s2d must be (B, H2, W2, 4C), got {tuple(x_s2d.shape)}")
     C4, CO4 = x_s2d.shape[3], ws[0].shape[-1]
-    c4_unit = 64 if x_s2d.dtype == torch.bfloat16 else 4  # WMMA's 16-channel pieces
-    if C4 % c4_unit or CO4 % 64:
-        raise ValueError(f"{name} needs 4C % {c4_unit} == 0 and 4Co % 64 == 0, got {C4}, {CO4}")
+    bf16 = x_s2d.dtype == torch.bfloat16
+    # bfloat16: 16-channel pieces (ldmatrix) and 128-column wgmma passes
+    c4_unit, co4_unit = (64, 128) if bf16 else (4, 64)
+    if C4 % c4_unit or CO4 % co4_unit:
+        raise ValueError(f"{name} needs 4C % {c4_unit} == 0 and 4Co % {co4_unit} == 0, "
+                         f"got {C4}, {CO4}")
+    need = smem_bytes(C4, CO4, len(ws), x_s2d.dtype)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{name}: W ({4 * C4} x {CO4}, {len(ws)} of them) and the x slabs need "
+                         f"{need} bytes of shared memory, more than the {SMEM_LIMIT} a block has")
     ops = {"x_s2d": (x_s2d, tuple(x_s2d.shape))}
     ops.update({f"w{i}": (w, (4 * C4, CO4)) for i, w in enumerate(ws)})
     cuda_build.check_operands(name, x_s2d, ops)
+    if any(t.data_ptr() % 16 for t in (x_s2d, *ws)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned (16-byte copies)")
 
 
 def _launch(name, x_s2d, ws):

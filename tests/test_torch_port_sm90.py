@@ -1,0 +1,128 @@
+"""csrc/sm90.cuh's primitives under the CPU emulation of
+tests/torch_port_helpers.py, held against torch: one warpgroup's
+wgmma.m64n128k16 and m64n256k16 with A loaded by ldmatrix from a padded
+row-major tile and B landed by a TMA box in the 128-byte swizzle (the
+descriptor's MN-major layout), each accumulator element read back through
+the documented fragment layout; and a two-buffer mbarrier ring (full and
+empty barriers, parities over several rounds, transaction bytes) fed by TMA
+row loads. A layout slip here shows before the card runs the kernels that
+use them (csrc/tap_conv.cu); the card remains the final check."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_port_helpers import compile_emulated
+
+_LAUNCHER = r"""
+// D (64 x N, float32) = A (64 x 16) B (16 x N), bf16 operands, on one warpgroup
+template <int N>
+static void emu_product(const void* A, const void* B, float* D) {
+  emu_run({1, 1, 1}, 128, [=] {
+    unsigned char* base = smem_raw;                              // 1024-aligned
+    __nv_bfloat16* as = (__nv_bfloat16*)(base + N / 64 * 2048);  // A, rows of 24 elements
+    uint64_t* bar = (uint64_t*)(base + N / 64 * 2048 + 64 * 48);
+    const int t = threadIdx.x, w = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+    const sm90::TensorMap bmap{B, {N, 16, 1, 1}, {2, 2LL * N, 0, 0}, {64, 16, 1, 1}};
+    if (t == 0) {
+      sm90::mbar_init(bar, 1);
+      sm90::fence_mbar_init();
+      sm90::mbar_arrive_expect_tx(bar, N * 16 * 2);
+      for (int na = 0; na < N / 64; ++na)
+        sm90::tma_load_2d(base + na * 2048, &bmap, 64 * na, 0, bar);
+    }
+    for (int e = t; e < 64 * 16; e += 128)
+      as[(e / 16) * 24 + e % 16] = ((const __nv_bfloat16*)A)[e];
+    __syncthreads();
+    sm90::mbar_wait(bar, 0);
+    uint32_t a[4];
+    sm90::ldmatrix_x4(a, as + (16 * w + lane % 16) * 24 + (lane / 16) * 8);
+    float d[N / 2];
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    // B: atoms of 8 rows x 64 columns; the next 64 columns 2048 bytes on,
+    // the next 8 rows 1024
+    const uint64_t desc = sm90::desc_sw128(base, 2048, 1024);
+    sm90::wgmma_fence();
+    if constexpr (N == 256) sm90::wgmma_m64n256k16(d, a, desc);
+    else sm90::wgmma_m64n128k16(d, a, desc);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    for (int j = 0; j < N / 8; ++j)
+      for (int h = 0; h < 2; ++h)
+        for (int e = 0; e < 2; ++e)
+          D[(16 * w + g + 8 * h) * N + 8 * j + 2 * q + e] = d[4 * j + 2 * h + e];
+  });
+}
+extern "C" void product(const void* A, const void* B, float* D, int n) {
+  if (n == 256) emu_product<256>(A, B, D);
+  else emu_product<128>(A, B, D);
+}
+
+// rows of X (rounds x 64, bf16) through two buffers: thread 0 loads row
+// i + 1 while all 64 threads read row i; out[i][t] = X[i][t]
+extern "C" void ring(const void* X, int rounds, float* out) {
+  emu_run({1, 1, 1}, 64, [=] {
+    unsigned char* base = smem_raw;
+    uint64_t* full = (uint64_t*)(base + 2048);
+    uint64_t* empty = full + 2;
+    const int t = threadIdx.x;
+    const sm90::TensorMap xmap{X, {64, rounds, 1, 1}, {2, 128, 0, 0}, {64, 1, 1, 1}};
+    auto load = [&](int i, int s) {
+      sm90::mbar_arrive_expect_tx(&full[s], 128);
+      sm90::tma_load_2d(base + 1024 * s, &xmap, 0, i, &full[s]);
+    };
+    if (t == 0) {
+      for (int s = 0; s < 2; ++s) {
+        sm90::mbar_init(&full[s], 1);
+        sm90::mbar_init(&empty[s], 64);
+      }
+      sm90::fence_mbar_init();
+      load(0, 0);
+    }
+    __syncthreads();
+    for (int i = 0; i < rounds; ++i) {
+      const int s = i & 1;
+      if (t == 0 && i + 1 < rounds) {
+        if (i >= 1) sm90::mbar_wait(&empty[s ^ 1], ((i - 1) >> 1) & 1);
+        load(i + 1, s ^ 1);
+      }
+      sm90::mbar_wait(&full[s], (i >> 1) & 1);
+      out[i * 64 + t] = __bfloat162float(((const __nv_bfloat16*)(base + 1024 * s))[t]);
+      sm90::mbar_arrive(&empty[s]);
+    }
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    lib = compile_emulated("sm90.cuh", _LAUNCHER, tmp_path_factory.mktemp("sm90_emu"))
+    lib.product.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.ring.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_warpgroup_product_matches_torch(emulated, n):
+    """64 x n x 16: every element in its documented fragment place. The
+    operands are bf16, so the float32 product of 16 terms differs from
+    torch's only by the order of the sum (atol 1e-5)."""
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32)).bfloat16()
+    b = torch.from_numpy(rng.standard_normal((16, n)).astype(np.float32)).bfloat16()
+    d = torch.full((64, n), float("nan"))
+    emulated.product(a.data_ptr(), b.data_ptr(), d.data_ptr(), n)
+    torch.testing.assert_close(d, a.float() @ b.float(), atol=1e-5, rtol=0)
+
+
+def test_mbarrier_ring_keeps_rounds_apart(emulated):
+    """Nine rounds through two buffers: each round reads its own row, so the
+    full/empty phases and parities alternate as the kernels use them."""
+    rounds = 9
+    x = torch.arange(rounds * 64, dtype=torch.float32).reshape(rounds, 64).bfloat16()
+    out = torch.full((rounds, 64), float("nan"))
+    emulated.ring(x.data_ptr(), rounds, out.data_ptr())
+    assert torch.equal(out, x.float())

@@ -71,9 +71,16 @@ def model_inputs(seed: int = 0, batch: int = 2, hr: int = 32):
 # thread (threadIdx thread-local), a std::barrier for __syncthreads, bf16 as
 # its 16 bits with round-to-nearest-even, and WMMA with every thread of a
 # warp holding the whole 16x16 tile (the API keeps fragment contents
-# opaque, so this is its meaning; lane 0 stores). emu_run runs a grid.
+# opaque, so this is its meaning; lane 0 stores). For csrc/sm90.cuh's host
+# meanings (ldmatrix, wgmma, shfl, mbarriers): a barrier per warpgroup
+# (emu_wg_sync) beside the per-warp ones, exchange areas through which the
+# lanes of a warp (emu_warp_slots: one 64-bit slot a lane) and the threads of
+# a warpgroup (emu_wg_slots: one A fragment a thread) see each other's
+# registers, and shared memory aligned as the swizzle atoms want (1024
+# bytes). emu_run runs a grid.
 EMULATION_PRELUDE = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <math.h>
@@ -95,9 +102,16 @@ static std::barrier<>* g_bar;
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(n)
+#define __grid_constant__
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 static std::vector<std::barrier<>*>* g_warp_bars;  // one per warp of the running block
 inline void __syncwarp() { (*g_warp_bars)[threadIdx.x / 32]->arrive_and_wait(); }
+static std::vector<std::barrier<>*>* g_wg_bars;    // one per warpgroup of the running block
+inline void emu_wg_sync() { (*g_wg_bars)[threadIdx.x / 128]->arrive_and_wait(); }
+static uint64_t g_warp_slots[32][32];
+static uint32_t g_wg_slots[8][128][4];
+inline uint64_t* emu_warp_slots() { return g_warp_slots[threadIdx.x / 32]; }
+inline uint32_t (*emu_wg_slots())[4] { return g_wg_slots[threadIdx.x / 128]; }
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 struct __nv_bfloat16 { uint16_t v; };
 inline float __bfloat162float(__nv_bfloat16 b) {
@@ -114,7 +128,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
-namespace { alignas(128) unsigned char smem_raw[232448]; }
+namespace { alignas(1024) unsigned char smem_raw[232448]; }
 // WMMA: every thread of a warp holds the whole 16x16 tile (the API keeps
 // fragment contents opaque, so this is its meaning); lane 0 stores
 namespace nvcuda { namespace wmma {
@@ -145,8 +159,8 @@ inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
 }}
 
 // Run `kernel` over `grid` one block at a time, one std::thread per CUDA
-// thread, a std::barrier for __syncthreads and one per warp for __syncwarp;
-// shared memory starts as garbage.
+// thread, a std::barrier for __syncthreads, one per warp for __syncwarp and
+// one per warpgroup; shared memory starts as garbage.
 template <typename K>
 static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
   gridDim = grid;
@@ -162,6 +176,10 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
         for (unsigned w = 0; w * 32 < nthreads; ++w)
           warps.push_back(new std::barrier<>(std::min(32u, nthreads - 32 * w)));
         g_warp_bars = &warps;
+        std::vector<std::barrier<>*> groups;
+        for (unsigned w = 0; w * 128 < nthreads; ++w)
+          groups.push_back(new std::barrier<>(std::min(128u, nthreads - 128 * w)));
+        g_wg_bars = &groups;
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nthreads; ++t)
           ts.emplace_back([=] {
@@ -170,6 +188,7 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
           });
         for (auto& th : ts) th.join();
         for (auto* w : warps) delete w;
+        for (auto* w : groups) delete w;
       }
 }
 """
@@ -178,7 +197,8 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
 def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
     """``csrc/<name>.cu``'s device code (everything above its host
     launchers, local headers inlined) plus ``launcher``, compiled for the
-    CPU under EMULATION_PRELUDE. Skips the test when there is no g++."""
+    CPU under EMULATION_PRELUDE; a ``name`` ending in ``.cuh`` takes that
+    header alone. Skips the test when there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the CUDA source cannot be emulated here")
@@ -195,9 +215,11 @@ def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
                 out.append(ln)
         return "\n".join(out)
 
-    device_code = source(f"{name}.cu").split("// ---- host launcher")[0]
-    cpp = os.path.join(out_dir, f"{name}_emu.cpp")
-    lib = os.path.join(out_dir, f"lib{name}_emu.so")
+    device_code = source(name if name.endswith(".cuh") else f"{name}.cu")
+    device_code = device_code.split("// ---- host launcher")[0]
+    stem = name.split(".")[0]
+    cpp = os.path.join(out_dir, f"{stem}_emu.cpp")
+    lib = os.path.join(out_dir, f"lib{stem}_emu.so")
     with open(cpp, "w") as f:
         f.write(EMULATION_PRELUDE + device_code + launcher)
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", lib, cpp],

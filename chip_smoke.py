@@ -62,8 +62,10 @@ Phases, each printing one line with its name, seconds and result:
              shapes, finiteness, range and the exact launches of every kernel.
 7. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
-             configurations at B=48 and B=1: device ms, host ms to issue it,
-             wall ms, and the top kernels by device time from torch.profiler.
+             configurations at B=48 and B=1: device ms, host ms to issue it
+             (one forward queued alone behind a sleep kernel), wall ms, and
+             the top kernels by device time from torch.profiler with every
+             hand-written kernel.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
 serve phase's paths, packed_conv's the kernel phase's; its times at B=48 in
@@ -76,6 +78,7 @@ sources beside it, and imports nothing of JAX.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -214,7 +217,8 @@ TILE_TOL = 1e-3
 # its mean and standard deviation are 6.5e-4 and 4.6e-4
 Z_MOMENT_TOL = 5e-3
 GOLDEN_TOL = 1e-4
-PROFILE_N = 4  # forwards per profile reading (~200 launches each fit the launch queue)
+PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
+SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
 # the golden phase's configurations (each computes the same function) and
 # the model phase's, each held against the dense-s2d path
 GOLDEN_CONFIGS = ("plain", "plain_gates", "dense", "conv2", "tap", "block", "stem_level", "fused",
@@ -570,7 +574,8 @@ def update_bound(n, itemsize):
 
 def profile_forward(proc, batch, dev):
     """Device, host and wall ms of one UNet forward at `batch`, and the top
-    kernels by device time (empty if torch.profiler sees no device time)."""
+    kernels by device time with every hand-written one (empty if
+    torch.profiler sees no device time)."""
     g = torch.Generator(device=dev).manual_seed(batch)
     x = torch.randn((batch, HR // 2, HR // 2, 12), generator=g, device=dev)  # s2d state
     t = torch.full((batch,), 750.0, device=dev)
@@ -581,19 +586,31 @@ def profile_forward(proc, batch, dev):
 
     wall_ms = time_ms(fn, reps=PROFILE_N)  # host and device overlapping, as in the sampler
     # device time alone: a sleep kernel holds the device while the host
-    # queues the forwards, which then run back to back; the host's time to
-    # queue them is its issue time
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(2_000_000_000)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(PROFILE_N):
+    # issues one forward, which then runs back to back; the host's time to
+    # issue it is its issue time. One forward a window, so that its launches
+    # never fill the launch queue (four tap forwards did, and the host then
+    # waited out the sleep); a window that ended before the forward was
+    # queued is read again, twice as long.
+    host, device = [], []
+    cycles = SLEEP_CYCLES
+    while len(host) < PROFILE_N:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
         fn()
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_N
-    torch.cuda.synchronize()
-    device_ms = start.elapsed_time(end) / PROFILE_N
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        if start.query():  # the sleep ended before the forward was issued
+            check(cycles < 16 * SLEEP_CYCLES,
+                  f"profile: a forward's issue outlasted {cycles} cycles")
+            cycles *= 2
+            continue
+        torch.cuda.synchronize()
+        host.append(issue_ms)
+        device.append(start.elapsed_time(end))
+    host_ms, device_ms = sum(host) / PROFILE_N, sum(device) / PROFILE_N
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(PROFILE_N):
@@ -603,8 +620,48 @@ def profile_forward(proc, batch, dev):
                        "calls": ev.count // PROFILE_N}
                       for ev in prof.key_averages() if getattr(ev, "self_device_time_total", 0) > 0),
                      key=lambda r: -r["ms_per_forward"])
+    # the top 12, and every hand-written kernel (csrc/*.cu: anonymous namespaces) below them
+    shown = kernels[:12] + [k for k in kernels[12:]
+                            if k["name"].startswith("void (anonymous namespace)::")]
     return {"batch": batch, "device_ms": device_ms, "host_ms": host_ms, "wall_ms": wall_ms,
-            "kernels": kernels[:12]}
+            "sleep_cycles": cycles, "kernels": shown}
+
+
+def kernel_name(mangled):
+    """`dec_tc_kernel<1>` from an Itanium-mangled kernel name: the first
+    length-prefixed identifier that names a kernel (the anonymous namespace
+    before it is one too, `_GLOBAL__N_1` or `_INTERNAL_...`), and its
+    integer template arguments."""
+    i = 0
+    while True:
+        m = re.compile(r"\d+").search(mangled, i)
+        if m is None:
+            return mangled
+        ident = mangled[m.end():m.end() + int(m.group())]
+        i = m.end() + max(len(ident), 1)
+        if ident.endswith("kernel"):
+            break
+    targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[i:])
+    args = re.findall(r"L[a-z]+(\d+)E", targs.group(1)) if targs else []
+    return ident + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_summary(log):
+    """One entry per kernel of an `nvcc -Xptxas -v` log: its name, registers
+    and spill bytes."""
+    out, current, spills = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            current = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current:
+            out.append(f"{current} {m.group(1)} regs, {spills}")
+            current = None
+    return out
 
 
 def max_err(got, want, dt, what):
@@ -646,12 +703,8 @@ def main():
         sources = sorted({k[1][:-3] for k in KERNELS.values()})
         with ThreadPoolExecutor(len(sources)) as ex:
             built = dict(zip(sources, ex.map(cuda_build.build, sources)))
-        out = []
-        for name, b in built.items():
-            ptxas = [ln.strip() for ln in b.log.splitlines()
-                     if "registers" in ln or "spill" in ln or "smem" in ln]
-            out.append(f"{name}: {b.seconds:.1f}s; " + " | ".join(ptxas))
-        return "\n".join(out)
+        return "\n".join(f"{name}: {b.seconds:.1f}s; " + " | ".join(ptxas_summary(b.log))
+                         for name, b in built.items())
 
     def kernel():
         rows = {name: [] for name in KERNELS}

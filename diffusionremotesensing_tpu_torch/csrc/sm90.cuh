@@ -3,17 +3,22 @@
 // reads as C++ and the register-fragment layouts are written down once:
 //
 //   ldmatrix_x4        four 8x8 b16 matrices from shared memory to registers
-//   wgmma_m64n128k16, wgmma_m64n256k16
+//   wgmma_m64n16k16, _m64n64k16, _m64n128k16, _m64n256k16
 //                      warpgroup MMA, A (64x16 bf16) from registers, B
 //                      (16xN bf16) from shared memory through a descriptor
 //   wgmma_fence / _commit / _wait, fence_operand
-//   desc_sw128         the B descriptor of a 128-byte-swizzled layout
+//   desc_sw128, desc_sw32
+//                      the B descriptor of a 128-byte- / 32-byte-swizzled
+//                      layout
+//   fence_proxy_async  orders this thread's shared-memory stores before
+//                      later TMA and wgmma accesses (the async proxy)
 //   mbar_*             shared-memory barriers with a phase and a count of
 //                      bytes still to land (mbarrier)
 //   tma_load_2d / _4d  a box of a 2-D / 4-D tensor to shared memory (TMA), zero
 //                      outside the tensor, 128-byte swizzle, completing
 //                      on an mbarrier; TensorMap describes the tensor
-//   pack_bf16x2, shfl  epilogue helpers
+//   pack_bf16x2, shfl, quad_transpose
+//                      epilogue helpers
 //
 // Fragment layouts (lane l of a warp, g = l / 4, q = l % 4):
 // * ldmatrix_x4: lane l gives the address of row l % 8 of matrix l / 8 (16
@@ -28,11 +33,16 @@
 // * The 128-byte swizzle (wgmma's layout type 1, TMA's SWIZZLE_128B): in
 //   each 1024-byte-aligned group of eight 128-byte rows, the 16-byte chunk
 //   c of row r lies at chunk c ^ r (address bits 4-6 ^= bits 7-9).
-// * B, MN-major (W row-major: k rows, n contiguous), swizzled: 1024-byte
-//   atoms of 8 k rows x 64 n. Element (k, n) of a B whose atom
-//   (k / 8, n / 64) sits at start + (n / 64) * LBO + (k / 8) * SBO.
-// * A TMA box (64, b1, b2, b3) of 2-byte elements lands as 128-byte rows,
-//   row i1 + b1 (i2 + b2 i3) holding elements 0-63 of (i1, i2, i3), swizzled.
+// * The 32-byte swizzle (layout type 3, SWIZZLE_32B): in each 256-byte-
+//   aligned group of eight 32-byte rows, chunk c of row r lies at chunk
+//   c ^ (r / 4) (address bit 4 ^= bit 7).
+// * B, MN-major (W row-major: k rows, n contiguous), swizzled: atoms of 8 k
+//   rows x 64 n (128-byte swizzle, 1024 bytes) or 8 k rows x 16 n (32-byte
+//   swizzle, 256 bytes). Element (k, n) of a B whose atom (k / 8, n / A)
+//   (A = 64 or 16) sits at start + (n / A) * LBO + (k / 8) * SBO.
+// * A TMA box (b0, b1, b2, b3) of 2-byte elements lands as rows of 2 b0
+//   bytes (128 or 32), row i1 + b1 (i2 + b2 i3) holding elements 0 .. b0-1
+//   of (i1, i2, i3), swizzled as the map says.
 //
 // Read by a host compiler (the tests' CPU emulation of the CUDA thread
 // model, tests/torch_port_helpers.py), each primitive has its plain meaning
@@ -90,6 +100,44 @@ template <int N> __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 
 __device__ __forceinline__ uint64_t desc_sw128(const void* start, uint32_t lbo, uint32_t sbo) {
   return desc_field(smem_addr(start)) | desc_field(lbo) << 16 | desc_field(sbo) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ uint64_t desc_sw32(const void* start, uint32_t lbo, uint32_t sbo) {
+  return desc_field(smem_addr(start)) | desc_field(lbo) << 16 | desc_field(sbo) << 32 | 3ull << 62;
+}
+
+// d += A B as wgmma_m64n128k16 below, 16 and 64 columns wide
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // d += A B, A 64x16 from the warpgroup's registers, B 16x128 (16x256) at
@@ -215,6 +263,10 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const TensorMap* map, int
       : "memory");
 }
 
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
@@ -248,14 +300,19 @@ template <int N> inline void fence_operand(float (&)[N]) {}
 inline uint64_t desc_sw128(const void* start, uint32_t lbo, uint32_t sbo) {
   return desc_field(smem_addr(start)) | desc_field(lbo) << 16 | desc_field(sbo) << 32 | 1ull << 62;
 }
+inline uint64_t desc_sw32(const void* start, uint32_t lbo, uint32_t sbo) {
+  return desc_field(smem_addr(start)) | desc_field(lbo) << 16 | desc_field(sbo) << 32 | 3ull << 62;
+}
 
-// element (k, n) of the MN-major B at `desc` (the 128-byte swizzle)
+// element (k, n) of the MN-major B at `desc` (the 128- or 32-byte swizzle)
 inline float emu_b(uint64_t desc, int k, int n) {
   const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
   const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
-  uint32_t a = start + (n / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 + (n % 64) * 2;
-  a ^= ((a >> 7) & 7) << 4;
+  const bool sw32 = (desc >> 62) == 3;
+  const int atom = sw32 ? 16 : 64;  // n per atom row (32 or 128 bytes)
+  uint32_t a = start + (n / atom) * lbo + (k / 8) * sbo + (k % 8) * 2 * atom + (n % atom) * 2;
+  a ^= sw32 ? ((a >> 7) & 1) << 4 : ((a >> 7) & 7) << 4;
   __nv_bfloat16 v;
   std::memcpy(&v, smem_raw + a, 2);
   return __bfloat162float(v);
@@ -289,6 +346,12 @@ inline void emu_wgmma(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
       }
     }
   emu_wg_sync();
+}
+inline void wgmma_m64n16k16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  emu_wgmma<16>(d, a, desc_b);
+}
+inline void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  emu_wgmma<64>(d, a, desc_b);
 }
 inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
   emu_wgmma<128>(d, a, desc_b);
@@ -326,12 +389,14 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
   while (((r.load() >> 32) & 1) == parity) std::this_thread::yield();
 }
 // a tensor of 2-byte elements, up to 4-D: base, extents (innermost first;
-// 1 past the rank), strides in bytes (stride[0] = 2), and the box a load
-// copies (box[0] = 64: one 128-byte row)
+// 1 past the rank), strides in bytes (stride[0] = 2), the box a load
+// copies (box[0] = 64 or 16: one 128- or 32-byte row) and its swizzle in
+// bytes (128 or 32)
 struct TensorMap {
   const void* base;
   long long dim[4], stride[4];
   int box[4];
+  int swizzle = 128;
 };
 inline void tma_load_4d(void* dst, const TensorMap* map, int c0, int c1, int c2, int c3,
                         uint64_t* bar) {
@@ -349,8 +414,8 @@ inline void tma_load_4d(void* dst, const TensorMap* map, int c0, int c1, int c2,
             inside = inside && c[d] >= 0 && c[d] < map->dim[d];
             off += c[d] * map->stride[d];
           }
-          uint32_t a = smem_addr(out) + ((i1 + box[1] * (i2 + box[2] * i3)) * 128 + 2 * i0);
-          a ^= ((a >> 7) & 7) << 4;
+          uint32_t a = smem_addr(out) + ((i1 + box[1] * (i2 + box[2] * i3)) * 2 * box[0] + 2 * i0);
+          a ^= map->swizzle == 32 ? ((a >> 7) & 1) << 4 : ((a >> 7) & 7) << 4;
           const unsigned char* src = static_cast<const unsigned char*>(map->base) + off;
           if (inside) std::memcpy(smem_raw + a, src, 2);
           else std::memset(smem_raw + a, 0, 2);
@@ -361,6 +426,8 @@ inline void tma_load_4d(void* dst, const TensorMap* map, int c0, int c1, int c2,
 inline void tma_load_2d(void* dst, const TensorMap* map, int c0, int c1, uint64_t* bar) {
   tma_load_4d(dst, map, c0, c1, 0, 0, bar);
 }
+
+inline void fence_proxy_async() {}
 
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return uint32_t(__float2bfloat16(lo).v) | uint32_t(__float2bfloat16(hi).v) << 16;
@@ -375,5 +442,37 @@ inline uint32_t shfl(uint32_t v, int src_lane) {
 }
 
 #endif
+
+// The epilogue's quad transpose. Lane q of a quad holds, in v[j], the
+// column pair q of 8-column group j (j = 0..3) of one accumulator row
+// (wgmma's D layout); afterwards v[j] holds pair j of group q, so that the
+// lane holds the 8 consecutive columns 8q .. 8q + 7: one 16-byte store.
+// Two butterfly exchanges (lane bits 0 and 1), on named registers so that
+// no index into v is left to run time.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
+  const int lane = threadIdx.x % 32;
+  const bool hi1 = lane & 1, hi2 = lane & 2;
+  uint32_t s0 = hi1 ? v[0] : v[1], s1 = hi1 ? v[2] : v[3];
+  s0 = shfl(s0, lane ^ 1);
+  s1 = shfl(s1, lane ^ 1);
+  if (hi1) {
+    v[0] = s0;
+    v[2] = s1;
+  } else {
+    v[1] = s0;
+    v[3] = s1;
+  }
+  s0 = hi2 ? v[0] : v[2];
+  s1 = hi2 ? v[1] : v[3];
+  s0 = shfl(s0, lane ^ 2);
+  s1 = shfl(s1, lane ^ 2);
+  if (hi2) {
+    v[0] = s0;
+    v[1] = s1;
+  } else {
+    v[2] = s0;
+    v[3] = s1;
+  }
+}
 
 }  // namespace sm90

@@ -58,7 +58,7 @@
 //    batch's ldmatrix run under the current batch's MMAs. Each B element
 //    read serves 64 pixels (16 under WMMA).
 // 4. The epilogue writes from the accumulator registers: no float32 buffer.
-//    The four lanes of a quad exchange column pairs (two shfl butterflies),
+//    The four lanes of a quad exchange column pairs (sm90::quad_transpose),
 //    so that each lane stores 8 consecutive bf16 of one pixel, a 16-byte
 //    store; pixels past the image edge are masked.
 //
@@ -170,16 +170,14 @@ __device__ __forceinline__ void tc_pass(float (&acc)[N / 2], const unsigned char
 // Stores the warp's 16 pixels x N columns of acc (wgmma's D layout):
 // columns n0 .. n0 + N - 1 of [oa | ob] (CO4 each), pixels (pix + g) and
 // (pix + g + 8) of the output's row, g = lane / 4, those at or past x_end
-// (the image's edge) or in a row past the image (row_ok false) masked. Lane
-// q of a quad holds column pair q of each 8-column group; two butterfly
-// exchanges (shfl, across lane bits 0 and 1) transpose each quad's 4 x 4
-// pairs of groups 4 jg .. 4 jg + 3, so that lane q then holds the 8
-// consecutive columns 32 jg + 8 q: one 16-byte store.
+// (the image's edge) or in a row past the image (row_ok false) masked. Each
+// quad's column pairs of groups 4 jg .. 4 jg + 3 go through
+// sm90::quad_transpose, so that lane q then holds the 8 consecutive columns
+// 32 jg + 8 q: one 16-byte store.
 template <int N>
 __device__ __forceinline__ void tc_store(const float (&acc)[N / 2], bf16* oa, bf16* ob, int CO4,
                                          int n0, size_t pix, int px, int x_end, bool row_ok) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const bool hi1 = q & 1, hi2 = q & 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool inside = row_ok && px + g + 8 * h < x_end;
@@ -187,32 +185,13 @@ __device__ __forceinline__ void tc_store(const float (&acc)[N / 2], bf16* oa, bf
 #pragma unroll
     for (int jg = 0; jg < N / 32; ++jg) {
       const float* a = acc + 16 * jg + 2 * h;  // group 4 jg + j at a[4 j], a[4 j + 1]
-      uint32_t v0 = sm90::pack_bf16x2(a[0], a[1]), v1 = sm90::pack_bf16x2(a[4], a[5]);
-      uint32_t v2 = sm90::pack_bf16x2(a[8], a[9]), v3 = sm90::pack_bf16x2(a[12], a[13]);
-      uint32_t s0 = hi1 ? v0 : v1, s1 = hi1 ? v2 : v3;
-      s0 = sm90::shfl(s0, lane ^ 1);
-      s1 = sm90::shfl(s1, lane ^ 1);
-      if (hi1) {
-        v0 = s0;
-        v2 = s1;
-      } else {
-        v1 = s0;
-        v3 = s1;
-      }
-      s0 = hi2 ? v0 : v2;
-      s1 = hi2 ? v1 : v3;
-      s0 = sm90::shfl(s0, lane ^ 2);
-      s1 = sm90::shfl(s1, lane ^ 2);
-      if (hi2) {
-        v0 = s0;
-        v1 = s1;
-      } else {
-        v2 = s0;
-        v3 = s1;
-      }
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = sm90::pack_bf16x2(a[4 * j], a[4 * j + 1]);
+      sm90::quad_transpose(v);
       const int c = n0 + 32 * jg;  // 32 columns never straddle oa and ob (CO4 % 128 == 0)
       bf16* o = c < CO4 ? oa + c : ob + (c - CO4);
-      if (inside) *reinterpret_cast<uint4*>(o + row) = uint4{v0, v1, v2, v3};
+      if (inside) *reinterpret_cast<uint4*>(o + row) = uint4{v[0], v[1], v[2], v[3]};
     }
   }
 }
@@ -375,51 +354,12 @@ tap_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wa,
 
 // ---- host launcher (plain C interface, bound with ctypes)
 
-#include <cudaTypedefs.h>
+#include "tma_host.cuh"
 
 namespace {
 
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// a bfloat16 tensor of `rank` dimensions (innermost first) read in boxes
-// with the 128-byte swizzle, zero outside
-bool encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                const cuuint32_t* box) {
-  auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t strides[3];
-  cuuint64_t stride = 2;
-  for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using sm90::encode_map;
+using sm90::sm_count;
 
 template <int NW>
 int launch_tc(const void* x, const void* wa, const void* wb, void* oa, void* ob, int B, int H2,

@@ -16,8 +16,9 @@ and ``H % 8``; neither applies here: the CUDA kernels tile over space and
 take every spatial shape, so with ``dec_block=True`` the model always runs
 them.
 
-:func:`dec_block` launches ``csrc/dec_block.cu`` for CUDA tensors (two
-kernels with h as the seam, counted as one call) and runs
+:func:`dec_block` launches ``csrc/dec_block.cu`` for CUDA tensors (counted
+as one call: in bfloat16 three wgmma kernels with h and a scratch hh as the
+seams, in float32 two FMA kernels with h as the seam) and runs
 :func:`dec_block_plain`, the same arithmetic in ``torch`` ops with the same
 rounding points, for CPU tensors. A CUDA tensor the kernels cannot take
 raises.
@@ -120,9 +121,11 @@ def dec_block(xa: torch.Tensor, xb: torch.Tensor, te: torch.Tensor, w: dict):
     is_bf16 = int(xa.dtype == torch.bfloat16)
     new = functools.partial(torch.empty, dtype=xa.dtype, device=xa.device)
     outs = (new((B, H, W, _CM)), new((B, 1, W, _CM)), new((B, H, 1, _CM)), new((B, H, W, _OUT4)))
+    # bfloat16's head kernel reads hh from device memory; float32 keeps it on chip
+    hh = new((B, H, W, _CM)) if is_bf16 else outs[0]
     ins = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (
         xa, xb, w["wa"], w["ba"], te, w["wb"], w["bb"], w["k4k"])))
-    out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
+    out_ptrs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in (*outs, hh)))
     with torch.cuda.device(xa.device):
         rc = _library().dec_block_launch(ins, out_ptrs, B, H, W, is_bf16,
                                          torch.cuda.current_stream(xa.device).cuda_stream)

@@ -130,22 +130,48 @@ def test_wrapper_refuses_other_devices(raw):
 
 
 _LAUNCHER = r"""
-template <typename T>
-static void emu_dec(const void* const* p, void* const* o, int B, int H, int W) {
-  const T* q[8];
-  T* r[4];
-  for (int i = 0; i < 8; ++i) q[i] = static_cast<const T*>(p[i]);
-  for (int i = 0; i < 4; ++i) r[i] = static_cast<T*>(o[i]);
-  const long long total = (long long)B * H * W;
-  emu_run({unsigned((total + MP - 1) / MP), 1, 1}, NTHREADS,
-          [=] { dec_concat_kernel<T>(q[0], q[1], q[2], q[3], r[0], B, H, W); });
-  emu_run({unsigned((W + TILE - 1) / TILE), unsigned((H + TILE - 1) / TILE), unsigned(B)}, NTHREADS,
-          [=] { dec_tail_kernel<T>(r[0], q[4], q[5], q[6], q[7], r[1], r[2], r[3], H, W); });
-}
+// bfloat16: the three wgmma kernels (concat, body, head) over `blocks`
+// persistent blocks, each walking tiles blockIdx.x, blockIdx.x + blocks, ...;
+// float32: the two FMA kernels, a block per pixel block and per tile
 extern "C" void emu_launch(const void* const* p, void* const* o, int B, int H, int W,
-                           int is_bf16) {
-  if (is_bf16) emu_dec<__nv_bfloat16>(p, o, B, H, W);
-  else emu_dec<float>(p, o, B, H, W);
+                           int is_bf16, int blocks) {
+  auto in = [&](int i) { return static_cast<const float*>(p[i]); };
+  auto out = [&](int i) { return static_cast<float*>(o[i]); };
+  if (!is_bf16) {
+    const long long total = (long long)B * H * W;
+    emu_run({unsigned((total + MP - 1) / MP), 1, 1}, NTHREADS,
+            [=] { dec_concat_f32_kernel(in(0), in(1), in(2), in(3), out(0), B, H, W); });
+    emu_run({unsigned((W + TILE - 1) / TILE), unsigned((H + TILE - 1) / TILE), unsigned(B)},
+            NTHREADS, [=] {
+              dec_tail_f32_kernel(out(0), in(4), in(5), in(6), in(7), out(1), out(2), out(3), H, W);
+            });
+    return;
+  }
+  using C3 = Tc<CONCAT>;
+  using C4 = Tc<HEAD>;
+  auto slab = [&](const void* t, long long c, int sw, int sh) {
+    return sm90::TensorMap{t, {c, W, H, B}, {2, 2 * c, 2 * c * W, 2 * c * W * H}, {64, sw, sh, 1}};
+  };
+  const sm90::TensorMap xa = slab(p[0], CA, C3::SW, C3::SH), xb = slab(p[1], CB, C3::SW, C3::SH);
+  const sm90::TensorMap hm = slab(o[0], CM, C3::SW, C3::SH), hhm = slab(o[4], CM, C4::SW, C4::SH);
+  const sm90::TensorMap wa{p[2], {CM, 9 * CK, 1, 1}, {2, 2 * CM, 0, 0}, {CM, 64, 1, 1}};
+  const sm90::TensorMap wb{p[5], {CM, 9 * CM, 1, 1}, {2, 2 * CM, 0, 0}, {CM, 64, 1, 1}};
+  const sm90::TensorMap k4{p[7], {NPAD, 16 * CM, 1, 1}, {2, 2 * NPAD, 0, 0}, {NPAD, 64, 1, 1}, 32};
+  auto bf = [&](int i) { return static_cast<const __nv_bfloat16*>(p[i]); };
+  auto bo = [&](int i) { return static_cast<__nv_bfloat16*>(o[i]); };
+  const dim3 grid{unsigned(blocks), 1, 1};
+  emu_run(grid, TC_THREADS, [=] {
+    dec_tc_kernel<CONCAT>(xa, xb, wa, bf(3), nullptr, bo(0), nullptr, nullptr, B, H, W);
+  });
+  emu_run(grid, TC_THREADS, [=] {
+    dec_tc_kernel<BODY>(hm, hm, wb, bf(6), bf(4), bo(4), bo(1), bo(2), B, H, W);
+  });
+  emu_run(grid, TC_THREADS, [=] {
+    dec_tc_kernel<HEAD>(hhm, hhm, k4, nullptr, nullptr, bo(3), nullptr, nullptr, B, H, W);
+  });
+}
+extern "C" int emu_smem(int mode) {
+  return mode == 0 ? Tc<CONCAT>::BYTES : mode == 1 ? Tc<BODY>::BYTES : Tc<HEAD>::BYTES;
 }
 """
 
@@ -153,24 +179,24 @@ extern "C" void emu_launch(const void* const* p, void* const* o, int B, int H, i
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     lib = compile_emulated("dec_block", _LAUNCHER, tmp_path_factory.mktemp("dec_emu"))
-    lib.emu_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib.emu_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+    lib.emu_smem.argtypes = [ctypes.c_int]
     return lib
 
 
-@pytest.mark.parametrize("B,H,W,dtype", [
-    (2, 5, 19, torch.float32),     # ragged tiles, several batch items, a partial pixel block
-    (1, 16, 16, torch.bfloat16),   # the tensor-core path
-    (1, 5, 19, torch.bfloat16),    # ... with ragged tiles
-])
-def test_cuda_source_emulated_matches_plain(raw, emulated, B, H, W, dtype):
+def _run_emulated(lib, raw, B, H, W, dtype, blocks=None):
+    """One emulated call held against the plain version; bfloat16 runs on
+    `blocks` persistent blocks (default one per 8 x 32 tile, as on a card
+    with more SMs than tiles)."""
     w = {k: v.to(dtype).contiguous() for k, v in _port_w(raw).items()}
     xa, xb, te = (torch.from_numpy(a).to(dtype) for a in _inputs(4, B, H, W))
     outs = [torch.empty(s, dtype=dtype) for s in ((B, H, W, CM), (B, 1, W, CM), (B, H, 1, CM),
-                                                  (B, H, W, 12))]
+                                                  (B, H, W, 12), (B, H, W, CM))]
     ins = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (xa, xb, w["wa"], w["ba"], te, w["wb"],
                                                          w["bb"], w["k4k"])))
-    emulated.emu_launch(ins, (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs)), B, H, W,
-                        int(dtype == torch.bfloat16))
+    tiles = B * -(-H // 8) * -(-W // 32)
+    lib.emu_launch(ins, (ctypes.c_void_p * 5)(*(t.data_ptr() for t in outs)), B, H, W,
+                   int(dtype == torch.bfloat16), tiles if blocks is None else blocks)
     # float32: the same products summed in another order; bfloat16: the
     # rounded intermediates on either side of a boundary (chip_smoke.py)
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
@@ -179,3 +205,29 @@ def test_cuda_source_emulated_matches_plain(raw, emulated, B, H, W, dtype):
         want = want.float()
         err = (got.float() - want).abs().max().item()
         assert err <= tol * max(1.0, want.abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize("B,H,W,dtype", [
+    (2, 5, 19, torch.float32),     # ragged tiles, several batch items, a partial pixel block
+    (1, 16, 16, torch.bfloat16),   # the tensor-core path
+    (1, 5, 19, torch.bfloat16),    # ... with ragged tiles
+])
+def test_cuda_source_emulated_matches_plain(raw, emulated, B, H, W, dtype):
+    _run_emulated(emulated, raw, B, H, W, dtype)
+
+
+@pytest.mark.parametrize("B,H,W,blocks", [
+    (2, 16, 16, 1),   # 4 tiles on one block: 12 planes through the concat's 4 slots, 108
+                      # weight pieces through its 6, 4 planes through the body's 3
+    (2, 5, 19, 1),    # ragged tiles, both batch items on one block
+    (1, 16, 40, 3),   # 4 tiles on 3 blocks, ragged columns
+])
+def test_cuda_source_emulated_bf16_persistent(raw, emulated, B, H, W, blocks):
+    _run_emulated(emulated, raw, B, H, W, torch.bfloat16, blocks)
+
+
+def test_smem_budget_matches_the_source(emulated):
+    """The kernels' shared-memory tallies are the source note's, each within
+    the 232,448 bytes a block may have."""
+    assert [emulated.emu_smem(m) for m in range(3)] == [226496, 206928, 184400]
+    assert max(emulated.emu_smem(m) for m in range(3)) <= 232448

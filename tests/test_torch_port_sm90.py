@@ -1,12 +1,13 @@
 """csrc/sm90.cuh's primitives under the CPU emulation of
 tests/torch_port_helpers.py, held against torch: one warpgroup's
-wgmma.m64n128k16 and m64n256k16 with A loaded by ldmatrix from a padded
-row-major tile and B landed by a TMA box in the 128-byte swizzle (the
-descriptor's MN-major layout), each accumulator element read back through
-the documented fragment layout; and a two-buffer mbarrier ring (full and
-empty barriers, parities over several rounds, transaction bytes) fed by TMA
-row loads. A layout slip here shows before the card runs the kernels that
-use them (csrc/tap_conv.cu); the card remains the final check."""
+wgmma.m64nNk16 (N = 16, 64, 128, 256) with A loaded by ldmatrix from a
+padded row-major tile and B landed by a TMA box in the 128-byte swizzle (the
+32-byte one for N = 16; the descriptor's MN-major layout), each accumulator
+element read back through the documented fragment layout; and a two-buffer
+mbarrier ring (full and empty barriers, parities over several rounds,
+transaction bytes) fed by TMA row loads. A layout slip here shows before
+the card runs the kernels that use them (csrc/tap_conv.cu,
+csrc/dec_block.cu); the card remains the final check."""
 
 import ctypes
 
@@ -17,21 +18,25 @@ import torch
 from tests.torch_port_helpers import compile_emulated
 
 _LAUNCHER = r"""
-// D (64 x N, float32) = A (64 x 16) B (16 x N), bf16 operands, on one warpgroup
+// D (64 x N, float32) = A (64 x 16) B (16 x N), bf16 operands, on one warpgroup;
+// B lands by TMA in the 128-byte swizzle (rows of 64 columns) or, for N = 16,
+// the 32-byte one (rows of 16 columns)
 template <int N>
 static void emu_product(const void* A, const void* B, float* D) {
   emu_run({1, 1, 1}, 128, [=] {
-    unsigned char* base = smem_raw;                              // 1024-aligned
-    __nv_bfloat16* as = (__nv_bfloat16*)(base + N / 64 * 2048);  // A, rows of 24 elements
-    uint64_t* bar = (uint64_t*)(base + N / 64 * 2048 + 64 * 48);
+    constexpr int NA = N == 16 ? 16 : 64;  // columns of a B row
+    constexpr int ATOMS = N / NA;          // atoms side by side in N
+    unsigned char* base = smem_raw;                                // 1024-aligned
+    __nv_bfloat16* as = (__nv_bfloat16*)(base + ATOMS * 2048);     // A, rows of 24 elements
+    uint64_t* bar = (uint64_t*)(base + ATOMS * 2048 + 64 * 48);
     const int t = threadIdx.x, w = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
-    const sm90::TensorMap bmap{B, {N, 16, 1, 1}, {2, 2LL * N, 0, 0}, {64, 16, 1, 1}};
+    const sm90::TensorMap bmap{B, {N, 16, 1, 1}, {2, 2LL * N, 0, 0}, {NA, 16, 1, 1}, 2 * NA};
     if (t == 0) {
       sm90::mbar_init(bar, 1);
       sm90::fence_mbar_init();
       sm90::mbar_arrive_expect_tx(bar, N * 16 * 2);
-      for (int na = 0; na < N / 64; ++na)
-        sm90::tma_load_2d(base + na * 2048, &bmap, 64 * na, 0, bar);
+      for (int na = 0; na < ATOMS; ++na)
+        sm90::tma_load_2d(base + na * 2048, &bmap, NA * na, 0, bar);
     }
     for (int e = t; e < 64 * 16; e += 128)
       as[(e / 16) * 24 + e % 16] = ((const __nv_bfloat16*)A)[e];
@@ -41,12 +46,15 @@ static void emu_product(const void* A, const void* B, float* D) {
     sm90::ldmatrix_x4(a, as + (16 * w + lane % 16) * 24 + (lane / 16) * 8);
     float d[N / 2];
     for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
-    // B: atoms of 8 rows x 64 columns; the next 64 columns 2048 bytes on,
-    // the next 8 rows 1024
-    const uint64_t desc = sm90::desc_sw128(base, 2048, 1024);
+    // B: atoms of 8 rows x NA columns; the next NA columns 2048 bytes on,
+    // the next 8 rows 8 row lengths on
+    const uint64_t desc = N == 16 ? sm90::desc_sw32(base, 2048, 256)
+                                  : sm90::desc_sw128(base, 2048, 1024);
     sm90::wgmma_fence();
     if constexpr (N == 256) sm90::wgmma_m64n256k16(d, a, desc);
-    else sm90::wgmma_m64n128k16(d, a, desc);
+    else if constexpr (N == 128) sm90::wgmma_m64n128k16(d, a, desc);
+    else if constexpr (N == 64) sm90::wgmma_m64n64k16(d, a, desc);
+    else sm90::wgmma_m64n16k16(d, a, desc);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     for (int j = 0; j < N / 8; ++j)
@@ -57,7 +65,9 @@ static void emu_product(const void* A, const void* B, float* D) {
 }
 extern "C" void product(const void* A, const void* B, float* D, int n) {
   if (n == 256) emu_product<256>(A, B, D);
-  else emu_product<128>(A, B, D);
+  else if (n == 128) emu_product<128>(A, B, D);
+  else if (n == 64) emu_product<64>(A, B, D);
+  else emu_product<16>(A, B, D);
 }
 
 // rows of X (rounds x 64, bf16) through two buffers: thread 0 loads row
@@ -105,7 +115,7 @@ def emulated(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [16, 64, 128, 256])
 def test_warpgroup_product_matches_torch(emulated, n):
     """64 x n x 16: every element in its documented fragment place. The
     operands are bf16, so the float32 product of 16 terms differs from

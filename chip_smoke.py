@@ -37,6 +37,11 @@ Phases, each printing one line with its name, seconds and result:
              192->64, 64x64 pixels) in bfloat16 and float32; time the kernel,
              the plain version and the port's unfused ops for the same
              function (the yardstick, which the kernel paths never call).
+             tap_block (both levels) and tap_stem_block also on ragged
+             images at B=2; in bfloat16 each launch's device time
+             (torch.profiler), and the seam probe, level 0's phase A at
+             1.5x the batch (a recomputed halo's cost) beside h's bytes at
+             the HBM rate.
              ancestral_update also: its generator's words equal the plain
              Philox's, the given bits mode, the moments of its noise, the
              last step exact.
@@ -283,6 +288,25 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def launch_ms(fn, reps=20):
+    """Device ms per call of each kernel that fn() launches, by its short
+    name (`tap_tc_kernel<0, 0>`), from torch.profiler (empty if it sees no
+    device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "self_device_time_total", 0) > 0:
+            m = re.search(r"(\w+)(<[^()]*>)?\(", ev.key)
+            out[m.group(1) + (m.group(2) or "") if m else ev.key[:60]] = \
+                ev.self_device_time_total / 1e3 / reps
+    return out
+
+
 def model_with(name, device, dtype=torch.float32):
     """The full-width model of configuration `name` (CONFIGS) with the
     init_params(SEED) weights."""
@@ -418,12 +442,14 @@ def block_flops(B, H2, W2, C4, CO4, skip=True):
     """(dense, issued) FLOPs of one tap_block call. Dense is the block's own
     work at full resolution (2*H2 x 2*W2 pixels, Ci = C4/4 in, Co = CO4/4
     out): conv1 and (with `skip`, level 0) the skip conv 3x3 Ci->Co, conv2
-    3x3 Co->Co, shortcut 1x1 Ci->Co. Issued is the size of the
-    tap-formulation products the kernel runs (X1 @ W1 and im2col(h) @ W2),
-    structural zeros included."""
+    3x3 Co->Co, shortcut 1x1 Ci->Co. Issued is the size of the products the
+    bfloat16 kernel runs: the tap im2col of x against conv1's (and skip's)
+    columns of W1, the tap im2col of h against W2, and the centre rows of
+    the shortcut (4 of its 16 row blocks), structural zeros of the tap form
+    included."""
     ci, co, n1 = C4 // 4, CO4 // 4, 3 if skip else 2
     dense = 2 * B * (2 * H2) * (2 * W2) * ((n1 - 1) * 9 * ci * co + 9 * co * co + ci * co)
-    issued = 2 * B * H2 * W2 * (4 * C4 * n1 * CO4 + 4 * CO4 * CO4)
+    issued = 2 * B * H2 * W2 * (4 * C4 * (n1 - 1) * CO4 + 4 * CO4 * CO4 + C4 * CO4)
     return dense, issued
 
 
@@ -620,9 +646,10 @@ def profile_forward(proc, batch, dev):
                        "calls": ev.count // PROFILE_N}
                       for ev in prof.key_averages() if getattr(ev, "self_device_time_total", 0) > 0),
                      key=lambda r: -r["ms_per_forward"])
-    # the top 12, and every hand-written kernel (csrc/*.cu: anonymous namespaces) below them
-    shown = kernels[:12] + [k for k in kernels[12:]
-                            if k["name"].startswith("void (anonymous namespace)::")]
+    # the top 12, and every hand-written kernel (csrc/*.cu: anonymous
+    # namespaces; a template's name starts with its return type) below them
+    hand = ("void (anonymous namespace)::", "(anonymous namespace)::")
+    shown = kernels[:12] + [k for k in kernels[12:] if k["name"].startswith(hand)]
     return {"batch": batch, "device_ms": device_ms, "host_ms": host_ms, "wall_ms": wall_ms,
             "sleep_cycles": cycles, "kernels": shown}
 
@@ -833,7 +860,43 @@ def main():
                     [packed_conv(*convs[192])], [packed_conv_plain(*convs[192])], dt,
                     f"packed_conv 192->64 {dt} B={B}")
                 pc_row["c192_ms"] = time_ms(lambda: packed_conv(*convs[192]))
+                if dt == torch.bfloat16:
+                    # the device time of each launch of the wgmma kernels (at
+                    # B=1 time_ms reads the host's issue rate, not the card)
+                    tb_row["launch_ms"] = launch_ms(lambda: tap_block(x, te4, kf["tap_block"]))
+                    tb_row["l1_launch_ms"] = launch_ms(lambda: tap_block(x1, te1, kl1))
+                    rows["tap_stem_block"][-1]["launch_ms"] = launch_ms(
+                        lambda: tap_stem_block(x0, cond, te4, ks["conv0_b"], ks["tap_stem"]))
+                if B == B_FLAG and dt == torch.bfloat16:
+                    # the seam probe: phase A over 1.5x the pixels (B=72),
+                    # what a recomputed 10 x 34 halo costs in 64-pixel
+                    # M-tiles, beside h's bytes written and read once at
+                    # the HBM rate
+                    bp = 3 * B // 2
+                    xp, tp = randn(bp, s, s, 64), torch.relu(randn(bp, 128))
+                    h_bytes = B * s * s * 128 * x.element_size()
+                    tb_row["seam_probe"] = {
+                        "B": bp, "launch_ms": launch_ms(lambda: tap_block(xp, tp, kf["tap_block"])),
+                        "h_bytes": h_bytes, "h_write_read_ms_at_peak": 2e3 * h_bytes / PEAK_BYTES}
+                    rows["tap_stem_block"][-1]["issued_gflop"] = (
+                        block_flops(B, s, s, 64, 128)[1] + 2 * B * s * s * 48 * 64) / 1e9
+                    tb_row["l1_issued_gflop"] = block_flops(B, s // 2, s // 2, 128, 256, False)[1] / 1e9
                 if B == B_FLAG:
+                    # both tap blocks and the stem on ragged images (tiles
+                    # cut at the right and bottom edges), B=2
+                    xr, ter = randn(2, 20, 36, 64), torch.relu(randn(2, 128))
+                    x1r, te1r = randn(2, 12, 20, 128), torch.relu(randn(2, 256))
+                    x0r, condr = randn(2, 20, 36, 12), randn(2, 20, 36, 64)
+                    tb_row["ragged_max_abs_err"] = max_err(
+                        [tap_block(xr, ter, kf["tap_block"])],
+                        [tap_block_plain(xr, ter, kf["tap_block"])], dt, f"tap_block ragged {dt}")
+                    tb_row["l1_ragged_max_abs_err"] = max_err(
+                        [tap_block(x1r, te1r, kl1)], [tap_block_plain(x1r, te1r, kl1)], dt,
+                        f"tap_block level 1 ragged {dt}")
+                    rows["tap_stem_block"][-1]["ragged_max_abs_err"] = max_err(
+                        [tap_stem_block(x0r, condr, ter, ks["conv0_b"], ks["tap_stem"])],
+                        [tap_stem_block_plain(x0r, condr, ter, ks["conv0_b"], ks["tap_stem"])], dt,
+                        f"tap_stem_block ragged {dt}")
                     tb_row["l1_plain_ms"] = time_ms(lambda: tap_block_plain(x1, te1, kl1), reps=5)
                     tb_row["l1_library_ms"] = time_ms(lambda: block1_dense_s2d(x1, te1, kd1))
                     tb_row["l1_bound_ms"], tb_row["l1_bound_by"] = block_bound(

@@ -12,6 +12,10 @@
 //                      layout
 //   fence_proxy_async  orders this thread's shared-memory stores before
 //                      later TMA and wgmma accesses (the async proxy)
+//   setmaxnreg_dec / _inc
+//                      a warpgroup's registers a thread, lowered (a producer
+//                      handing them to the block's pool) or raised (consumers
+//                      taking them)
 //   mbar_*             shared-memory barriers with a phase and a count of
 //                      bytes still to land (mbarrier)
 //   tma_load_2d / _4d  a box of a 2-D / 4-D tensor to shared memory (TMA), zero
@@ -267,6 +271,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// every warp of the warpgroup executes it; N a multiple of 8 in [24, 256]
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
@@ -428,6 +440,8 @@ inline void tma_load_2d(void* dst, const TensorMap* map, int c0, int c1, uint64_
 }
 
 inline void fence_proxy_async() {}
+template <int N> inline void setmaxnreg_dec() {}  // registers are the host's
+template <int N> inline void setmaxnreg_inc() {}
 
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return uint32_t(__float2bfloat16(lo).v) | uint32_t(__float2bfloat16(hi).v) << 16;

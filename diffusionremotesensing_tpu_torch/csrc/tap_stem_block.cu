@@ -24,34 +24,49 @@
 // 32->32, shortcut 1x1 16->32): 2*48*128*128*(9*3*16 + 2*9*16*32 +
 // 9*32*32 + 16*32) = 30.5 GFLOP, 31 us at 989 TFLOP/s bf16; its bytes are x,
 // cond and out once, 81 MB, 24 us at 3.35 TB/s. So it is bound by
-// operations. h_s never reaches device memory: that is what the kernel is
-// for (the 'block' path writes it, 25 MB in bf16, and reads it back).
+// operations. The bfloat16 launches issue 56.0 GFLOP: conv0's
+// 2*48*64*64*48*64 = 1.2 and level 0's block, 54.8 (tap_block.cu).
 //
-// Design. The TPU kernel ran a (B, NH) grid of row slabs in order, each
-// slab recomputing conv0 on a 2-row halo from pre-sliced cond slabs. Here
-// a block owns a TH x 14 tile (TH = 16 in bf16, 8 in float32) and keeps
-// three things in shared memory: the h_s slab (tile + 2-pixel halo,
-// (TH+4) x 18 x 64), the h slab (tile + 1-pixel halo, (TH+2) x 16 x 128)
-// and one float32 epilogue buffer per warp. The tile is 14 wide so that a
-// row of the h slab is 16 pixels, the 16 rows of one WMMA A operand: every
-// im2col piece of phases A and B is then read in place from a slab (row
-// stride one slab pixel), and only conv0's 48-column im2col is staged (in
-// the warp's epilogue buffer). Phase 0 computes h_s over its slab 16
-// pixels at a time; phase A computes h row by row (conv1 and skip in two
-// warp tiles off the same A); phase B runs conv2 from the h slab and the
-// shortcut from the h_s slab's centre in the same float32 accumulator, the
-// 4 centre pieces of W1's shortcut columns only (12 of its 16 row blocks
-// are zero). A phase-B row computes 16 pixels and writes 14; the two
-// others read past the row and are dropped. Warp tiles are warp_tile.cuh's,
-// 16 pixels x 64 columns: bf16 on the tensor cores (WMMA), float32 as FMA;
-// weights are read through the caches from device memory. One block per
-// SM; no copy/compute overlap yet.
+// The bfloat16 path is three launches: stem_conv0_kernel writes h_s, and
+// tap_block_sm90.cuh's two launches of level 0's block run on it, with h as
+// their seam (tap_block.cu says why). What reaches device memory is h_s and
+// h, 25,165,824 and 50,331,648 bytes at B=48, each read back mostly from the
+// 50 MB L2. h_s does because TMA cannot read x: its pixels are 24 bytes,
+// and a tensor map's strides must be multiples of 16. Keeping h_s on chip
+// would mean conv0 over phase A's 10 x 34 slab, x read through the caches
+// inside the block's kernel, and conv0 again at the tile's pixels in phase B
+// (the shortcut reads h_s there). As its own launch conv0 moves x (4.7 MB),
+// cond and h_s once (55 MB, 16 us at 3.35 TB/s) and issues its 1.2 GFLOP
+// from registers: a block is one warpgroup on a 4 x 32 tile; cond is read
+// into registers first, then each thread builds its wgmma A fragments of
+// the 48-column im2col from x through the caches, W0 (48 x 64) sits in
+// shared memory in the 128-byte swizzle, and the epilogue adds
+// round(b0 + cond), rounds and stores 16 bytes a lane. At 155 registers
+// three blocks share an SM.
+//
+// The first design (one block per 16 x 14 tile holding h_s and h slabs in
+// shared memory, WMMA warp tiles reading every weight fragment from device
+// memory in every warp, no copy/compute overlap) took 2.47 ms at B=48.
+// Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 (power limit
+// 700.00 W), bf16, B=48: 0.176 ms (conv0 0.033, phase A 0.056, phase B
+// 0.076), against 1.41 ms for conv0, the cond add and the cuDNN dense-s2d
+// block; B=1 (device time) 0.029 ms.
+//
+// float32 (the golden and model phases' type, not the served one) keeps the
+// first design as tap_stem_kernel<float>: a block owns an 8 x 14 tile and
+// keeps the h_s slab (tile + 2-pixel halo), the h slab (tile + 1-pixel
+// halo, 16 pixels a row) and one float32 epilogue buffer per warp in shared
+// memory; every im2col piece is read in place from a slab, conv0's 48
+// columns are staged; phase A computes h row by row, phase B runs conv2 and
+// the shortcut's 4 centre pieces (piece 5 t of tap block t) into one
+// accumulator, as warp_tile.cuh's FMA tiles with weights read through the
+// caches. A phase-B row computes 16 pixels and writes 14.
 
+#include "tap_block_sm90.cuh"
 #include "warp_tile.cuh"
 
 namespace {
 
-using wt::bf16;
 using wt::from_f;
 using wt::round_to;
 using wt::to_f;
@@ -59,7 +74,7 @@ using wt::to_f;
 constexpr int NTHREADS = 256;
 constexpr int NWARP = NTHREADS / 32;
 constexpr int TW = 14;          // output tile width
-constexpr int HW = TW + 2;      // h slab width: 16, one WMMA A operand
+constexpr int HW = TW + 2;      // h slab width: 16, a warp tile's rows
 constexpr int SW = TW + 4;      // h_s slab width
 constexpr int NC = 64;          // columns of a warp tile
 constexpr int LDC = 2 * NC + 4; // a warp's epilogue buffer: two warp tiles side by side
@@ -71,19 +86,9 @@ constexpr int CO4 = 128;        // block channels (4 taps x 32)
 constexpr int CM = CO4 / 4;
 constexpr int N1 = 3 * CO4;     // row length of W1
 
-// im2col piece table, in the order of ops/tap_conv.py:_ORDER: piece k reads
-// the s2d input shifted by (row - 1, col - 1) pixels, tap block k % 4. The
-// centre pieces (shift 0, 0) carry the shortcut's rows of W1.
-__constant__ int kPieceRow[16] = {1, 1, 0, 0, 1, 1, 0, 0, 2, 2, 1, 1, 2, 2, 1, 1};
-__constant__ int kPieceCol[16] = {1, 0, 1, 0, 2, 1, 2, 1, 1, 0, 1, 0, 2, 1, 2, 1};
-__constant__ int kCentre[4] = {0, 5, 10, 15};
-
-// Tile rows and slab pixel strides (elements). bf16 strides keep WMMA's
-// 32-byte alignment; all pads move neighbouring pixels to other banks.
+// Tile rows and slab pixel strides (elements) of the FMA kernel (float32
+// only); the pads move neighbouring pixels to other banks.
 template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int TH = 16, LDS = C14 + 16, LDH = CO4 + 16;
-};
 template <> struct Cfg<float> {
   static constexpr int TH = 8, LDS = C14 + 4, LDH = CO4 + 4;
 };
@@ -197,7 +202,7 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
         acc.mma(hh + ((r + kPieceRow[k]) * HW + kPieceCol[k]) * LDH + (k & 3) * CM, LDH,
                 w2 + (size_t)k * CM * CO4 + n0, CO4, CM);
       for (int j = 0; j < 4; ++j) {
-        const int k = kCentre[j];
+        const int k = 5 * j;  // the centre piece of tap block j
         acc.mma(hs + ((r + 2) * SW + 2) * LDS + (k & 3) * CI, LDS,
                 w1 + (size_t)k * CI * N1 + 2 * CO4 + n0, N1, CI);
       }
@@ -214,14 +219,135 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
   }
 }
 
+
+// ---------------------------------- bfloat16: conv0, the first of three launches
+
+constexpr int S_THREADS = 128;             // one warpgroup: a tile of 4 x 32 pixels
+constexpr int S_TH = 4;
+constexpr int S_BYTES = 1024 + K0 * 128;   // W0 (48 rows x 64 columns) and its alignment
+
+// Grid (ceil(W2/32), ceil(H2/4), B), S_THREADS threads, dynamic shared
+// memory S_BYTES. h_s = round(im2col4x4(x) @ W0 + round(b0 + cond)) on the
+// tile's pixels inside the image: x (B,H2,W2,12), cond and hs (B,H2,W2,64),
+// w0 (48,64), b0 (64). Warp w owns, in M-tile m, tile row 2 m + w / 2,
+// pixels 16 (w % 2) .. + 15, as a warpgroup of tap_tc_kernel does. Blocks
+// of one warpgroup (155 registers a thread) let three share an SM, so that
+// one block's loads overlap another's MMAs and stores.
+__global__ void __launch_bounds__(S_THREADS)
+stem_conv0_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
+                  const bf16* __restrict__ w0, const bf16* __restrict__ b0, bf16* __restrict__ hs,
+                  int H2, int W2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* w0s = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int w = warp, g = lane / 4, q = lane % 4;
+  const int row_w = w / 2, px_w = 16 * (w % 2);
+  const int b = blockIdx.z, y0 = blockIdx.y * S_TH, x0 = blockIdx.x * TC_TW;
+
+  // cond, the largest input, is read first: this lane's column pairs
+  // 8 jj + 2 q (+1) of its four pixels (rows g and g + 8 of each M-tile),
+  // zero outside the image, as packed bf16 pairs
+  uint32_t cnd[2][2][C14 / 8];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int y = y0 + row_w + 2 * m, px = x0 + px_w + g + 8 * h;
+      const bool inside = y < H2 && px < W2;
+      const bf16* cp = cond + (((size_t)b * H2 + y) * W2 + px) * C14 + 2 * q;
+#pragma unroll
+      for (int jj = 0; jj < C14 / 8; ++jj)
+        cnd[m][h][jj] = inside ? *reinterpret_cast<const uint32_t*>(cp + 8 * jj) : 0u;
+    }
+
+  // W0 in wgmma's MN-major B layout: row r's 16-byte chunk c at chunk c ^ r % 8
+  for (int e = tid; e < K0 * 8; e += S_THREADS) {
+    const int r = e / 8, c = e % 8;
+    *reinterpret_cast<uint4*>(w0s + r * 128 + ((c ^ (r & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(w0 + r * C14 + 8 * c);
+  }
+  sm90::fence_proxy_async();  // these stores, before the MMAs read W0 (the async proxy)
+  __syncthreads();
+
+  // A, the im2col of x, straight into wgmma's A fragments (rows g and g + 8
+  // of the warp's 16 pixels, columns 2 q (+1) and 2 q + 8 (+1) of a k-step):
+  // column k is channel k % 3 of tap block piece % 4 at piece k / 3's shift,
+  // zero outside the image. x's 24-byte pixels are read through the caches.
+  const bf16* xb = x + (size_t)b * H2 * W2 * CX4;
+  auto x_bits = [&](int y, int px, int k) -> uint32_t {
+    const int piece = k / 3;
+    const int yy = y + kPieceRow[piece] - 1, xx = px + kPieceCol[piece] - 1;
+    if (yy < 0 || yy >= H2 || xx < 0 || xx >= W2) return 0u;
+    return *reinterpret_cast<const uint16_t*>(xb + ((size_t)yy * W2 + xx) * CX4 + (piece & 3) * 3 +
+                                              k % 3);
+  };
+  uint32_t a[K0 / 16][2][4];
+#pragma unroll
+  for (int ks = 0; ks < K0 / 16; ++ks)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int y = y0 + row_w + 2 * m, px = x0 + px_w + g + 8 * (r & 1);
+        const int k = 16 * ks + 2 * q + 8 * (r >> 1);
+        a[ks][m][r] = x_bits(y, px, k) | x_bits(y, px, k + 1) << 16;
+      }
+  float acc[2][C14 / 2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < C14 / 2; ++i) acc[m][i] = 0.f;
+  sm90::fence_operand(acc[0]);
+  sm90::fence_operand(acc[1]);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < K0 / 16; ++ks)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      sm90::wgmma_m64n64k16(acc[m], a[ks][m], sm90::desc_sw128(w0s + ks * 2048, 0, 1024));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(acc[0]);
+  sm90::fence_operand(acc[1]);
+
+  // epilogue: columns 8 jj + 2 q (+1) of rows g and g + 8, per M-tile
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int y = y0 + row_w + 2 * m, px = x0 + px_w + g + 8 * h;
+      const bool inside = y < H2 && px < W2;  // every lane takes part in the shuffles
+      const size_t pix = ((size_t)b * H2 + y) * W2 + px;
+#pragma unroll
+      for (int jg = 0; jg < C14 / 32; ++jg) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int jj = 4 * jg + j;
+          const uint32_t c = cnd[m][h][jj];
+          const float cf[2] = {__uint_as_float(c << 16), __uint_as_float(c & 0xffff0000u)};
+          float r[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            r[e] = acc[m][4 * jj + 2 * h + e] +
+                   round_to<bf16>(load_f(b0 + 8 * jj + 2 * q + e) + cf[e]);
+          v[j] = sm90::pack_bf16x2(r[0], r[1]);
+        }
+        sm90::quad_transpose(v);  // this lane: columns 32 jg + 8 q .. + 7
+        if (inside)
+          *reinterpret_cast<uint4*>(hs + pix * C14 + 32 * jg + 8 * q) =
+              uint4{v[0], v[1], v[2], v[3]};
+      }
+    }
+}
 }  // namespace
 
 // ---- host launcher (plain C interface, bound with ctypes)
 
 namespace {
 
-template <typename T>
-int launch(const void* const* p, void* out, int B, int H2, int W2, cudaStream_t s) {
+int launch_f32(const void* const* p, void* out, int B, int H2, int W2, cudaStream_t s) {
+  using T = float;
   const size_t smem = Smem<T>::bytes;
   cudaError_t err = cudaFuncSetAttribute(tap_stem_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -234,20 +360,35 @@ int launch(const void* const* p, void* out, int B, int H2, int W2, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Shared memory one block needs, in bytes.
-extern "C" size_t tap_stem_block_smem(int is_bf16) {
-  return is_bf16 ? Smem<bf16>::bytes : Smem<float>::bytes;
+// conv0 into hs, then the block (tap_block_sm90.cuh) on hs with h as its seam
+int launch_bf16(const void* const* p, void* out, void* hs, void* h, int B, int H2, int W2,
+                cudaStream_t s) {
+  auto a = [&](int i) { return static_cast<const bf16*>(p[i]); };
+  const dim3 grid((W2 + TC_TW - 1) / TC_TW, (H2 + S_TH - 1) / S_TH, B);
+  stem_conv0_kernel<<<grid, S_THREADS, S_BYTES, s>>>(a(0), a(1), a(3), a(4),
+                                                     static_cast<bf16*>(hs), H2, W2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const void* q[8] = {hs, p[2], p[5], p[6], p[7], p[8], p[9], p[10]};  // x, te4, w1, w2, biases
+  return launch_block_tc<0>(q, h, out, B, H2, W2, s);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 on success).
+}  // namespace
+
+// Shared memory one block needs, in bytes (bfloat16: the block's kernel,
+// the larger of its launches).
+extern "C" size_t tap_stem_block_smem(int is_bf16) {
+  return is_bf16 ? (size_t)TC_BYTES : Smem<float>::bytes;
+}
+
+// Launch on `stream`; returns the first cudaError_t (0 on success).
 // p: x, cond, te4, w0, b0, w1, w2, b1, bsk, bsh, b2 (shapes above the
-// kernel), all contiguous, all of one type: bfloat16 (is_bf16 != 0) or
-// float32; out (B,H2,W2,128).
-extern "C" int tap_stem_block_launch(const void* const* p, void* out, int B, int H2, int W2,
-                                     int is_bf16, void* stream) {
+// kernels), all contiguous, all of one type: bfloat16 (is_bf16 != 0) or
+// float32; out (B,H2,W2,128). bfloat16 also takes the scratch h_s
+// (B,H2,W2,64) and h (B,H2,W2,128), its launches' seams (float32: unused).
+extern "C" int tap_stem_block_launch(const void* const* p, void* out, void* hs, void* h, int B,
+                                     int H2, int W2, int is_bf16, void* stream) {
   if (B < 1 || H2 < 1 || W2 < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(p, out, B, H2, W2, s) : launch<float>(p, out, B, H2, W2, s);
+  return is_bf16 ? launch_bf16(p, out, hs, h, B, H2, W2, s) : launch_f32(p, out, B, H2, W2, s);
 }

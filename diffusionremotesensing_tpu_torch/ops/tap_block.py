@@ -28,6 +28,10 @@ kernels ``csrc/tap_block.cu`` and ``csrc/tap_stem_block.cu`` for CUDA
 tensors and run :func:`tap_block_plain` / :func:`tap_stem_block_plain`, the
 same arithmetic in ``torch`` ops, for CPU tensors. There is no fallback from
 a kernel to its plain version: a CUDA tensor the kernel cannot take raises.
+In bfloat16 a call is several launches of the kernels in
+``csrc/tap_block_sm90.cuh`` (the block's two phases; the stem's conv0
+before them), with h (and the stem's h_s) as seams in scratch tensors the
+wrapper allocates; it counts as one launch.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from diffusionremotesensing_tpu_torch.ops.tap_conv import _ORDER, _w2d, im2col_s
 _CENTER_K = [k for k, (r, s) in enumerate(_ORDER) if r in (1, 2) and s in (1, 2)]
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+# the (4Ci, 4Co, skip) of the two levels csrc/tap_block_sm90.cuh is compiled for
+_TC_LEVELS = ((64, 128, True), (128, 256, False))
 _COUNT_LOCK = threading.Lock()  # launches may come from several server threads
 
 
@@ -109,7 +115,7 @@ def _has_skip(bw: dict) -> bool:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("tap_block")
-    lib.tap_block_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.tap_block_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.tap_block_launch.restype = ctypes.c_int
     lib.tap_block_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tap_block_smem.restype = ctypes.c_size_t
@@ -133,11 +139,14 @@ def _check(x_s2d, te4, bw):
             "w2": (4 * CO4, CO4), "b1": (CO4,), "bsk": (CO4,), "bsh": (CO4,), "b2": (CO4,)}
     got = dict(bw, te4=te4, x_s2d=x_s2d)
     cuda_build.check_operands("tap_block", x_s2d, {k: (got[k], s) for k, s in want.items()})
+    if x_s2d.dtype == torch.bfloat16 and (C4, CO4, _has_skip(bw)) not in _TC_LEVELS:
+        raise ValueError(f"tap_block in bfloat16 takes (4Ci, 4Co, skip) in {_TC_LEVELS}, "
+                         f"got {(C4, CO4, _has_skip(bw))}")
 
 
 def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
     """Fused s2d ResConvBlock (level 0, or level 1 without the skip conv).
-    CUDA tensors launch ``csrc/tap_block.cu`` (each launch adds one to
+    CUDA tensors launch ``csrc/tap_block.cu`` (each call adds one to
     ``tap_block.launches``); CPU tensors run :func:`tap_block_plain`.
     Returns res_s (B,H2,W2,4Co) in x's dtype."""
     if x_s2d.device.type == "cpu":
@@ -153,12 +162,15 @@ def tap_block(x_s2d: torch.Tensor, te4: torch.Tensor, bw: dict) -> torch.Tensor:
     if smem > _SMEM_LIMIT:
         raise ValueError(f"tap_block: 4Co={CO4} needs {smem} bytes of shared memory")
     out = torch.empty((B, H2, W2, CO4), dtype=x_s2d.dtype, device=x_s2d.device)
+    # bfloat16's second launch reads h from device memory; float32 keeps it on chip
+    h = torch.empty_like(out) if is_bf16 else None
     with torch.cuda.device(x_s2d.device):
         stream = torch.cuda.current_stream(x_s2d.device).cuda_stream
         rc = lib.tap_block_launch(
             x_s2d.data_ptr(), te4.data_ptr(), bw["w1"].data_ptr(), bw["w2"].data_ptr(),
             bw["b1"].data_ptr(), bw["bsk"].data_ptr(), bw["bsh"].data_ptr(), bw["b2"].data_ptr(),
-            out.data_ptr(), B, H2, W2, C4, CO4, int(_has_skip(bw)), is_bf16, stream,
+            out.data_ptr(), h.data_ptr() if is_bf16 else None, B, H2, W2, C4, CO4,
+            int(_has_skip(bw)), is_bf16, stream,
         )
     if rc != 0:
         raise RuntimeError(f"tap_block launch failed with CUDA error {rc}")
@@ -198,7 +210,7 @@ _STEM_ORDER = ("x_s2d", "cond_s2d", "te4", "w0", "b0", "w1", "w2", "b1", "bsk", 
 @functools.lru_cache(maxsize=None)
 def _stem_library():
     lib = cuda_build.load("tap_stem_block")
-    lib.tap_stem_block_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    lib.tap_stem_block_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.tap_stem_block_launch.restype = ctypes.c_int
     lib.tap_stem_block_smem.argtypes = [ctypes.c_int]
@@ -225,7 +237,7 @@ def _check_stem(x_s2d, cond_s2d, te4, b0, sw):
 def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tensor,
                    b0: torch.Tensor, sw: dict) -> torch.Tensor:
     """Fused stem + s2d ResConvBlock-0. CUDA tensors launch
-    ``csrc/tap_stem_block.cu`` (each launch adds one to
+    ``csrc/tap_stem_block.cu`` (each call adds one to
     ``tap_stem_block.launches``); CPU tensors run
     :func:`tap_stem_block_plain`. Returns res0_s (B,H2,W2,4Co) in x's dtype."""
     if x_s2d.device.type == "cpu":
@@ -242,8 +254,12 @@ def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tenso
     out = torch.empty((B, H2, W2, _STEM_CO4), dtype=x_s2d.dtype, device=x_s2d.device)
     ops = dict(sw, x_s2d=x_s2d, cond_s2d=cond_s2d, te4=te4, b0=b0)
     ptrs = (ctypes.c_void_p * len(_STEM_ORDER))(*(ops[k].data_ptr() for k in _STEM_ORDER))
+    # bfloat16's seams, h_s and h, pass through device memory between its launches
+    hs = out.new_empty((B, H2, W2, _STEM_C14)) if is_bf16 else None
+    h = torch.empty_like(out) if is_bf16 else None
     with torch.cuda.device(x_s2d.device):
-        rc = lib.tap_stem_block_launch(ptrs, out.data_ptr(), B, H2, W2, is_bf16,
+        rc = lib.tap_stem_block_launch(ptrs, out.data_ptr(), hs.data_ptr() if is_bf16 else None,
+                                       h.data_ptr() if is_bf16 else None, B, H2, W2, is_bf16,
                                        torch.cuda.current_stream(x_s2d.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tap_stem_block launch failed with CUDA error {rc}")

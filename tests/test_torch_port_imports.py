@@ -298,8 +298,10 @@ def test_the_fourth_slice_modules_are_guarded():
 def test_chip_smoke_fourth_slice_flops_are_the_nonzero_weights():
     """Per s2d pixel, the multiply-adds behind packed_head's and the level-1
     tap_block's bounds are exactly the entries of the weights they take that
-    are not structural zeros; packed_conv's are the model's level-1 convs
-    its docstring names (conv_block1.conv2, 64->64, and up_conv1, 192->64)."""
+    are not structural zeros, and the tap_block kernels' issued products the
+    weight entries they multiply; packed_conv's are the model's level-1
+    convs its docstring names (conv_block1.conv2, 64->64, and up_conv1,
+    192->64)."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
@@ -315,7 +317,11 @@ def test_chip_smoke_fourth_slice_flops_are_the_nonzero_weights():
     for key, c4, co4, skip in (("tap_block", 64, 128, True), ("tap_block1", 128, 256, False)):
         dense, issued = chip_smoke.block_flops(2, 32, 32, c4, co4, skip)
         assert dense == 2 * 2 * 32 * 32 * nnz(kl[key]["w1"], kl[key]["w2"])
-        assert issued == 2 * 2 * 32 * 32 * (kl[key]["w1"].numel() + kl[key]["w2"].numel())
+        # the bf16 kernels issue X1 against W1's conv1 (and skip) columns,
+        # im2col(h) against W2, and only the shortcut's 4 centre row blocks
+        # (4 pieces x Ci rows = c4 rows of W1's last co4 columns)
+        w1_conv = kl[key]["w1"][:, :-co4]
+        assert issued == 2 * 2 * 32 * 32 * (w1_conv.numel() + kl[key]["w2"].numel() + c4 * co4)
     c2, uc1 = _macs(m.conv_blocks[1].conv2[0], m.up_convs[1])
     assert chip_smoke.pconv_flops(2, 64, 64, 64, 64) == 2 * 2 * 64 * 64 * c2
     assert chip_smoke.pconv_flops(2, 64, 64, 192, 64) == 2 * 2 * 64 * 64 * uc1

@@ -3,11 +3,13 @@ tests/torch_port_helpers.py, held against torch: one warpgroup's
 wgmma.m64nNk16 (N = 16, 64, 128, 256) with A loaded by ldmatrix from a
 padded row-major tile and B landed by a TMA box in the 128-byte swizzle (the
 32-byte one for N = 16; the descriptor's MN-major layout), each accumulator
-element read back through the documented fragment layout; and a two-buffer
-mbarrier ring (full and empty barriers, parities over several rounds,
-transaction bytes) fed by TMA row loads. A layout slip here shows before
-the card runs the kernels that use them (csrc/tap_conv.cu,
-csrc/dec_block.cu); the card remains the final check."""
+element read back through the documented fragment layout; and mbarrier
+rings (full and empty barriers, parities over several rounds, transaction
+bytes) fed by TMA row loads, from thread 0 or from a producer warpgroup
+that hands its registers to the consumers (setmaxnreg). A layout slip here
+shows before the card runs the kernels that use them (csrc/tap_conv.cu,
+csrc/dec_block.cu, csrc/tap_block_sm90.cuh); the card remains the final
+check."""
 
 import ctypes
 
@@ -104,6 +106,48 @@ extern "C" void ring(const void* X, int rounds, float* out) {
     }
   });
 }
+
+// the same through three buffers, as the warp-specialised kernels run them:
+// a consumer warpgroup (threads 0-127, registers raised) and a producer
+// warpgroup (registers lowered) whose first warp loads and whose others
+// leave; out[i][t] = X[i][t] for t < 64
+extern "C" void ring_ws(const void* X, int rounds, float* out) {
+  emu_run({1, 1, 1}, 256, [=] {
+    unsigned char* base = smem_raw;
+    uint64_t* full = (uint64_t*)(base + 3072);
+    uint64_t* empty = full + 3;
+    const int t = threadIdx.x;
+    const sm90::TensorMap xmap{X, {64, rounds, 1, 1}, {2, 128, 0, 0}, {64, 1, 1, 1}};
+    if (t == 0) {
+      for (int s = 0; s < 3; ++s) {
+        sm90::mbar_init(&full[s], 1);
+        sm90::mbar_init(&empty[s], 128);
+      }
+      sm90::fence_mbar_init();
+    }
+    __syncthreads();
+    if (t >= 128) {
+      sm90::setmaxnreg_dec<40>();
+      if (t >= 160) return;
+      for (int i = 0; i < rounds; ++i) {
+        const int s = i % 3;
+        if (i >= 3) sm90::mbar_wait(&empty[s], (i / 3 - 1) & 1);
+        if (t == 128) {
+          sm90::mbar_arrive_expect_tx(&full[s], 128);
+          sm90::tma_load_2d(base + 1024 * s, &xmap, 0, i, &full[s]);
+        }
+      }
+      return;
+    }
+    sm90::setmaxnreg_inc<232>();
+    for (int i = 0; i < rounds; ++i) {
+      const int s = i % 3;
+      sm90::mbar_wait(&full[s], (i / 3) & 1);
+      if (t < 64) out[i * 64 + t] = __bfloat162float(((const __nv_bfloat16*)(base + 1024 * s))[t]);
+      sm90::mbar_arrive(&empty[s]);
+    }
+  });
+}
 """
 
 
@@ -112,6 +156,7 @@ def emulated(tmp_path_factory):
     lib = compile_emulated("sm90.cuh", _LAUNCHER, tmp_path_factory.mktemp("sm90_emu"))
     lib.product.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.ring.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.ring_ws.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -135,4 +180,15 @@ def test_mbarrier_ring_keeps_rounds_apart(emulated):
     x = torch.arange(rounds * 64, dtype=torch.float32).reshape(rounds, 64).bfloat16()
     out = torch.full((rounds, 64), float("nan"))
     emulated.ring(x.data_ptr(), rounds, out.data_ptr())
+    assert torch.equal(out, x.float())
+
+
+def test_mbarrier_ring_with_a_producer_warpgroup(emulated):
+    """Nine rounds through three buffers fed by a producer warpgroup that
+    lowers its registers for the consumer warpgroup (setmaxnreg) and whose
+    idle warps leave early, as csrc/tap_block_sm90.cuh's kernel runs."""
+    rounds = 9
+    x = torch.arange(rounds * 64, dtype=torch.float32).reshape(rounds, 64).bfloat16()
+    out = torch.full((rounds, 64), float("nan"))
+    emulated.ring_ws(x.data_ptr(), rounds, out.data_ptr())
     assert torch.equal(out, x.float())

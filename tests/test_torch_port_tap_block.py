@@ -1,17 +1,16 @@
 """ops/tap_block.py of the port: the BN-folded weights and the plain version
 against the reference package's Pallas tap_block (interpret mode, as
 tests/test_tap_stem.py runs it; float32, atol 2e-5), the wrapper's CPU path
-and checks, and the CUDA source itself: its im2col table against the
-Python one, and the source compiled with g++ under a small emulation of
-the CUDA thread model (one std::thread per CUDA thread, a std::barrier for
-__syncthreads), held against the plain version. The card runs the real
-kernel in chip_smoke.py."""
+and checks, the structure of W1's shortcut columns the kernels rely on,
+and the CUDA source itself: its im2col table (csrc/tap_block_sm90.cuh)
+against the Python one, and the source compiled with g++ under a small
+emulation of the CUDA thread model (one std::thread per CUDA thread, a
+std::barrier for __syncthreads), held against the plain version. The card
+runs the real kernel in chip_smoke.py."""
 
 import ctypes
 import os
 import re
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +29,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
     tap_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import PIECES
-from tests.torch_port_helpers import EMULATION_PRELUDE as _EMULATION_PRELUDE
+from tests.torch_port_helpers import TAP_TC_EMULATION, compile_emulated
 
 
 def _raw_weights(seed, ci=16, co=32, skip=True):
@@ -152,7 +151,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_cuda_piece_table_matches_python_order():
-    with open(os.path.join(cuda_build.CSRC_DIR, "tap_block.cu")) as f:
+    with open(os.path.join(cuda_build.CSRC_DIR, "tap_block_sm90.cuh")) as f:
         src = f.read()
 
     def table(name):
@@ -163,78 +162,70 @@ def test_cuda_piece_table_matches_python_order():
     assert [(r, c, k % 4) for k, (r, c) in enumerate(zip(rows, cols))] == PIECES
 
 
-_EMULATION_LAUNCHER = r"""
-template <typename K>
-static void emu_grid(int B, int H2, int W2, int TH, K kernel) {
-  std::memset(smem_raw, 0xff, sizeof(smem_raw));  // shared memory starts as garbage
-  for (int z = 0; z < B; ++z)
-    for (int y = 0; y < (H2 + TH - 1) / TH; ++y)
-      for (int xb = 0; xb < (W2 + TW - 1) / TW; ++xb) {
-        blockIdx = {unsigned(xb), unsigned(y), unsigned(z)};
-        std::barrier<> bar(NTHREADS);
-        g_bar = &bar;
-        std::vector<std::thread> ts;
-        for (int t = 0; t < NTHREADS; ++t)
-          ts.emplace_back([=] {
-            threadIdx = {unsigned(t), 0, 0};
-            kernel();
-          });
-        for (auto& th : ts) th.join();
-      }
-}
+_EMULATION_LAUNCHER = TAP_TC_EMULATION + r"""
+// float32: the FMA kernel, a block per tile
 template <int TH, bool SKIP>
-static void emu_block(const void* x, const void* te4, const void* w1, const void* w2,
-                      const void* b1, const void* bsk, const void* bsh, const void* b2, void* out,
-                      int B, int H2, int W2, int C4, int CO4, int is_bf16) {
-  typedef const __nv_bfloat16* H;
+static void emu_fma(const void* const* p, void* out, int B, int H2, int W2, int C4, int CO4) {
   typedef const float* F;
-  if (is_bf16)
-    emu_grid(B, H2, W2, TH, [=] {
-      tap_block_tc_kernel<TH, SKIP>((H)x, (H)te4, (H)w1, (H)w2, (H)b1, (H)bsk, (H)bsh, (H)b2,
-                                    (__nv_bfloat16*)out, H2, W2, C4, CO4); });
-  else
-    emu_grid(B, H2, W2, TH, [=] {
-      tap_block_fma_kernel<TH, SKIP>((F)x, (F)te4, (F)w1, (F)w2, (F)b1, (F)bsk, (F)bsh, (F)b2,
-                                     (float*)out, H2, W2, C4, CO4); });
+  emu_run({unsigned((W2 + TW - 1) / TW), unsigned((H2 + TH - 1) / TH), unsigned(B)}, NTHREADS, [=] {
+    tap_block_fma_kernel<TH, SKIP>((F)p[0], (F)p[1], (F)p[2], (F)p[3], (F)p[4], (F)p[5], (F)p[6],
+                                   (F)p[7], (float*)out, H2, W2, C4, CO4);
+  });
 }
 extern "C" void emu_launch(const void* x, const void* te4, const void* w1, const void* w2,
                            const void* b1, const void* bsk, const void* bsh, const void* b2,
                            void* out, int B, int H2, int W2, int C4, int CO4, int has_skip,
-                           int is_bf16) {
-  if (tile_rows(CO4) == 16 && has_skip)
-    emu_block<16, true>(x, te4, w1, w2, b1, bsk, bsh, b2, out, B, H2, W2, C4, CO4, is_bf16);
-  else if (tile_rows(CO4) == 8 && !has_skip)
-    emu_block<8, false>(x, te4, w1, w2, b1, bsk, bsh, b2, out, B, H2, W2, C4, CO4, is_bf16);
-  else
-    std::abort();  // the two instantiations the model launches
+                           int is_bf16, int blocks) {
+  const void* p[8] = {x, te4, w1, w2, b1, bsk, bsh, b2};
+  // the two instantiations the model launches
+  if (C4 == 64 && CO4 == 128 && has_skip) {
+    if (is_bf16) emu_tc<0>(p, out, B, H2, W2, blocks);
+    else emu_fma<16, true>(p, out, B, H2, W2, C4, CO4);
+  } else if (C4 == 128 && CO4 == 256 && !has_skip) {
+    if (is_bf16) emu_tc<1>(p, out, B, H2, W2, blocks);
+    else emu_fma<8, false>(p, out, B, H2, W2, C4, CO4);
+  } else {
+    std::abort();
+  }
 }
 extern "C" size_t emu_smem(int CO4, int is_bf16) {
-  return is_bf16 ? tc_smem_bytes(CO4) : fma_smem_bytes(CO4);
+  return is_bf16 ? (size_t)TC_BYTES : fma_smem_bytes(CO4);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def emulated_kernel(tmp_path_factory):
-    """csrc/tap_block.cu's device code (everything above its host launcher),
-    compiled for the CPU with the emulation prelude."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the CUDA source cannot be emulated here")
-    with open(os.path.join(cuda_build.CSRC_DIR, "tap_block.cu")) as f:
-        src = f.read()
-    device_code = src.split("// ---- host launcher")[0]
-    device_code = "\n".join(ln for ln in device_code.splitlines() if not ln.startswith("#include"))
-    d = tmp_path_factory.mktemp("tap_block_emulation")
-    (d / "emu.cpp").write_text(_EMULATION_PRELUDE + device_code + _EMULATION_LAUNCHER)
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o",
-                    str(d / "libemu.so"), str(d / "emu.cpp")], check=True, timeout=300)
-    lib = ctypes.CDLL(str(d / "libemu.so"))
-    lib.emu_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    """csrc/tap_block.cu's device code (everything above its host launcher,
+    the shared header inlined), compiled for the CPU under the emulation of
+    tests/torch_port_helpers.py."""
+    lib = compile_emulated("tap_block", _EMULATION_LAUNCHER,
+                           tmp_path_factory.mktemp("tap_block_emu"))
+    lib.emu_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     lib.emu_launch.restype = None
     lib.emu_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.emu_smem.restype = ctypes.c_size_t
     return lib
+
+
+def _emulate(lib, level, B, H2, W2, dtype, seed, blocks=0):
+    """One emulated call of level `level`'s block, held against the plain
+    version: float32 to 1e-5 (the same products summed in another order),
+    bfloat16 to 1e-2 (h and the output rounded to bf16 on either side of a
+    boundary, as chip_smoke.py holds the card), of max |plain|."""
+    lv = LEVELS[level]
+    c4, co4 = 4 * lv["ci"], 4 * lv["co"]
+    bw = {k: v.to(dtype).contiguous()
+          for k, v in build_block_weights(*_as(_raw_weights(seed, **lv), torch.from_numpy)).items()}
+    x, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(seed + 1, B, H2, W2, c4, co4))
+    out = torch.empty((B, H2, W2, co4), dtype=dtype)
+    lib.emu_launch(x.data_ptr(), te4.data_ptr(),
+                   *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
+                   out.data_ptr(), B, H2, W2, c4, co4, int(lv["skip"]),
+                   int(dtype == torch.bfloat16), blocks)
+    want = tap_block_plain(x, te4, bw).float()
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    assert (out.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
 
 
 @pytest.mark.parametrize("B,H2,W2,dtype", [
@@ -245,19 +236,7 @@ def emulated_kernel(tmp_path_factory):
     (1, 20, 12, torch.bfloat16),  # ... with ragged tiles
 ])
 def test_cuda_source_emulated_matches_plain(emulated_kernel, B, H2, W2, dtype):
-    bw = {k: v.to(dtype).contiguous()
-          for k, v in build_block_weights(*_as(_raw_weights(8), torch.from_numpy)).items()}
-    x, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(9, B, H2, W2))
-    out = torch.empty((B, H2, W2, 128), dtype=dtype)
-    emulated_kernel.emu_launch(
-        x.data_ptr(), te4.data_ptr(), *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
-        out.data_ptr(), B, H2, W2, 64, 128, 1, int(dtype == torch.bfloat16))
-    want = tap_block_plain(x, te4, bw).float()
-    scale = max(1.0, want.abs().max().item())
-    # float32: the same products summed in another order; bfloat16: h and the
-    # output rounded to bf16 on either side of a boundary (chip_smoke.py)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
-    assert (out.float() - want).abs().max().item() <= tol * scale
+    _emulate(emulated_kernel, 0, B, H2, W2, dtype, 8)
 
 
 @pytest.mark.parametrize("B,H2,W2,dtype", [
@@ -265,29 +244,51 @@ def test_cuda_source_emulated_matches_plain(emulated_kernel, B, H2, W2, dtype):
     (1, 10, 8, torch.bfloat16),   # ... on the tensor cores, two tile rows
 ])
 def test_cuda_source_emulated_level1_matches_plain(emulated_kernel, B, H2, W2, dtype):
-    """Level 1's block (no skip conv, tile 8x16) against the plain version,
-    on images that cross the tile edges."""
-    lv = LEVELS[1]
-    bw = {k: v.to(dtype).contiguous()
-          for k, v in build_block_weights(*_as(_raw_weights(13, **lv), torch.from_numpy)).items()}
-    x, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(14, B, H2, W2, 128, 256))
-    out = torch.empty((B, H2, W2, 256), dtype=dtype)
-    emulated_kernel.emu_launch(
-        x.data_ptr(), te4.data_ptr(), *[bw[k].data_ptr() for k in ("w1", "w2", "b1", "bsk", "bsh", "b2")],
-        out.data_ptr(), B, H2, W2, 128, 256, 0, int(dtype == torch.bfloat16))
-    want = tap_block_plain(x, te4, bw).float()
-    scale = max(1.0, want.abs().max().item())
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
-    assert (out.float() - want).abs().max().item() <= tol * scale
+    """Level 1's block (no skip conv) against the plain version, on images
+    that cross the tile edges."""
+    _emulate(emulated_kernel, 1, B, H2, W2, dtype, 13)
 
 
 def test_shared_memory_fits_at_both_levels(emulated_kernel):
-    """Level 0 keeps its 16x16 tile (220,160 bytes in bfloat16); level 1's
-    8x16 tile fits 4Co=256 in both types under Hopper's 232,448 bytes."""
-    assert emulated_kernel.emu_smem(128, 1) == 220160
+    """bfloat16 runs one layout at both levels (3 plane slots and 6 weight
+    pieces, 231,568 bytes: the source note's tally); float32's 16x16
+    (level 0) and 8x16 (level 1) tiles fit 4Co=256 too, all under Hopper's
+    232,448 bytes."""
+    assert emulated_kernel.emu_smem(128, 1) == 231568
     for co4 in (128, 256):
         for bf in (0, 1):
             assert emulated_kernel.emu_smem(co4, bf) <= 232448
+
+
+@pytest.mark.parametrize("level,B,H2,W2,blocks", [
+    (0, 2, 9, 33, 3),   # 8 ragged tiles on 3 blocks: block 0's 9 phase-B planes through 3 slots
+    (1, 1, 9, 20, 1),   # 2 ragged tiles x 2 N-blocks on one block: 24 phase-B plane visits
+])
+def test_cuda_source_emulated_bf16_persistent(emulated_kernel, level, B, H2, W2, blocks):
+    """More tiles than blocks, so that the plane and weight rings wrap
+    (their parities over several rounds), on images that cross tile edges."""
+    _emulate(emulated_kernel, level, B, H2, W2, torch.bfloat16, 17, blocks)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_shortcut_columns_are_block_diagonal_centre_rows(level):
+    """W1's shortcut columns are zero outside the 4 centre pieces (shift 0,
+    0; piece 5t for tap block t) and block-diagonal inside them, the folded
+    1x1 kernel on the diagonal: the kernels multiply only those rows."""
+    lv = LEVELS[level]
+    ci, co = lv["ci"], lv["co"]
+    bw = build_block_weights(*_as(_raw_weights(21, **lv), torch.from_numpy))
+    w_sh = bw["w1"][:, -4 * co:].reshape(16, ci, 4, co)  # piece, channel, tap block, column
+    centre = [k for k, (r, c, _) in enumerate(PIECES) if (r, c) == (1, 1)]
+    assert centre == [0, 5, 10, 15] and [PIECES[k][2] for k in centre] == [0, 1, 2, 3]
+    diag = w_sh[0, :, 0]
+    assert diag.abs().min() > 0
+    for k in range(16):
+        for t in range(4):
+            if k in centre and PIECES[k][2] == t:
+                assert torch.equal(w_sh[k, :, t], diag)
+            else:
+                assert not w_sh[k, :, t].any(), (k, t)
 
 
 def test_wrapper_checks_the_level1_weights():

@@ -30,7 +30,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
     tap_stem_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import im2col_s2d44
-from tests.torch_port_helpers import compile_emulated
+from tests.torch_port_helpers import TAP_TC_EMULATION, compile_emulated
 
 
 def _raw(seed):
@@ -115,20 +115,29 @@ def test_wrapper_refuses():
         tap_stem_block(x.to("meta"), cond, te4, b0, sw)
 
 
-_LAUNCHER = r"""
-template <typename T>
-static void emu_stem(const void* const* p, void* out, int B, int H2, int W2) {
-  const T* q[11];
-  for (int i = 0; i < 11; ++i) q[i] = static_cast<const T*>(p[i]);
-  constexpr int TH = Cfg<T>::TH;
-  emu_run({unsigned((W2 + TW - 1) / TW), unsigned((H2 + TH - 1) / TH), unsigned(B)}, NTHREADS, [=] {
-    tap_stem_kernel<T>(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10],
-                       static_cast<T*>(out), H2, W2);
-  });
-}
-extern "C" void emu_launch(const void* const* p, void* out, int B, int H2, int W2, int is_bf16) {
-  if (is_bf16) emu_stem<__nv_bfloat16>(p, out, B, H2, W2);
-  else emu_stem<float>(p, out, B, H2, W2);
+_LAUNCHER = TAP_TC_EMULATION + r"""
+// bfloat16: conv0 into a scratch h_s (a block per tile), then the block on
+// h_s (emu_tc, `blocks` persistent blocks); float32: the FMA kernel, a
+// block per tile
+extern "C" void emu_launch(const void* const* p, void* out, int B, int H2, int W2, int is_bf16,
+                           int blocks) {
+  if (!is_bf16) {
+    const float* q[11];
+    for (int i = 0; i < 11; ++i) q[i] = static_cast<const float*>(p[i]);
+    constexpr int TH = Cfg<float>::TH;
+    emu_run({unsigned((W2 + TW - 1) / TW), unsigned((H2 + TH - 1) / TH), unsigned(B)}, NTHREADS, [=] {
+      tap_stem_kernel<float>(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10],
+                             static_cast<float*>(out), H2, W2);
+    });
+    return;
+  }
+  typedef const __nv_bfloat16* Hp;
+  std::vector<__nv_bfloat16> hs((size_t)B * H2 * W2 * C14);
+  __nv_bfloat16* hd = hs.data();
+  emu_run({unsigned((W2 + TC_TW - 1) / TC_TW), unsigned((H2 + S_TH - 1) / S_TH), unsigned(B)},
+          S_THREADS, [=] { stem_conv0_kernel((Hp)p[0], (Hp)p[1], (Hp)p[3], (Hp)p[4], hd, H2, W2); });
+  const void* q[8] = {hd, p[2], p[5], p[6], p[7], p[8], p[9], p[10]};  // the block on h_s
+  emu_tc<0>(q, out, B, H2, W2, blocks);
 }
 """
 
@@ -136,24 +145,34 @@ extern "C" void emu_launch(const void* const* p, void* out, int B, int H2, int W
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     lib = compile_emulated("tap_stem_block", _LAUNCHER, tmp_path_factory.mktemp("stem_emu"))
-    lib.emu_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib.emu_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
     return lib
 
 
-@pytest.mark.parametrize("B,H2,W2,dtype", [
-    (1, 8, 14, torch.float32),    # one float32 tile (8 x 14)
-    (2, 11, 17, torch.float32),   # several tiles, ragged rows and columns
-    (1, 9, 16, torch.bfloat16),   # the tensor-core path (16 x 14 tiles), ragged both ways
-])
-def test_cuda_source_emulated_matches_plain(emulated, B, H2, W2, dtype):
+def _emulate(lib, B, H2, W2, dtype, blocks=0):
     sw, b0 = _port_weights(8, dtype)
     x, cond, te4 = (torch.from_numpy(a).to(dtype) for a in _inputs(9, B, H2, W2))
     out = torch.empty((B, H2, W2, 128), dtype=dtype)
     ops = dict(sw, x_s2d=x, cond_s2d=cond, te4=te4, b0=b0)
     ptrs = (ctypes.c_void_p * 11)(*(ops[k].data_ptr() for k in tb._STEM_ORDER))
-    emulated.emu_launch(ptrs, out.data_ptr(), B, H2, W2, int(dtype == torch.bfloat16))
+    lib.emu_launch(ptrs, out.data_ptr(), B, H2, W2, int(dtype == torch.bfloat16), blocks)
     want = tap_stem_block_plain(x, cond, te4, b0, sw).float()
     # float32: the same products summed in another order; bfloat16: h_s, h
     # and the output rounded to bf16 on either side of a boundary
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
     assert (out.float() - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("B,H2,W2,dtype", [
+    (1, 8, 14, torch.float32),    # one float32 tile (8 x 14)
+    (2, 11, 17, torch.float32),   # several tiles, ragged rows and columns
+    (1, 9, 16, torch.bfloat16),   # the wgmma path (8 x 32 tiles), ragged both ways
+])
+def test_cuda_source_emulated_matches_plain(emulated, B, H2, W2, dtype):
+    _emulate(emulated, B, H2, W2, dtype)
+
+
+def test_cuda_source_emulated_bf16_persistent(emulated):
+    """8 ragged tiles of two batch items on 3 persistent blocks, so that the
+    block's plane and weight rings wrap."""
+    _emulate(emulated, 2, 9, 33, torch.bfloat16, blocks=3)

@@ -194,6 +194,40 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
 """
 
 
+# csrc/tap_block_sm90.cuh's block under the emulation, for the launchers of
+# the tap_block and tap_stem_block tests: emu_tc<LEVEL>(p, out, ...) runs the
+# two launches of tap_tc_kernel (phase A into a scratch h, then phase B) over
+# `blocks` persistent blocks (0: one per item, an 8 x 32 tile's N-block of
+# 128 columns); p is x, te4, w1, w2,
+# b1, bsk, bsh, b2 in bfloat16.
+TAP_TC_EMULATION = r"""
+template <int LEVEL>
+static void emu_tc(const void* const* p, void* out, int B, int H2, int W2, int blocks) {
+  using C = Tc<PHASE_A, LEVEL>;
+  std::vector<__nv_bfloat16> h((size_t)B * H2 * W2 * C::CO4);
+  auto slab = [&](const void* t, long long c) {
+    return sm90::TensorMap{t, {c, W2, H2, B}, {2, 2 * c, 2 * c * W2, 2 * c * W2 * H2},
+                           {64, TC_SW, TC_SH, 1}};
+  };
+  const sm90::TensorMap xm = slab(p[0], C::C4), hm = slab(h.data(), C::CO4);
+  const sm90::TensorMap w1{p[2], {C::N1, 4 * C::C4, 1, 1}, {2, 2 * C::N1, 0, 0}, {64, 16, 1, 1}};
+  const sm90::TensorMap w2{p[3], {C::CO4, 4 * C::CO4, 1, 1}, {2, 2 * C::CO4, 0, 0}, {64, 16, 1, 1}};
+  typedef const __nv_bfloat16* Hp;
+  const Hp te4 = (Hp)p[1], b1 = (Hp)p[4], bsk = (Hp)p[5], bsh = (Hp)p[6], b2 = (Hp)p[7];
+  __nv_bfloat16* hd = h.data();
+  __nv_bfloat16* o = (__nv_bfloat16*)out;
+  if (blocks == 0) blocks = B * ((H2 + TC_TH - 1) / TC_TH) * ((W2 + TC_TW - 1) / TC_TW) * C::NBLK;
+  const dim3 grid{unsigned(blocks), 1, 1};
+  emu_run(grid, TC_THREADS, [=] {
+    tap_tc_kernel<PHASE_A, LEVEL>(xm, hm, w1, w2, te4, b1, bsk, b2, bsh, hd, B, H2, W2);
+  });
+  emu_run(grid, TC_THREADS, [=] {
+    tap_tc_kernel<PHASE_B, LEVEL>(xm, hm, w1, w2, te4, b1, bsk, b2, bsh, o, B, H2, W2);
+  });
+}
+"""
+
+
 def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
     """``csrc/<name>.cu``'s device code (everything above its host
     launchers, local headers inlined) plus ``launcher``, compiled for the

@@ -37,11 +37,15 @@ Phases, each printing one line with its name, seconds and result:
              192->64, 64x64 pixels) in bfloat16 and float32; time the kernel,
              the plain version and the port's unfused ops for the same
              function (the yardstick, which the kernel paths never call).
-             tap_block (both levels) and tap_stem_block also on ragged
-             images at B=2; in bfloat16 each launch's device time
-             (torch.profiler), and the seam probe, level 0's phase A at
-             1.5x the batch (a recomputed halo's cost) beside h's bytes at
-             the HBM rate.
+             tap_block (both levels), tap_stem_block, att_head_block and
+             the gate (at C = 32, 64 and 128) also on ragged images at B=2,
+             which no tile divides; in bfloat16 each launch's device time
+             (torch.profiler) of those and the gate, and two seam probes:
+             level 0's phase A at 1.5x the batch (a recomputed halo's
+             cost) beside h's bytes at the HBM rate, and att_head_block's
+             gate kernel at 1.27x the batch beside attn_s's bytes. The
+             gates' yardstick (cuDNN's layer-by-layer gate) is read three
+             more times, with the spread.
              ancestral_update also: its generator's words equal the plain
              Philox's, the given bits mode, the moments of its noise, the
              last step exact.
@@ -480,6 +484,13 @@ def att_flops(B, H, W, c4=128, c=32, ch=64, out4=12):
     return 2 * B * H * W * macs
 
 
+def att_issued_flops(B, H, W):
+    """FLOPs the bfloat16 att_head_block issues over B x H x W s2d pixels:
+    its gate kernel's h @ gw, g @ wg, x @ wx and rc's four diagonal 32 x 32
+    blocks, and the head's 9 x 128 x 16 (16 columns for 12)."""
+    return 2 * B * H * W * (64 * 32 + 32 * 32 + 128 * 32 + 4 * 32 * 32 + 9 * 128 * 16)
+
+
 def att_bound(B, H, W, itemsize, peak, c4=128, c=32, ch=64, out4=12):
     """Least time (ms) for one att_head_block call: x and h read and the head
     contribution written once, the weights as the kernel takes them once;
@@ -577,6 +588,13 @@ def gate_flops(B, Hg, Wg, C):
     C->1 at the gating grid, w_x (2x2 stride 2, 4C->C a gating pixel) and
     the result conv C->C at each of the 4 pixels of x above it."""
     return 2 * B * Hg * Wg * (C * C + C + 4 * C * C + 4 * C * C)
+
+
+def gate_issued_flops(B, Hg, Wg, C):
+    """FLOPs the bfloat16 gate kernel issues over B x Hg x Wg gating pixels:
+    g @ Wg, the four taps' x_t @ Wx_t and x_t @ Wr, each for the hi and the
+    lo part of the float32 weights."""
+    return 2 * 2 * B * Hg * Wg * (C * C + 4 * C * C + 4 * C * C)
 
 
 def gate_bound(B, gates, itemsize, peak):
@@ -863,6 +881,10 @@ def main():
                 if dt == torch.bfloat16:
                     # the device time of each launch of the wgmma kernels (at
                     # B=1 time_ms reads the host's issue rate, not the card)
+                    rows["att_head_block"][-1]["launch_ms"] = launch_ms(
+                        lambda: att_head_block(xs, hs, kf["att_fused"]))
+                    gate_row["launch_ms"] = launch_ms(
+                        lambda: tuple(fused_attention_gate(a, b, w) for (a, b), w in zip(gates, gw)))
                     tb_row["launch_ms"] = launch_ms(lambda: tap_block(x, te4, kf["tap_block"]))
                     tb_row["l1_launch_ms"] = launch_ms(lambda: tap_block(x1, te1, kl1))
                     rows["tap_stem_block"][-1]["launch_ms"] = launch_ms(
@@ -880,6 +902,29 @@ def main():
                         "h_bytes": h_bytes, "h_write_read_ms_at_peak": 2e3 * h_bytes / PEAK_BYTES}
                     rows["tap_stem_block"][-1]["issued_gflop"] = (
                         block_flops(B, s, s, 64, 128)[1] + 2 * B * s * s * 48 * 64) / 1e9
+                    # att_head_block's seam probe: its gate kernel at B=61,
+                    # the (16 + 2)^2 / 16^2 = 1.27x pixels that a fused
+                    # kernel's recomputed halo at 16 x 16 tiles would cost,
+                    # beside attn_s's bytes written and read once at the HBM
+                    # rate
+                    ba = round(B * 18 * 18 / 256)
+                    xq, hq = randn(ba, s, s, 128), randn(ba, s, s, 64)
+                    attn_bytes = B * s * s * 128 * xs.element_size()
+                    att_row = rows["att_head_block"][-1]
+                    att_row["seam_probe"] = {
+                        "B": ba, "launch_ms": launch_ms(lambda: att_head_block(xq, hq, kf["att_fused"])),
+                        "attn_bytes": attn_bytes,
+                        "attn_write_read_ms_at_peak": 2e3 * attn_bytes / PEAK_BYTES}
+                    att_row["issued_gflop"] = att_issued_flops(B, s, s) / 1e9
+                    gate_row["issued_gflop"] = (gate_issued_flops(B, s // 4, s // 4, 128)
+                                                + gate_issued_flops(B, s // 2, s // 2, 64)) / 1e9
+                    # cuDNN's layer-by-layer gates moved between calls (0.54-
+                    # 1.35 ms on an H100 80GB HBM3): three more readings, and
+                    # the spread of all four
+                    reads = [time_ms(lambda: gates_unfused(mu, gates)) for _ in range(3)]
+                    gate_row["library_ms_reads"] = [gate_row["library_ms"]] + reads
+                    gate_row["library_ms_spread"] = max(reads + [gate_row["library_ms"]]) - min(
+                        reads + [gate_row["library_ms"]])
                     tb_row["l1_issued_gflop"] = block_flops(B, s // 2, s // 2, 128, 256, False)[1] / 1e9
                 if B == B_FLAG:
                     # both tap blocks and the stem on ragged images (tiles
@@ -897,6 +942,19 @@ def main():
                         [tap_stem_block(x0r, condr, ter, ks["conv0_b"], ks["tap_stem"])],
                         [tap_stem_block_plain(x0r, condr, ter, ks["conv0_b"], ks["tap_stem"])], dt,
                         f"tap_stem_block ragged {dt}")
+                    # att_head_block on 20 x 36 (ragged M-tiles and 8 x 32
+                    # tiles), the gate on a 10 x 18 gating grid (ragged 4 x 16
+                    # items) at each width
+                    xar, har = randn(2, 20, 36, 128), randn(2, 20, 36, 64)
+                    rows["att_head_block"][-1]["ragged_max_abs_err"] = max_err(
+                        [att_head_block(xar, har, kf["att_fused"])],
+                        [att_head_block_plain(xar, har, kf["att_fused"])], dt,
+                        f"att_head_block ragged {dt}")
+                    for c, wc in ((32, w_gate2), (64, ks["gate1"]), (128, ks["gate0"])):
+                        xgr, ggr = randn(2, 20, 36, c), randn(2, 10, 18, c)
+                        gate_row[f"ragged_c{c}_max_abs_err"] = max_err(
+                            [fused_attention_gate(xgr, ggr, wc)], [attention_gate_plain(xgr, ggr, wc)],
+                            dt, f"fused_attention_gate ragged C={c} {dt}")
                     tb_row["l1_plain_ms"] = time_ms(lambda: tap_block_plain(x1, te1, kl1), reps=5)
                     tb_row["l1_library_ms"] = time_ms(lambda: block1_dense_s2d(x1, te1, kd1))
                     tb_row["l1_bound_ms"], tb_row["l1_bound_by"] = block_bound(

@@ -3,7 +3,7 @@
 // reads as C++ and the register-fragment layouts are written down once:
 //
 //   ldmatrix_x4        four 8x8 b16 matrices from shared memory to registers
-//   wgmma_m64n16k16, _m64n64k16, _m64n128k16, _m64n256k16
+//   wgmma_m64n16k16, _m64n32k16, _m64n64k16, _m64n128k16, _m64n256k16
 //                      warpgroup MMA, A (64x16 bf16) from registers, B
 //                      (16xN bf16) from shared memory through a descriptor
 //   wgmma_fence / _commit / _wait, fence_operand
@@ -21,8 +21,13 @@
 //   tma_load_2d / _4d  a box of a 2-D / 4-D tensor to shared memory (TMA), zero
 //                      outside the tensor, 128-byte swizzle, completing
 //                      on an mbarrier; TensorMap describes the tensor
-//   pack_bf16x2, shfl, quad_transpose
-//                      epilogue helpers
+//   tma_store_4d, bulk_commit, bulk_wait_read
+//                      a box from shared memory to a 4-D tensor (TMA), the
+//                      parts outside the tensor dropped; its bulk group, and
+//                      the wait until the group has read shared memory
+//   pack_bf16x2, shfl, shfl_xor, quad_transpose
+//                      epilogue helpers (shfl_xor: a float from lane ^ mask,
+//                      the butterfly of a sum over a quad)
 //
 // Fragment layouts (lane l of a warp, g = l / 4, q = l % 4):
 // * ldmatrix_x4: lane l gives the address of row l % 8 of matrix l / 8 (16
@@ -109,7 +114,7 @@ __device__ __forceinline__ uint64_t desc_sw32(const void* start, uint32_t lbo, u
   return desc_field(smem_addr(start)) | desc_field(lbo) << 16 | desc_field(sbo) << 32 | 3ull << 62;
 }
 
-// d += A B as wgmma_m64n128k16 below, 16 and 64 columns wide
+// d += A B as wgmma_m64n128k16 below, 16, 32 and 64 columns wide
 __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
   asm volatile(
@@ -122,6 +127,22 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const uint32_t (&
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -267,6 +288,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const TensorMap* map, int
       : "memory");
 }
 
+// the box of `map` at (c0, c1, c2, c3) from src (1024-byte aligned, laid
+// out as tma_load_4d lands it); a bulk group's part
+__device__ __forceinline__ void tma_store_4d(const TensorMap* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// returns once at most N of this thread's bulk groups still read shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -285,6 +324,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 __device__ __forceinline__ uint32_t shfl(uint32_t v, int src_lane) {
   return __shfl_sync(0xffffffffu, v, src_lane);
+}
+__device__ __forceinline__ float shfl_xor(float v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, v, mask);
 }
 
 #else  // host meaning, for the CPU emulation
@@ -362,6 +404,9 @@ inline void emu_wgmma(float* d, const uint32_t (&a)[4], uint64_t desc_b) {
 inline void wgmma_m64n16k16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
   emu_wgmma<16>(d, a, desc_b);
 }
+inline void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  emu_wgmma<32>(d, a, desc_b);
+}
 inline void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   emu_wgmma<64>(d, a, desc_b);
 }
@@ -438,6 +483,28 @@ inline void tma_load_4d(void* dst, const TensorMap* map, int c0, int c1, int c2,
 inline void tma_load_2d(void* dst, const TensorMap* map, int c0, int c1, uint64_t* bar) {
   tma_load_4d(dst, map, c0, c1, 0, 0, bar);
 }
+inline void tma_store_4d(const TensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  const int* box = map->box;
+  for (int i3 = 0; i3 < box[3]; ++i3)
+    for (int i2 = 0; i2 < box[2]; ++i2)
+      for (int i1 = 0; i1 < box[1]; ++i1)
+        for (int i0 = 0; i0 < box[0]; ++i0) {
+          const long long c[4] = {c0 + i0, c1 + i1, c2 + i2, c3 + i3};
+          bool inside = true;
+          long long off = 0;
+          for (int d = 0; d < 4; ++d) {
+            inside = inside && c[d] >= 0 && c[d] < map->dim[d];
+            off += c[d] * map->stride[d];
+          }
+          uint32_t a = smem_addr(src) + ((i1 + box[1] * (i2 + box[2] * i3)) * 2 * box[0] + 2 * i0);
+          a ^= map->swizzle == 32 ? ((a >> 7) & 1) << 4 : ((a >> 7) & 7) << 4;
+          if (inside)
+            std::memcpy(static_cast<unsigned char*>(const_cast<void*>(map->base)) + off,
+                        smem_raw + a, 2);
+        }
+}
+inline void bulk_commit() {}
+template <int N> inline void bulk_wait_read() {}
 
 inline void fence_proxy_async() {}
 template <int N> inline void setmaxnreg_dec() {}  // registers are the host's
@@ -453,6 +520,13 @@ inline uint32_t shfl(uint32_t v, int src_lane) {
   const uint32_t r = uint32_t(slots[src_lane % 32]);
   __syncwarp();
   return r;
+}
+inline float shfl_xor(float v, int mask) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  u = shfl(u, (threadIdx.x % 32) ^ mask);
+  std::memcpy(&v, &u, 4);
+  return v;
 }
 
 #endif

@@ -21,7 +21,11 @@ it.
 :func:`att_head_block` launches ``csrc/att_head_block.cu`` for CUDA tensors
 and runs :func:`att_head_block_plain`, the same arithmetic in ``torch`` ops
 with the same rounding points, for CPU tensors. A CUDA tensor the kernel
-cannot take raises.
+cannot take raises. In bfloat16 the call is two launches with attn_s
+(B, H, W, 4C) as their seam, a scratch tensor this wrapper allocates; the
+kernel multiplies ``rc`` as its four diagonal C x C blocks, which is all
+that :func:`build_att_weights` (through ``ops.s2d.k1_to_blockdiag``) puts
+in it.
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ def att_head_block_plain(x_s2d: torch.Tensor, h: torch.Tensor, w: dict) -> torch
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("att_head_block")
-    lib.att_head_block_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    lib.att_head_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.att_head_block_launch.restype = ctypes.c_int
     return lib
@@ -119,6 +123,9 @@ def _check(x_s2d, h, w):
     tensors = dict(w, x_s2d=x_s2d, h=h)
     cuda_build.check_operands("att_head_block", x_s2d,
                               {k: (tensors[k], s) for k, s in shapes.items()})
+    if x_s2d.dtype == torch.bfloat16:  # TMA reads these from 16-byte aligned addresses
+        cuda_build.check_aligned("att_head_block",
+                                 {k: tensors[k] for k in ("x_s2d", "h", "gw", "wg", "wx", "rc", "atk")})
 
 
 def att_head_block(x_s2d: torch.Tensor, h: torch.Tensor, w: dict) -> torch.Tensor:
@@ -133,12 +140,14 @@ def att_head_block(x_s2d: torch.Tensor, h: torch.Tensor, w: dict) -> torch.Tenso
         raise ValueError(f"att_head_block runs on cuda or cpu tensors, got {x_s2d.device}")
     _check(x_s2d, h, w)
     B, H, W, _ = x_s2d.shape
-    is_bf16 = int(x_s2d.dtype == torch.bfloat16)
+    is_bf16 = x_s2d.dtype == torch.bfloat16
     out = torch.empty((B, H, W, _OUT4), dtype=x_s2d.dtype, device=x_s2d.device)
+    # attn_s between bfloat16's two launches
+    attn = torch.empty((B, H, W, _C4), dtype=x_s2d.dtype, device=x_s2d.device) if is_bf16 else None
     ptrs = (ctypes.c_void_p * 13)(x_s2d.data_ptr(), h.data_ptr(), *(w[k].data_ptr() for k in _WEIGHTS))
     with torch.cuda.device(x_s2d.device):
         rc = _library().att_head_block_launch(
-            ptrs, out.data_ptr(), B, H, W, is_bf16,
+            ptrs, out.data_ptr(), attn.data_ptr() if is_bf16 else None, B, H, W, int(is_bf16),
             torch.cuda.current_stream(x_s2d.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"att_head_block launch failed with CUDA error {rc}")

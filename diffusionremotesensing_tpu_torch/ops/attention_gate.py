@@ -20,6 +20,10 @@ rounding.)
 :func:`attention_gate_plain` for CPU tensors. A CUDA tensor the kernel
 cannot take raises; in particular x and g must be contiguous NHWC, which
 the channels-last NCHW tensors of the model's trunk are when permuted.
+In bfloat16 the kernel multiplies on the tensor cores with each float32
+weight split into two bfloat16 parts, ``hi + lo`` (``wt`` of
+:func:`build_gate_weights`), which keeps it within ~2**-18 of the float32
+weight.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from diffusionremotesensing_tpu_torch.ops import cuda_build
 from diffusionremotesensing_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 
 _COUNT_LOCK = threading.Lock()
-# the kernel's weights, in its argument order
+# the kernel's float32 weights, in its argument order (then ``wt``)
 WEIGHTS = ("wg", "bg", "wx", "bx", "wpsi", "bpsi", "wr", "br", "scale", "bias", "mean", "var")
 _WIDTHS = (32, 64, 128)  # the gate widths csrc/attention_gate.cu is compiled for
 
@@ -46,11 +50,13 @@ def build_gate_weights(gate) -> dict:
     takes them: wg, wr (C, C) and wx (4C, C) as [in][out], wx's rows
     tap-major (t*C + c, t = 2 di + dj), wpsi (C,), bpsi (1,), the result
     BatchNorm's scale, bias, mean and var unfolded (the kernel applies
-    them)."""
+    them); and ``wt`` (2, 6C, C) bfloat16, [wg; wx; wr] split once into
+    ``hi = bf16(w)`` and ``lo = bf16(w - hi)``, which the bfloat16 kernel
+    multiplies (``hi + lo`` is w to ~2**-18 of |w|)."""
     f = lambda p: p.detach().float().contiguous()  # noqa: E731
     c = gate.w_g[0].out_channels
     bn = gate.result[1]
-    return {
+    w = {
         "wg": f(gate.w_g[0].weight[:, :, 0, 0].t()),
         "bg": f(gate.w_g[0].bias),
         "wx": f(gate.w_x[0].weight.permute(2, 3, 1, 0).reshape(4 * c, c)),
@@ -62,6 +68,10 @@ def build_gate_weights(gate) -> dict:
         "scale": f(bn.weight), "bias": f(bn.bias),
         "mean": f(bn.running_mean), "var": f(bn.running_var),
     }
+    cat = torch.cat([w["wg"], w["wx"], w["wr"]])
+    hi = cat.to(torch.bfloat16)
+    w["wt"] = torch.stack([hi, (cat - hi.float()).to(torch.bfloat16)]).contiguous()
+    return w
 
 
 def attention_gate_plain(x: torch.Tensor, g: torch.Tensor, w: dict) -> torch.Tensor:
@@ -99,6 +109,11 @@ def _check(x, g, w):
     ref = SimpleNamespace(dtype=torch.float32, device=x.device)  # the weights are float32
     cuda_build.check_operands("fused_attention_gate", ref,
                               {k: (w[k], shapes.get(k, (C,))) for k in WEIGHTS})
+    if x.dtype == torch.bfloat16:  # the tensor-core kernel: wt, and TMA's 16-byte starts
+        if "wt" not in w:
+            raise ValueError("fused_attention_gate: bfloat16 needs w['wt'] from build_gate_weights")
+        cuda_build.check_operands("fused_attention_gate", x, {"wt": (w["wt"], (2, 6 * C, C))})
+        cuda_build.check_aligned("fused_attention_gate", {"x": x, "g": g, "wt": w["wt"]})
 
 
 def fused_attention_gate(x: torch.Tensor, g: torch.Tensor, w: dict) -> torch.Tensor:
@@ -114,7 +129,8 @@ def fused_attention_gate(x: torch.Tensor, g: torch.Tensor, w: dict) -> torch.Ten
     _check(x, g, w)
     B, H, W, C = x.shape
     out = torch.empty_like(x)
-    ptrs = (ctypes.c_void_p * len(WEIGHTS))(*(w[k].data_ptr() for k in WEIGHTS))
+    wt = w["wt"].data_ptr() if x.dtype == torch.bfloat16 else None
+    ptrs = (ctypes.c_void_p * (len(WEIGHTS) + 1))(*(w[k].data_ptr() for k in WEIGHTS), wt)
     with torch.cuda.device(x.device):
         rc = _library().attention_gate_launch(
             x.data_ptr(), g.data_ptr(), ptrs, out.data_ptr(), B, H // 2, W // 2, C,

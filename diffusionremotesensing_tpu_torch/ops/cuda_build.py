@@ -6,7 +6,8 @@ into ``build/`` inside this package (listed in ``.gitignore``); the library
 name carries a hash of the source and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
 never loaded. :func:`check_operands` holds the tensors a wrapper hands to a
-kernel to the shapes, type, device and layout the kernel takes.
+kernel to the shapes, type, device and layout the kernel takes, and
+:func:`check_aligned` to the 16-byte start a TMA copy needs.
 """
 
 from __future__ import annotations
@@ -110,3 +111,11 @@ def check_operands(kernel: str, ref: torch.Tensor, operands: dict) -> None:
                              f"expected {ref.dtype} on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def check_aligned(kernel: str, tensors: dict) -> None:
+    """Raise unless every tensor ``name: tensor`` starts on a 16-byte
+    boundary, as a TMA copy's global address must."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not 16-byte aligned (TMA reads it)")

@@ -95,11 +95,22 @@ def test_each_level_prepares_what_it_uses(variables, tap44, has, lacks):
 
 
 def test_use_pallas_prepares_float32_gate_weights(variables):
+    """The gates' weights stay float32 when the rest is cast to bf16; the
+    bf16 kernel's ``wt`` is their two-part bf16 split, hi + lo within 2**-16
+    of each float32 weight."""
+    from diffusionremotesensing_tpu_torch.ops.attention_gate import WEIGHTS
+
     m = port_model(variables, s2d=True, use_pallas=True)
     k = m.prepare_s2d_kernels(torch.bfloat16)
     assert k["conv0"].dtype == torch.bfloat16
     assert {k["gate0"]["wx"].shape, k["gate1"]["wx"].shape} == {(512, 128), (256, 64)}
-    assert all(v.dtype == torch.float32 for i in (0, 1) for v in k[f"gate{i}"].values())
+    assert all(k[f"gate{i}"][n].dtype == torch.float32 for i in (0, 1) for n in WEIGHTS)
+    for i in (0, 1):
+        w = k[f"gate{i}"]
+        assert set(w) == set(WEIGHTS) | {"wt"} and w["wt"].dtype == torch.bfloat16
+        cat = torch.cat([w["wg"], w["wx"], w["wr"]])
+        err = (w["wt"][0].float() + w["wt"][1].float() - cat).abs()
+        assert (err <= 2.0 ** -16 * cat.abs()).all()
 
 
 def test_stem_configuration_bf16_close_to_dense(variables, inputs):

@@ -37,10 +37,13 @@ Phases, each printing one line with its name, seconds and result:
              192->64, 64x64 pixels) in bfloat16 and float32; time the kernel,
              the plain version and the port's unfused ops for the same
              function (the yardstick, which the kernel paths never call).
-             tap_block (both levels), tap_stem_block, att_head_block and
-             the gate (at C = 32, 64 and 128) also on ragged images at B=2,
-             which no tile divides; in bfloat16 each launch's device time
-             (torch.profiler) of those and the gate, and two seam probes:
+             tap_block (both levels), tap_stem_block, att_head_block, the
+             gate (at C = 32, 64 and 128), packed_conv (64->64, 192->64 and
+             32->48) and packed_head (at C2 = 128, and at C2 = 144, which
+             its shape dispatch sends to the first design's kernel) also on
+             ragged images at B=2, which no tile divides; in bfloat16 each
+             launch's device time (torch.profiler) of those, and two seam
+             probes:
              level 0's phase A at 1.5x the batch (a recomputed halo's
              cost) beside h's bytes at the HBM rate, and att_head_block's
              gate kernel at 1.27x the batch beside attn_s's bytes. The
@@ -132,6 +135,7 @@ from diffusionremotesensing_tpu_torch.ops.packed_conv import (  # noqa: E402
 from diffusionremotesensing_tpu_torch.ops.packed_head import (  # noqa: E402
     packed_head,
     packed_head_plain,
+    wgmma_takes,
 )
 from diffusionremotesensing_tpu_torch.ops.s2d import (  # noqa: E402
     conv_nhwc,
@@ -881,6 +885,10 @@ def main():
                 if dt == torch.bfloat16:
                     # the device time of each launch of the wgmma kernels (at
                     # B=1 time_ms reads the host's issue rate, not the card)
+                    pc_row["launch_ms"] = launch_ms(lambda: packed_conv(*convs[64]))
+                    pc_row["c192_launch_ms"] = launch_ms(lambda: packed_conv(*convs[192]))
+                    rows["packed_head"][-1]["launch_ms"] = launch_ms(
+                        lambda: packed_head(hh, at, kp["up4"], kp["at"]))
                     rows["att_head_block"][-1]["launch_ms"] = launch_ms(
                         lambda: att_head_block(xs, hs, kf["att_fused"]))
                     gate_row["launch_ms"] = launch_ms(
@@ -955,6 +963,30 @@ def main():
                         gate_row[f"ragged_c{c}_max_abs_err"] = max_err(
                             [fused_attention_gate(xgr, ggr, wc)], [attention_gate_plain(xgr, ggr, wc)],
                             dt, f"fused_attention_gate ragged C={c} {dt}")
+                    # packed_conv on 20 x 36 (ragged 8 x 32 tiles) at 64->64,
+                    # 192->64 and Ci = 32 / Co = 48 (N = 64, K's columns
+                    # 48-63 landing as zeros)
+                    for ci, co in ((64, 64), (192, 64), (32, 48)):
+                        pr = (randn(2, 20, 36, ci), (0.05 * randn(3, 3, ci, co)).contiguous(),
+                              randn(co))
+                        pc_row[f"ragged_{ci}_{co}_max_abs_err"] = max_err(
+                            [packed_conv(*pr)], [packed_conv_plain(*pr)], dt,
+                            f"packed_conv ragged {ci}->{co} {dt}")
+                    # packed_head on 20 x 36 at the served widths, and at
+                    # C2 = 144, which the shape dispatch (wgmma_takes) sends
+                    # to the first design's kernel
+                    ph_row = rows["packed_head"][-1]
+                    ph_row["route"] = "wgmma" if wgmma_takes(64, 128, dt) else "first design"
+                    for c2 in (128, 144):
+                        k4r, k3r = ((kp["up4"], kp["at"]) if c2 == 128 else
+                                    ((0.05 * randn(4, 4, 64, 12)).contiguous(),
+                                     (0.05 * randn(3, 3, c2, 12)).contiguous()))
+                        hr, ar = randn(2, 20, 36, 64), randn(2, 20, 36, c2)
+                        ph_row[f"ragged_c2_{c2}_max_abs_err"] = max_err(
+                            [packed_head(hr, ar, k4r, k3r)], [packed_head_plain(hr, ar, k4r, k3r)],
+                            dt, f"packed_head ragged C2={c2} {dt}")
+                        ph_row[f"ragged_c2_{c2}_route"] = (
+                            "wgmma" if wgmma_takes(64, c2, dt) else "first design")
                     tb_row["l1_plain_ms"] = time_ms(lambda: tap_block_plain(x1, te1, kl1), reps=5)
                     tb_row["l1_library_ms"] = time_ms(lambda: block1_dense_s2d(x1, te1, kd1))
                     tb_row["l1_bound_ms"], tb_row["l1_bound_by"] = block_bound(

@@ -10,10 +10,12 @@ caller in the model, since the port adds no feature the reference lacks.
 The reference's V-row lane packing (``pack_conv_weights``) is a device of
 the TPU's lane layout: the port takes the HWIO kernel as it is.
 
-:func:`packed_conv` launches the hand-written CUDA kernel
-``csrc/packed_conv.cu`` for CUDA tensors and runs :func:`packed_conv_plain`,
-the same function in ``torch`` ops, for CPU tensors. A CUDA tensor the
-kernel cannot take raises.
+:func:`packed_conv` launches the hand-written CUDA kernels of
+``csrc/packed_conv.cu`` for CUDA tensors: bfloat16 (any Ci % 16 == 0, Co in
+16, 32, 48, 64) runs the persistent wgmma kernel on TMA-fed slabs, float32
+the FMA kernel. CPU tensors run :func:`packed_conv_plain`, the same function
+in ``torch`` ops. A CUDA tensor the kernels cannot take raises, and so does
+a bfloat16 x or k whose start is not 16-byte aligned (TMA reads them).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def _check(x, k, bias):
                          f"{tuple(k.shape)}")
     B, H, W, Ci = x.shape
     Co = k.shape[3]
-    unit = 16 if x.dtype == torch.bfloat16 else 4  # WMMA's 16-deep steps; 16-byte copies
+    unit = 16 if x.dtype == torch.bfloat16 else 4  # wgmma's 16-deep steps; 16-byte copies
     if tuple(k.shape[:2]) != (3, 3) or Ci % unit or Co not in (16, 32, 48, 64):
         raise ValueError(f"packed_conv takes a 3x3 kernel, Ci % {unit} == 0 and Co in "
                          f"(16, 32, 48, 64), got {tuple(k.shape)}")
@@ -70,6 +72,8 @@ def _check(x, k, bias):
     if bias is not None:
         ops["bias"] = (bias, (Co,))
     cuda_build.check_operands("packed_conv", x, ops)
+    if x.dtype == torch.bfloat16:
+        cuda_build.check_aligned("packed_conv", {"x": x, "k": k})
 
 
 def packed_conv(x: torch.Tensor, k: torch.Tensor,

@@ -15,10 +15,17 @@ kernel does. The reference packs 8 vertically adjacent output pixels into
 the TPU's 128 lanes (``kpack_weights``), a device of the TPU's lane layout:
 the port takes the unpacked HWIO kernels.
 
-:func:`packed_head` launches the hand-written CUDA kernel
+:func:`packed_head` launches the hand-written CUDA kernels of
 ``csrc/packed_head.cu`` for CUDA tensors and runs :func:`packed_head_plain`,
-the same function in ``torch`` ops, for CPU tensors. A CUDA tensor the
-kernel cannot take raises. The kernel takes any image height (the
+the same function in ``torch`` ops, for CPU tensors. Which kernel runs
+depends on the shape and dtype alone (:func:`wgmma_takes`): bfloat16 at
+widths whose weights fit in shared memory beside the slab ring (the served
+C1 = 64, C2 = 128 among them) runs the persistent wgmma kernel on TMA-fed
+slabs; wider bfloat16 (C2 > 128 at C1 = 64) runs the first design's
+WMMA kernel, float32 its FMA kernel. Each launch of either counts once in
+``packed_head.launches``. A CUDA tensor the kernels cannot take raises, and
+so does an hh or attn_s for the wgmma kernel whose start is not 16-byte
+aligned (TMA reads them). The kernels take any image height (the
 reference's ``H % 8`` guard is a constraint of its packing).
 """
 
@@ -52,10 +59,27 @@ def packed_head_plain(hh: torch.Tensor, attn_s: torch.Tensor, head_up4: torch.Te
     return out.to(hh.dtype)
 
 
+# csrc/packed_head.cu's head_tc_kernel: 64-channel planes, weight pieces of
+# 2,048 bytes (one plane's 64 rows of a tap, 16 columns) resident beside
+# 1,024 bytes of alignment, 3 plane slots of 50,176 and 6 mbarriers, in the
+# 232,448 bytes of shared memory a block may have (tc_bytes)
+_TC_FIXED_BYTES = 1024 + 3 * 50176 + 6 * 8
+_PIECE_BYTES, _SMEM_MAX = 2048, 232448
+
+
+def wgmma_takes(c1: int, c2: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether :func:`packed_head` runs the wgmma kernel for hh of c1 and
+    attn_s of c2 channels in ``dtype``: bfloat16 whose 16 ceil(c1/64) +
+    9 ceil(c2/64) resident weight pieces fit in shared memory. Otherwise the
+    first design's kernel runs (WMMA in bfloat16, FMA in float32)."""
+    pieces = 16 * -(-c1 // 64) + 9 * -(-c2 // 64)
+    return dtype == torch.bfloat16 and _TC_FIXED_BYTES + pieces * _PIECE_BYTES <= _SMEM_MAX
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("packed_head")
-    lib.packed_head_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.packed_head_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.packed_head_launch.restype = ctypes.c_int
     return lib
 
@@ -69,20 +93,23 @@ def _check(hh, attn_s, head_up4, head_at):
                          f"{tuple(hh.shape)}, {tuple(attn_s.shape)}, {tuple(head_up4.shape)}")
     B, H, W, C1 = hh.shape
     C2, out4 = attn_s.shape[3], head_up4.shape[3]
-    unit = 16 if hh.dtype == torch.bfloat16 else 4  # WMMA's 16-deep steps; 16-byte copies
+    unit = 16 if hh.dtype == torch.bfloat16 else 4  # 16-deep MMA steps; 16-byte copies
     if C1 % unit or C2 % unit or not 1 <= out4 <= 16:
         raise ValueError(f"packed_head needs C1, C2 % {unit} == 0 and out4 <= 16, "
                          f"got {C1}, {C2}, {out4}")
     cuda_build.check_operands("packed_head", hh, {
         "hh": (hh, (B, H, W, C1)), "attn_s": (attn_s, (B, H, W, C2)),
         "head_up4": (head_up4, (4, 4, C1, out4)), "head_at": (head_at, (3, 3, C2, out4))})
+    if wgmma_takes(C1, C2, hh.dtype):
+        cuda_build.check_aligned("packed_head", {"hh": hh, "attn_s": attn_s})
 
 
 def packed_head(hh: torch.Tensor, attn_s: torch.Tensor, head_up4: torch.Tensor,
                 head_at: torch.Tensor) -> torch.Tensor:
     """conv(hh, head_up4, pad ((1,2),(1,2))) + conv(attn_s, head_at, SAME)
-    in one call. CUDA tensors launch ``csrc/packed_head.cu`` (each launch
-    adds one to ``packed_head.launches``); CPU tensors run
+    in one call. CUDA tensors launch ``csrc/packed_head.cu``'s wgmma kernel
+    where :func:`wgmma_takes` says so, else its first design's kernel (each
+    launch adds one to ``packed_head.launches``); CPU tensors run
     :func:`packed_head_plain`. Returns (B,H,W,out4) in hh's dtype."""
     if hh.device.type == "cpu":
         return packed_head_plain(hh, attn_s, head_up4, head_at)
@@ -96,7 +123,7 @@ def packed_head(hh: torch.Tensor, attn_s: torch.Tensor, head_up4: torch.Tensor,
     with torch.cuda.device(hh.device):
         rc = _library().packed_head_launch(
             hh.data_ptr(), attn_s.data_ptr(), head_up4.data_ptr(), head_at.data_ptr(),
-            out.data_ptr(), B, H, W, C1, C2, out4, is_bf16,
+            out.data_ptr(), B, H, W, C1, C2, out4, is_bf16, int(wgmma_takes(C1, C2, hh.dtype)),
             torch.cuda.current_stream(hh.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_head launch failed with CUDA error {rc}")

@@ -51,7 +51,12 @@ Phases, each printing one line with its name, seconds and result:
              more times, with the spread.
              ancestral_update also: its generator's words equal the plain
              Philox's, the given bits mode, the moments of its noise, the
-             last step exact.
+             last step exact; and, since a call issues slower than the card
+             runs it, its and its library's device ms with the host's issue
+             taken out (torch.profiler, and 20 calls queued behind a sleep
+             kernel between two events), each call on inputs and an output
+             out of the L2 as the sampler finds them, and the host's us to
+             issue a call.
 4. golden  - the full-width UNet on the card in float32 (plain forward, with
              and without use_pallas; s2d at every tap44 level; the fused,
              stem, packed and l1 configurations) against values the JAX reference
@@ -72,7 +77,12 @@ Phases, each printing one line with its name, seconds and result:
              l1: 4 requests and 1 DDIM-100 tile. Packed: 4 requests, 1
              DDIM-100 tile and 1 T=1500 tile from a second server. Checks
              shapes, finiteness, range and the exact launches of every kernel.
-7. profile - only with --profile: where one sampler step's time goes, for
+7. checkpoint - save_snapshot of the init_params(SEED) model (flax's
+             msgpack, written by the port's own writer) into a temporary
+             directory, load_snapshot back (the weights equal), and
+             InferenceServer.from_snapshot: one bfloat16 forward bitwise
+             equal to the original model's, one served micro-batch.
+8. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -88,11 +98,13 @@ sources beside it, and imports nothing of JAX.
 """
 
 import argparse
+import itertools
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -105,6 +117,7 @@ import torch  # noqa: E402
 from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler  # noqa: E402
 from diffusionremotesensing_tpu_torch.convert import init_params  # noqa: E402
 from diffusionremotesensing_tpu_torch.diffusion import ddpm_step, make_process  # noqa: E402
+from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.blocks import bn_eval  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.unet import (  # noqa: E402
     residual_attention_unet_superres,
@@ -219,6 +232,10 @@ KERNELS = {
 # what follows by less; 1e-2 is 2.5 ulps at the top of the range.
 # float32: float32 sums of up to 1728 products in different orders.
 KERNEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# ancestral_update, float32: one product and two sums an element, and a
+# normal from the card's log/sqrt/sincospi against torch's log/cos/sin of
+# 2 pi u2, a few ulps of |z| < 5.7 apart: 1e-5
+UPDATE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # whole UNet, kernel paths against the dense-s2d path: float32 as above
 # (TF32 off); bfloat16 rounds every layer's output, ~25 layers deep, and
 # read 1.5e-3 at this shape on an H100, so 1e-2 leaves ~7x headroom.
@@ -229,9 +246,13 @@ TILE_TOL = 1e-3
 # the noise of one flagship state (2,359,296 draws): the standard errors of
 # its mean and standard deviation are 6.5e-4 and 4.6e-4
 Z_MOMENT_TOL = 5e-3
+# |correlation| of its cos and sin partners, of neighbouring quads and of two
+# steps, over 589,824 pairs or more: standard error 1.3e-3
+Z_CORR_TOL = 0.02
 GOLDEN_TOL = 1e-4
 PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
 SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
 # the golden phase's configurations (each computes the same function) and
 # the model phase's, each held against the dense-s2d path
 GOLDEN_CONFIGS = ("plain", "plain_gates", "dense", "conv2", "tap", "block", "stem_level", "fused",
@@ -314,6 +335,60 @@ def launch_ms(fn, reps=20):
                 ev.self_device_time_total / 1e3 / reps
     return out
 
+
+
+def sleep_held(fn, calls=1, cycles=SLEEP_CYCLES):
+    """One reading of `calls` calls of fn() queued behind a sleep kernel,
+    which holds the device while the host issues them; they then run back
+    to back. Returns the device ms they take (events before and after
+    them), the host ms it took to issue them, and the sleep's cycles: a
+    window that ended before the calls were all issued is read again,
+    twice as long."""
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        if not start.query():
+            torch.cuda.synchronize()
+            return start.elapsed_time(end), issue_ms, cycles
+        check(cycles < 16 * SLEEP_CYCLES, f"sleep_held: the issue outlasted {cycles} cycles")
+        cycles *= 2
+
+
+def cold(fn, *inputs):
+    """A call of fn on copies of `inputs` that finds them, and the output it
+    writes, out of the L2, as the sampler's update finds its state after a
+    forward: it cycles through enough copies (at least 3) that twice the L2
+    passes between two uses of one, and each copy keeps its last output
+    until its next turn, so the outputs cycle too."""
+    per = sum(t.numel() * t.element_size() for t in inputs[:1] + inputs)  # an output like the first
+    sets = [[tuple(t.clone() for t in inputs), None]
+            for _ in range(max(3, -(-2 * L2_BYTES // per)))]
+    turn = itertools.cycle(sets)
+
+    def call():
+        s = next(turn)
+        s[1] = fn(*s[0])
+    return call
+
+
+def device_readings(fn, reps=20):
+    """fn()'s device ms per call read two ways, with the host's issue taken
+    out: torch.profiler's, summed over the kernels it launches
+    (`device_ms`), and by events around `reps` calls queued behind a sleep
+    kernel (`held_ms`); and the host's microseconds to issue one call
+    (`host_us`). For a call that issues slower than the card runs it, where
+    time_ms reads the host's issue rate."""
+    fn()
+    held, issue_ms, _ = sleep_held(fn, reps)
+    return {"device_ms": sum(launch_ms(fn, reps).values()), "held_ms": held / reps,
+            "host_us": 1e3 * issue_ms / reps}
 
 def model_with(name, device, dtype=torch.float32):
     """The full-width model of configuration `name` (CONFIGS) with the
@@ -633,31 +708,14 @@ def profile_forward(proc, batch, dev):
         proc.apply_fn(x, t, None, feats, proc.kernels)
 
     wall_ms = time_ms(fn, reps=PROFILE_N)  # host and device overlapping, as in the sampler
-    # device time alone: a sleep kernel holds the device while the host
-    # issues one forward, which then runs back to back; the host's time to
-    # issue it is its issue time. One forward a window, so that its launches
-    # never fill the launch queue (four tap forwards did, and the host then
-    # waited out the sleep); a window that ended before the forward was
-    # queued is read again, twice as long.
-    host, device = [], []
+    # device time alone: one forward a window (four tap forwards filled the
+    # launch queue, and the host then waited out the sleep)
+    device, host = [], []
     cycles = SLEEP_CYCLES
-    while len(host) < PROFILE_N:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        issue_ms = (time.perf_counter() - t0) * 1e3
-        if start.query():  # the sleep ended before the forward was issued
-            check(cycles < 16 * SLEEP_CYCLES,
-                  f"profile: a forward's issue outlasted {cycles} cycles")
-            cycles *= 2
-            continue
-        torch.cuda.synchronize()
-        host.append(issue_ms)
-        device.append(start.elapsed_time(end))
+    for _ in range(PROFILE_N):
+        d, h, cycles = sleep_held(fn, cycles=cycles)
+        device.append(d)
+        host.append(h)
     host_ms, device_ms = sum(host) / PROFILE_N, sum(device) / PROFILE_N
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -713,8 +771,8 @@ def ptxas_summary(log):
     return out
 
 
-def max_err(got, want, dt, what):
-    """max |got - want| over the outputs, each held to KERNEL_TOL of its scale."""
+def max_err(got, want, dt, what, tol=KERNEL_TOL):
+    """max |got - want| over the outputs, each held to tol[dt] of its scale."""
     worst = 0.0
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
@@ -722,7 +780,7 @@ def max_err(got, want, dt, what):
         check(torch.isfinite(g).all().item(), f"{what}: non-finite output")
         err = (g - w).abs().max().item()
         scale = max(1.0, w.abs().max().item())
-        check(err <= KERNEL_TOL[dt] * scale, f"{what}: max|err| {err} > {KERNEL_TOL[dt]} * {scale}")
+        check(err <= tol[dt] * scale, f"{what}: max|err| {err} > {tol[dt]} * {scale}")
         worst = max(worst, err)
     return worst
 
@@ -854,7 +912,8 @@ def main():
                     torch.cuda.synchronize()
                     single = isinstance(got, torch.Tensor)
                     err = max_err([got] if single else got, [want] if single else want, dt,
-                                  f"{name} {dt} B={B}")
+                                  f"{name} {dt} B={B}",
+                                  UPDATE_TOL if name == "ancestral_update" else KERNEL_TOL)
                     row = {"dtype": str(dt).split(".")[-1], "B": B, "max_abs_err": err,
                            "ms": time_ms(fn)}
                     if B == B_FLAG:
@@ -862,6 +921,15 @@ def main():
                         row["library_ms"] = time_ms(library)
                         row["bound_ms"], row["bound_by"] = bound()
                     rows[name].append(row)
+                # ancestral_update moves its bytes in less time than the host
+                # takes to issue a call, so its `ms` (time_ms) reads the
+                # host's issue rate: its device time, and its library's, read
+                # with the issue taken out and the L2 cold
+                up_row = rows["ancestral_update"][-1]
+                up_row.update(device_readings(cold(
+                    lambda xc, ec: ancestral_update(xc, ec, coefs, seed, step), xu, eu)))
+                up_row.update({f"library_{k}": v for k, v in device_readings(cold(
+                    lambda xc, ec: update_unfused(sch, xc, ec, step, g), xu, eu)).items()})
                 gate_row = rows["fused_attention_gate"][-1]
                 # the plain forward's gate 2 (C=32, x 2s x 2s), checked here
                 x2, g2 = randn(B, 2 * s, 2 * s, 32), randn(B, s, s, 32)
@@ -1023,27 +1091,54 @@ def main():
 
     def check_update(sch, x, eps, seed, step, g):
         """The generator and the noise of ancestral_update at the flagship
-        state, float32."""
+        state, float32: its words, the bits mode, the scalar tail and an
+        unaligned base pointer, the moments and correlations of its noise,
+        the last step."""
         n = x.numel()
         check(torch.equal(philox_bits(seed, step, n), philox_bits_plain(seed, step, n)),
               "ancestral_update: the kernel's Philox words differ from the plain version's")
         bits = torch.randint(-2**31, 2**31, (2, *x.shape), generator=g, device=dev,
                              dtype=torch.int64).to(torch.int32)
         coefs = update_coefs(sch, step)
-        bits_err = max_err([ancestral_update(x, eps, coefs, None, step, bits)],
-                           [ancestral_update_plain(x, eps, coefs, None, step, bits)],
-                           torch.float32, "ancestral_update bits mode")
+        res = {"bits_equal": True, "bits_mode_err": max_err(
+            [ancestral_update(x, eps, coefs, None, step, bits)],
+            [ancestral_update_plain(x, eps, coefs, None, step, bits)],
+            torch.float32, "ancestral_update bits mode", UPDATE_TOL)}
+        # n % 4 = 3: wide quads then the scalar tail; one element off a
+        # quad's 16 bytes: every quad scalar
+        for key, (xv, ev) in {"tail_err": (x.reshape(-1)[:n - 1], eps.reshape(-1)[:n - 1]),
+                              "offset_err": (x.reshape(-1)[1:], eps.reshape(-1)[1:])}.items():
+            res[key] = max_err([ancestral_update(xv, ev, coefs, seed, step)],
+                               [ancestral_update_plain(xv, ev, coefs, seed, step)],
+                               torch.float32, f"ancestral_update {key}", UPDATE_TOL)
         zero = torch.zeros_like(x)
-        z = ancestral_update(zero, zero, (0.0, 0.0, 1.0), seed, step).double()
-        mean, std = z.mean().item(), z.std().item()
-        check(abs(mean) < Z_MOMENT_TOL and abs(std - 1.0) < Z_MOMENT_TOL,
-              f"ancestral_update noise: mean {mean}, std {std}")
+
+        def noise(i):
+            return ancestral_update(zero, zero, (0.0, 0.0, 1.0), seed, i).double().reshape(-1)
+
+        def corr(a, b):
+            return abs(torch.corrcoef(torch.stack([a, b]))[0, 1].item())
+
+        z = noise(step)
+        res["z_mean"], res["z_std"] = z.mean().item(), z.std().item()
+        check(abs(res["z_mean"]) < Z_MOMENT_TOL and abs(res["z_std"] - 1.0) < Z_MOMENT_TOL,
+              f"ancestral_update noise: mean {res['z_mean']}, std {res['z_std']}")
+        q = z.reshape(-1, 4)
+        res["z_corr"] = {
+            "partners": corr(torch.cat([q[:, 0], q[:, 2]]), torch.cat([q[:, 1], q[:, 3]])),
+            "partners_squared": corr(torch.cat([q[:, 0], q[:, 2]]) ** 2,
+                                     torch.cat([q[:, 1], q[:, 3]]) ** 2),
+            "pairs_of_a_quad": corr(q[:, 0], q[:, 2]),
+            "neighbour_quads": max(corr(q[:-1, lane], q[1:, lane]) for lane in range(4)),
+            "steps": corr(z, noise(step - 1))}
+        check(max(res["z_corr"].values()) < Z_CORR_TOL,
+              f"ancestral_update noise correlations {res['z_corr']}")
         ca, cb, cn = update_coefs(sch, 1)
         check(cn == 0.0 and torch.equal(ancestral_update(x, eps, (ca, cb, cn), seed, 1),
                                          ca * x - cb * eps),
               "ancestral_update at i == 1 is not ca*x - cb*eps")
-        return {"bits_equal": True, "bits_mode_err": bits_err, "z_mean": mean, "z_std": std,
-                "last_step_exact": True}
+        res["last_step_exact"] = True
+        return res
 
     def golden():
         check(len(GOLDEN["values"]) > 0, "GOLDEN values missing")
@@ -1188,6 +1283,48 @@ def main():
         state["launches"] = {k: sum(p["launches"][k] for p in paths.values()) for k in KERNELS}
         return json.dumps(paths)
 
+    def checkpoint():
+        """save_snapshot of init_params(SEED)'s model into a temporary
+        directory, load_snapshot back (the same weights), a server from it:
+        one bfloat16 forward bitwise equal to the original model's, and one
+        served micro-batch."""
+        src = model_with("block", dev)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "snapshot.msgpack")
+            save_snapshot(path, src, 7)
+            size = os.path.getsize(path)
+            state, epochs = load_snapshot(path)
+            check(epochs == 7, f"checkpoint: EPOCHS_RUN {epochs} != 7")
+            want = init_params(SEED, "cpu")
+            check(state.keys() == want.keys() and all(torch.equal(state[k], want[k]) for k in want),
+                  "checkpoint: the weights loaded back differ from the weights saved")
+            server = InferenceServer.from_snapshot(path, "cosine", T_STEPS, HR,
+                                                   model_flags=CONFIGS["block"],
+                                                   ddim_steps=DDIM_STEPS, dtype=torch.bfloat16,
+                                                   device="cuda")
+        try:
+            g = torch.Generator(device=dev).manual_seed(5)
+            x = torch.randn((2, HR // 2, HR // 2, 12), generator=g, device=dev)  # s2d state
+            t = torch.full((2,), 750.0, device=dev)
+            cond = torch.rand((2, HR // 2, HR // 2, 3), generator=g, device=dev)
+            procs = {"original": make_process(src, "cosine", T_STEPS, HR, dtype=torch.bfloat16),
+                     "loaded": server.process}
+            with torch.inference_mode():
+                outs = {k: [p.apply_fn(x, t, None, p.encode_cond_fn(cond), p.kernels)
+                            for _ in range(2)] for k, p in procs.items()}
+            a, b = outs["original"], outs["loaded"]
+            check(torch.equal(a[0], a[1]), "checkpoint: two bf16 forwards of one model differ")
+            check(torch.equal(a[0], b[0]) and torch.equal(b[0], b[1]),
+                  "checkpoint: the loaded model's bf16 forward is not the original's")
+            lr = np.random.default_rng(SEED + 2).random((HR // 2, HR // 2, 3)).astype(np.float32)
+            out = server.infer_batch([lr])[0]
+            check(out.shape == (HR, HR, 3) and np.isfinite(out).all() and out.min() >= 0.0
+                  and out.max() <= 1.0, f"checkpoint: served output {out.shape} out of range")
+        finally:
+            server.shutdown()
+        return json.dumps({"snapshot_bytes": size, "epochs_run": epochs,
+                           "forward_bitwise_equal": True, "micro_batches": server.batches_run})
+
     def profile():
         lines = []
         for name in ("block", "fused", "stem", "tap", "packed", "l1"):
@@ -1203,6 +1340,7 @@ def main():
     phase("golden", golden)
     phase("model", model)
     phase("serve", serve)
+    phase("checkpoint", checkpoint)
     if args.profile:
         phase("profile", profile)
 

@@ -2,16 +2,18 @@
 
 One pass over the sampler's state computes
 
-    x' = ca*x - cb*eps + cn*z,   z = sqrt(-2 log u1) * cos(2 pi u2)
+    x' = ca*x - cb*eps + cn*z
 
-with u1, u2 from two uint32 words per element by the reference's mantissa
-map (``0x3F800000 | (b >> 9)`` read as float32 is uniform in [1, 2)). The
-words come from a Philox4x32-10 generator keyed by two seed words; its
-counter holds the element pair and the step index, and one call gives the
-words of two neighbouring elements (``csrc/ancestral_update.cu`` states the
-layout). Given ``bits`` (two planes shaped like x, uint32 viewed as int32)
-replace the generator, as the reference's ``_update_kernel_bits`` does:
-that makes the update deterministic for tests.
+with z ~ N(0, 1) i.i.d. by Box-Muller on two uint32 words a draw, through
+the reference's mantissa map (``0x3F800000 | (b >> 9)`` read as float32 is
+uniform in [1, 2)). The words come from a Philox4x32-10 generator keyed by
+two seed words; its counter holds the quad index and the step, and one
+call gives the four words of four neighbouring elements: each word pair
+(w0, w1) and (w2, w3) gives both of its Box-Muller outputs, r cos and
+r sin (``csrc/ancestral_update.cu`` states the layout). Given ``bits`` (two
+planes shaped like x, uint32 viewed as int32) replace the generator, as
+the reference's ``_update_kernel_bits`` does: element e takes its own word
+pair, cosine only. That makes the update deterministic for tests.
 
 The noise stream differs from ``torch.randn``'s, as the reference kernel's
 differs from threefry: same distribution, other numbers. Samplers take the
@@ -85,28 +87,48 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
 
 
 def philox_bits_plain(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
-    """The generator's words for elements [0, n) at ``step``: (2, n) int64
-    in [0, 2**32), b1 then b2. seed: (2,) int64 words."""
-    pairs = (n + 1) // 2
-    p = torch.arange(pairs, dtype=torch.int64, device=seed.device)
+    """The generator's words for elements [0, n) at ``step``, by quad:
+    (ceil(n / 4), 4) int64 in [0, 2**32), row q the four words of elements
+    4q .. 4q + 3, from counter (q low, q high, step, 0). seed: (2,) int64
+    words."""
+    q = torch.arange((n + 3) // 4, dtype=torch.int64, device=seed.device)
     key = seed.to(torch.int64) & _MASK
-    r0, r1, r2, r3 = philox4x32_10(p & _MASK, p >> 32, torch.full_like(p, step & _MASK),
-                                   torch.zeros_like(p), key[0], key[1])
-    b1 = torch.stack([r0, r2], dim=1).reshape(-1)[:n]
-    b2 = torch.stack([r1, r3], dim=1).reshape(-1)[:n]
-    return torch.stack([b1, b2])
+    words = philox4x32_10(q & _MASK, q >> 32, torch.full_like(q, step & _MASK),
+                          torch.zeros_like(q), key[0], key[1])
+    return torch.stack(words, dim=1)
+
+
+def _uniform12(b: torch.Tensor) -> torch.Tensor:
+    """The reference's map of uint32 words (int64 tensor) to float32 uniform
+    in [1, 2): the logical shift of the unsigned word, then the bits read as
+    float32."""
+    return ((b & _MASK) >> 9 | 0x3F800000).to(torch.int32).view(torch.float32)
+
+
+def box_muller(b1: torch.Tensor, b2: torch.Tensor):
+    """Both Box-Muller outputs of word pairs (b1, b2), int64 tensors of
+    uint32 words: (r cos(2 pi u2), r sin(2 pi u2)) in float32, two
+    independent N(0, 1) draws, r = sqrt(-2 log u1), u1 = 2 - f(b1) in
+    (0, 1], u2 = f(b2) - 1 in [0, 1)."""
+    r = torch.sqrt(-2.0 * torch.log(2.0 - _uniform12(b1)))
+    theta = _TWO_PI * (_uniform12(b2) - 1.0)
+    return r * torch.cos(theta), r * torch.sin(theta)
 
 
 def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Box-Muller on two int64 tensors of uint32 words -> float32 N(0, 1):
-    the reference's map (the logical shift of the unsigned word, then the
-    bits read as float32)."""
-    def uniform12(b):
-        return ((b & _MASK) >> 9 | 0x3F800000).to(torch.int32).view(torch.float32)
+    """The reference's map of given words to N(0, 1) (``bits`` mode):
+    element e takes its own pair (b1[e], b2[e]), cosine only."""
+    return box_muller(b1, b2)[0]
 
-    u1 = 2.0 - uniform12(b1)
-    u2 = uniform12(b2) - 1.0
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+def philox_normal_plain(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
+    """The noise of elements [0, n) at ``step``, float32 (n,): quad q's
+    words (w0, w1, w2, w3) give z[4q], z[4q + 1] as (w0, w1)'s cos and sin
+    outputs and z[4q + 2], z[4q + 3] as (w2, w3)'s."""
+    w = philox_bits_plain(seed, step, n)
+    c01, s01 = box_muller(w[:, 0], w[:, 1])
+    c23, s23 = box_muller(w[:, 2], w[:, 3])
+    return torch.stack([c01, s01, c23, s23], dim=1).reshape(-1)[:n]
 
 
 def ancestral_update_plain(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
@@ -115,10 +137,11 @@ def ancestral_update_plain(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[f
     """The update in ``torch`` ops, float32 math, output in x's dtype."""
     n = x.numel()
     if bits is None:
-        b = philox_bits_plain(seed, step, n)
+        z = philox_normal_plain(seed, step, n)
     else:
         b = bits.reshape(2, n).to(torch.int64) & _MASK
-    z = bits_to_normal(b[0], b[1]).reshape(x.shape)
+        z = bits_to_normal(b[0], b[1])
+    z = z.reshape(x.shape)
     ca, cb, cn = coefs
     return (ca * x.float() - cb * eps.float() + cn * z).to(x.dtype)
 
@@ -197,13 +220,13 @@ ancestral_update.launches = 0
 
 def philox_bits(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
     """The words :func:`ancestral_update` draws for elements [0, n) at
-    ``step``, as (2, n) int64 in [0, 2**32): from the kernel's own generator
-    for a CUDA seed, from :func:`philox_bits_plain` for a CPU one. For
-    checking the generator; the sampler never calls it."""
+    ``step``, by quad as (ceil(n / 4), 4) int64 in [0, 2**32): from the
+    kernel's own generator for a CUDA seed, from :func:`philox_bits_plain`
+    for a CPU one. For checking the generator; the sampler never calls it."""
     if seed.device.type == "cpu":
         return philox_bits_plain(seed, step, n)
     _check_seed(seed, seed.device)
-    out = torch.empty((2, n), dtype=torch.int32, device=seed.device)
+    out = torch.empty(((n + 3) // 4, 4), dtype=torch.int32, device=seed.device)
     with torch.cuda.device(seed.device):
         rc = _library().philox_bits_launch(seed.data_ptr(), out.data_ptr(), n,
                                            step & 0xFFFFFFFF, _stream(seed.device))

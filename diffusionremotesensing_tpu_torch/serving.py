@@ -11,6 +11,10 @@ front end and the PNG codec of the reference package are not ported yet.
 Example:
     server = InferenceServer(model, "cosine", 1500, image_size=128,
                              ddim_steps=100, dtype=torch.bfloat16)
+    # or from a trained snapshot, flax msgpack or the reference's torch file:
+    server = InferenceServer.from_snapshot("snapshot.pt", "cosine", 1500, 128,
+                                           model_flags=dict(s2d=True, tap44="block"),
+                                           ddim_steps=100, dtype=torch.bfloat16)
     out = server.infer_batch([lr_img])          # list of (128, 128, 3)
     sr = server.infer_tile(lr_tile)             # (2H, 2W, 3)
     server.shutdown()
@@ -28,6 +32,8 @@ import torch
 
 from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler
 from diffusionremotesensing_tpu_torch.diffusion import make_process
+from diffusionremotesensing_tpu_torch.io import load_snapshot
+from diffusionremotesensing_tpu_torch.models.unet import residual_attention_unet_superres
 from diffusionremotesensing_tpu_torch.utils import resolve_device
 
 
@@ -130,6 +136,23 @@ class InferenceServer:
         s = image_size // model.magnification_factor
         self.expected_cond_shape = (s, s, model.cond_channels)
         self.batcher = MicroBatcher(self._run_batch, max_batch, max_wait_ms)
+
+    @classmethod
+    def from_snapshot(cls, path: str, noise_schedule: str, noise_steps: int, image_size: int,
+                      magnification_factor: int = 2, model_flags: Optional[dict] = None,
+                      **kwargs) -> "InferenceServer":
+        """A server of the weights in the snapshot at ``path`` (either format
+        :func:`~diffusionremotesensing_tpu_torch.io.load_snapshot` reads): the
+        super-resolution UNet built with ``magnification_factor`` and
+        ``model_flags`` (``s2d``, ``tap44``, ``fused_att``, ``dec_block``,
+        ``use_pallas``, ``packed_head``), the weights loaded strictly, then
+        served as the constructor serves a model; ``kwargs`` go to it
+        (``device`` is ``cuda`` unless the caller asks for the CPU)."""
+        model = residual_attention_unet_superres(magnification_factor=magnification_factor,
+                                                 **(model_flags or {}))
+        state, _ = load_snapshot(path)
+        model.load_state_dict(state, strict=True)
+        return cls(model.eval(), noise_schedule, noise_steps, image_size, **kwargs)
 
     def validate(self, cond) -> Optional[str]:
         """An error message for an invalid request, else None."""

@@ -61,6 +61,27 @@ def test_importing_the_port_loads_nothing_forbidden():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_reading_and_writing_a_snapshot_loads_nothing_forbidden(tmp_path):
+    """The port's checkpoint I/O reads an in-repo flax snapshot and writes
+    one with its own msgpack code: in a fresh interpreter, neither msgpack,
+    flax nor JAX is loaded."""
+    snap = os.path.join(REPO, "benchmarks", "gate_artifacts", "snapshot_x2.pt")
+    code = ("import sys\n"
+            "from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot\n"
+            "from diffusionremotesensing_tpu_torch.models.unet import "
+            "residual_attention_unet_superres\n"
+            f"state, epochs = load_snapshot({snap!r})\n"
+            "m = residual_attention_unet_superres(magnification_factor=2)\n"
+            "m.load_state_dict(state)\n"
+            f"save_snapshot({str(tmp_path / 'out.msgpack')!r}, m, epochs)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(epochs, bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and r.stdout.startswith("1946 []"), r.stdout + r.stderr
+    assert (tmp_path / "out.msgpack").stat().st_size == os.path.getsize(snap)
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -128,6 +128,11 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
+inline void sincospif(float v, float* s, float* c) {
+  *s = float(std::sin(M_PI * double(v))); *c = float(std::cos(M_PI * double(v))); }
+inline float cospif(float v) { return float(std::cos(M_PI * double(v))); }
 namespace { alignas(1024) unsigned char smem_raw[232448]; }
 // WMMA: every thread of a warp holds the whole 16x16 tile (the API keeps
 // fragment contents opaque, so this is its meaning); lane 0 stores

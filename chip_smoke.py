@@ -19,6 +19,20 @@ from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
 * l1:      tap44='l1': tap_block twice a forward, ResConvBlock-0 and, at
            level 1 in s2d without its skip conv, ResConvBlock-1.
 
+And the other two tasks (random weights from init_params(SEED, variant),
+64x64 images, bfloat16, s2d):
+
+* sar:        the SAR->NDVI model (1 NDVI channel, 2 SAR channels) in the
+              stem configuration, the most fused: tap_stem_block at CX4 = 4,
+              the gates, att_head_block and dec_block at out4 = 4, and
+              ancestral_update; sar_packed: tap44='block' with packed_head
+              at out4 = 4;
+* generation: the class-conditional model (10 classes), stem configuration,
+              classifier-free guidance at scale 3 (one model call on twice
+              the batch): tap_stem_block without a condition tensor, the
+              rest at the x2 widths;
+* x2_start_t: x2 with start_t=250, the bicubic warm start.
+
 packed_conv is on no path: the JAX model never calls its TPU kernel, so the
 port has no caller either. It is held against its plain version and timed
 in the kernel phase, and its launches in the kernels line are that phase's.
@@ -57,16 +71,27 @@ Phases, each printing one line with its name, seconds and result:
              kernel between two events), each call on inputs and an output
              out of the L2 as the sampler finds them, and the host's us to
              issue a call.
+             The shapes of the other two models (SHAPE_ROWS): the stem at
+             CX4 = 4 and without a condition tensor, att_head_block,
+             dec_block and packed_head at out4 = 4, at B=48 on 32 x 32 s2d
+             pixels and on a ragged B=2 image, bfloat16 and float32, with
+             their times, bounds and library times.
 4. golden  - the full-width UNet on the card in float32 (plain forward, with
              and without use_pallas; s2d at every tap44 level; the fused,
              stem, packed and l1 configurations) against values the JAX reference
              package computed for the same weights and input (GOLDEN below),
-             with the launches each forward makes.
+             with the launches each forward makes; the SAR->NDVI and
+             class-conditional models (labels and a CFG mask) likewise in
+             the plain, dense-s2d, stem, fused and packed configurations
+             against GOLDEN_SAR and GOLDEN_GEN.
 5. model   - the full-width UNet forward at B=48, HR 128: tap44 'block',
              'conv2' and True and the fused, stem, packed, l1 and l1_fused
              configurations each against the dense-s2d path, in bfloat16 and
              float32; and one DDIM-100 tile each of the fused, stem and l1
-             configurations against the unfused one in float32.
+             configurations against the unfused one in float32. The
+             SAR->NDVI and class-conditional models at B=48 on 64x64 images
+             in the block, stem, fused and packed configurations against
+             dense-s2d, bfloat16 and float32.
 6. serve   - each path with every launch count set to 0 just before it and
              read just after. Unfused: an InferenceServer answers 4
              concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
@@ -75,8 +100,16 @@ Phases, each printing one line with its name, seconds and result:
              DDIM-100 requests and 1 DDIM-100 tile, and AggregationSampler
              with fused_update=True on its process 1 T=1500 tile. Tap and
              l1: 4 requests and 1 DDIM-100 tile. Packed: 4 requests, 1
-             DDIM-100 tile and 1 T=1500 tile from a second server. Checks
-             shapes, finiteness, range and the exact launches of every kernel.
+             DDIM-100 tile and 1 T=1500 tile from a second server.
+             x2_start_t: 1 DDIM-100 request from the warm start at 250. SAR
+             (stem): 8 concurrent DDIM-100 requests (max_batch 8) and 1 on
+             the T=1500 chain with fused_update; SAR packed: 8 DDIM-100
+             requests. Generation (stem, CFG 3): 8 concurrent labels at
+             DDIM-100, one DiffusionProcess.sample call at eta 0.5 on the
+             quadratic subsequence, 1 label on the T=1500 chain with
+             fused_update. A bad SAR shape and a label out of range are
+             refused. Checks shapes, finiteness, range and the exact
+             launches of every kernel.
 7. checkpoint - save_snapshot of the init_params(SEED) model (flax's
              msgpack, written by the port's own writer) into a temporary
              directory, load_snapshot back (the weights equal), and
@@ -91,7 +124,8 @@ Phases, each printing one line with its name, seconds and result:
 
 Then a JSON line with each kernel's numbers (its launches summed over the
 serve phase's paths, packed_conv's the kernel phase's; its times at B=48 in
-its main path's dtype), and last
+its main path's dtype), a row of its own for each shape of SHAPE_ROWS
+(launched by the SAR->NDVI or generation paths), and last
 {"ok": true, "device": {...}}. Any failure raises: the script exits non-zero
 and prints no result. It needs one card, builds everything it runs from the
 sources beside it, and imports nothing of JAX.
@@ -116,10 +150,16 @@ import torch  # noqa: E402
 
 from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler  # noqa: E402
 from diffusionremotesensing_tpu_torch.convert import init_params  # noqa: E402
-from diffusionremotesensing_tpu_torch.diffusion import ddpm_step, make_process  # noqa: E402
+from diffusionremotesensing_tpu_torch.diffusion import (  # noqa: E402
+    ddim_timesteps,
+    ddpm_step,
+    make_process,
+)
 from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.blocks import bn_eval  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.unet import (  # noqa: E402
+    residual_attention_unet_generation,
+    residual_attention_unet_sar_to_ndvi,
     residual_attention_unet_superres,
 )
 from diffusionremotesensing_tpu_torch.ops import cuda_build  # noqa: E402
@@ -176,6 +216,9 @@ SEED = 0
 T_STEPS = 1500
 DDIM_STEPS = 100
 HR = 128                      # HR patch edge of the main path (LR 64)
+TASK_HR = 64                  # the SAR->NDVI and generation paths' image edge
+NUM_CLASSES = 10              # the generation model's classes
+CFG = 3.0                     # the generation task's guidance
 TILE_LR = 256                 # LR tile edge
 B_FLAG = 48                   # patches per chunk on the main path
 N_CHUNKS = 2                  # a tile's 49 patches: one chunk of 48 and the remainder of 1
@@ -197,6 +240,13 @@ CONFIGS = {
     "packed": dict(s2d=True, tap44="block", packed_head=True),
     "l1": dict(s2d=True, tap44="l1"),
     "l1_fused": dict(s2d=True, tap44="l1", use_pallas=True, **FUSED),
+}
+
+# the factory of each of the repo's three models, by init_params' variant
+FACTORIES = {
+    "superres": lambda **f: residual_attention_unet_superres(magnification_factor=2, **f),
+    "sar": residual_attention_unet_sar_to_ndvi,
+    "generation": lambda **f: residual_attention_unet_generation(num_classes=NUM_CLASSES, **f),
 }
 
 # Every kernel of the paths: its wrapper, source, the TPU kernel it
@@ -224,6 +274,26 @@ KERNELS = {
     "packed_conv": (packed_conv, "packed_conv.cu",
                     "diffusionremotesensing_tpu/ops/packed_conv.py:90", torch.bfloat16),
 }
+
+# Rows of the kernels line for the shapes the other two models give a
+# kernel: the SAR->NDVI model's stem at CX4 = 4 (1 NDVI channel) and heads
+# at out4 = 4, the class-conditional model's stem without a condition
+# tensor. Each row: its kernel and the variant whose paths launch it at that
+# shape; every other launch counts in the kernel's own row.
+SHAPE_ROWS = {
+    "tap_stem_block_cx4_4": ("tap_stem_block", "sar"),
+    "tap_stem_block_bias_only": ("tap_stem_block", "generation"),
+    "att_head_block_out4_4": ("att_head_block", "sar"),
+    "dec_block_out4_4": ("dec_block", "sar"),
+    "packed_head_out4_4": ("packed_head", "sar"),
+}
+
+
+def row_of(kernel, variant):
+    """The kernels line's row that a launch of `kernel` on a path of
+    `variant` counts in."""
+    return next((r for r, kv in SHAPE_ROWS.items() if kv == (kernel, variant)), kernel)
+
 
 # Tolerances, max |kernel - plain| <= tol * max(1, max |plain|):
 # bfloat16: both versions round their intermediates and outputs to bf16
@@ -258,6 +328,9 @@ L2_BYTES = 50 * 2**20  # the H100's L2 cache
 GOLDEN_CONFIGS = ("plain", "plain_gates", "dense", "conv2", "tap", "block", "stem_level", "fused",
                   "stem", "packed", "l1", "l1_fused")
 MODEL_CONFIGS = ("block", "conv2", "tap", "fused", "stem", "packed", "l1", "l1_fused")
+# the same for the SAR->NDVI and class-conditional models
+GOLDEN_TASK_CONFIGS = ("plain", "dense", "stem", "fused", "packed")
+MODEL_TASK_CONFIGS = ("block", "stem", "fused", "packed")
 
 # Values the JAX reference package computes for init_params(SEED) and
 # golden_input() (tests/test_torch_port_imports.py recomputes them):
@@ -285,6 +358,59 @@ def golden_input():
     t = np.array([737], np.float32)
     cond = rng.random((1, 16, 16, 3)).astype(np.float32)
     return x, t, cond
+
+
+# The same for the other two models, init_params(SEED, 'sar') and
+# init_params(SEED, 'generation') (10 classes), at golden_input_sar() and
+# golden_input_gen() (labels 3 and 7, the first conditioned and the second
+# not: a CFG mask of one then zero); tests/test_torch_port_tasks_golden.py
+# recomputes them.
+GOLDEN_SAR = {
+    "stride": 32,
+    "values": [
+        -0.08082113415002823, -0.09024404734373093, -0.08351443707942963, -0.1022171601653099,
+        -0.07773865759372711, -0.0860668271780014, -0.09367258846759796, -0.10591389983892441,
+        -0.07952424883842468, -0.101496621966362, -0.10113723576068878, -0.08970658481121063,
+        -0.07623894512653351, -0.08920907229185104, -0.07238925993442535, -0.09362895786762238,
+        -0.0801212415099144, -0.11779342591762543, -0.1027318462729454, -0.10561255365610123,
+        -0.07619034498929977, -0.0868787169456482, -0.10034725069999695, -0.10343057662248611,
+        -0.07942439615726471, -0.11764967441558838, -0.09930508583784103, -0.10606514662504196,
+        -0.09175124019384384, -0.091483473777771, -0.0915476456284523, -0.12473545968532562,
+    ],
+    "abs_sum": 115.0649543441832,
+}
+
+GOLDEN_GEN = {
+    "stride": 193,
+    "values": [
+        -0.03152883052825928, -0.06115374714136124, 0.07139529287815094, -0.013647245243191719,
+        -0.034696634858846664, 0.050166644155979156, 0.004855532199144363, -0.03276154771447182,
+        0.08893303573131561, -0.0015250183641910553, -0.032744601368904114, 0.03932797163724899,
+        -0.005334245041012764, -0.04391435533761978, 0.0467202253639698, 0.027721039950847626,
+        -0.07958410680294037, 0.06992971152067184, -0.007391652092337608, -0.054666146636009216,
+        0.05420319363474846, -0.0036522112786769867, -0.055597297847270966, 0.03962154686450958,
+        -0.00587923638522625, -0.037116117775440216, 0.0460541695356369, 0.009369708597660065,
+        -0.04824984818696976, 0.07289192080497742, -0.00039009563624858856, -0.07701659202575684,
+    ],
+    "abs_sum": 243.21942048612982,
+}
+
+
+def golden_input_sar():
+    """A 32x32 NDVI state, t and its 2-channel SAR condition; no mask."""
+    rng = np.random.default_rng(4321)
+    x = rng.standard_normal((1, 32, 32, 1)).astype(np.float32)
+    t = np.array([737], np.float32)
+    cond = rng.random((1, 32, 32, 2)).astype(np.float32)
+    return x, t, cond, None
+
+
+def golden_input_gen():
+    """Two 32x32 RGB states, t, labels 3 and 7 and the CFG mask [1, 0]."""
+    rng = np.random.default_rng(5678)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    t = np.array([737, 737], np.float32)
+    return x, t, np.array([3, 7], np.int64), np.array([1.0, 0.0], np.float32)
 
 
 def check(ok, msg):
@@ -390,11 +516,12 @@ def device_readings(fn, reps=20):
     return {"device_ms": sum(launch_ms(fn, reps).values()), "held_ms": held / reps,
             "host_us": 1e3 * issue_ms / reps}
 
-def model_with(name, device, dtype=torch.float32):
-    """The full-width model of configuration `name` (CONFIGS) with the
-    init_params(SEED) weights."""
-    m = residual_attention_unet_superres(magnification_factor=2, **CONFIGS[name])
-    m.load_state_dict(init_params(SEED, "cpu"))
+def model_with(name, device, dtype=torch.float32, variant="superres"):
+    """The full-width model `variant` ('superres', 'sar', 'generation') of
+    configuration `name` (CONFIGS) with the init_params(SEED, variant)
+    weights."""
+    m = FACTORIES[variant](**CONFIGS[name])
+    m.load_state_dict(init_params(SEED, variant, device="cpu"))
     return m.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
@@ -482,9 +609,11 @@ def head_unfused(hh, attn_s, k):
 
 
 def stem_dense_s2d(xs, cond, te4, k):
-    """conv0 + bias + cond add and ResConvBlock-0 as cuDNN convolutions on
-    the dense s2d kernels (the tap44=False path, written out here)."""
-    return block_dense_s2d(conv_nhwc(xs, k["conv0"], k["conv0_b"], padding=1) + cond, te4, k)
+    """conv0 + bias (+ cond, unless None) and ResConvBlock-0 as cuDNN
+    convolutions on the dense s2d kernels (the tap44=False path, written
+    out here)."""
+    h_s = conv_nhwc(xs, k["conv0"], k["conv0_b"], padding=1)
+    return block_dense_s2d(h_s if cond is None else h_s + cond, te4, k)
 
 
 def gates_unfused(m, pairs):
@@ -652,12 +781,13 @@ def stem_flops(B, H2, W2, CX4=12, C14=64, CO4=128):
     return conv0 + block_flops(B, H2, W2, C14, CO4)[0]
 
 
-def stem_bound(B, H2, W2, itemsize, peak, CX4=12, C14=64, CO4=128):
-    """Least time (ms) for one tap_stem_block call: x, cond and te4 read and
-    res0_s written once, the weights as the kernel takes them once;
-    stem_flops at the card's peak for the input type."""
+def stem_bound(B, H2, W2, itemsize, peak, CX4=12, C14=64, CO4=128, cond=True):
+    """Least time (ms) for one tap_stem_block call: x, cond (unless
+    cond=False, the bias-only stem) and te4 read and res0_s written once,
+    the weights as the kernel takes them once; stem_flops at the card's
+    peak for the input type."""
     weights = 4 * CX4 * C14 + C14 + 4 * C14 * 3 * CO4 + 4 * CO4 * CO4 + 4 * CO4
-    nbytes = itemsize * (B * H2 * W2 * (CX4 + C14 + CO4) + B * CO4 + weights)
+    nbytes = itemsize * (B * H2 * W2 * (CX4 + C14 * cond + CO4) + B * CO4 + weights)
     return _bound(stem_flops(B, H2, W2, CX4, C14, CO4), nbytes, peak)
 
 
@@ -1085,9 +1215,94 @@ def main():
                 if B == B_FLAG and dt == torch.float32:
                     rows["ancestral_update"][-1].update(
                         check_update(sch, xu, eu, seed, step, g))
+        rows.update(task_kernels())
         state["kernel_rows"] = rows
         state["packed_conv_launches"] = packed_conv.launches
         return json.dumps(rows)
+
+    def task_kernels():
+        """The shapes the SAR->NDVI and class-conditional models give the
+        kernels (SHAPE_ROWS), each against its plain version at B=48 on
+        their 64-px images (32 x 32 s2d pixels) and on a ragged B=2 image
+        (20 x 36), bfloat16 and float32; at B=48 also the kernel's, the plain
+        version's and the library's times and the bound, and in bfloat16
+        each launch's device time and the kernel's and library's device ms
+        (device_readings)."""
+        rows = {name: [] for name in SHAPE_ROWS}
+        for dt in (torch.bfloat16, torch.float32):
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+            k_sar = model_with("stem", dev, variant="sar").prepare_s2d_kernels(dt)
+            kp_sar = model_with("packed", dev, variant="sar").prepare_s2d_kernels(dt)["packed_head"]
+            k_gen = model_with("stem", dev, variant="generation").prepare_s2d_kernels(dt)
+            mu_sar = model_with("dense", dev, dt, variant="sar")
+            mu_gen = model_with("dense", dev, dt, variant="generation")
+            kd_sar, kd_gen = mu_sar.prepare_s2d_kernels(), mu_gen.prepare_s2d_kernels()
+            s = TASK_HR // 2
+            for B, (H, W) in ((B_FLAG, (s, s)), (2, (20, 36))):
+                g = torch.Generator(device=dev).manual_seed(100 + B)
+
+                def randn(*shape):
+                    return torch.randn(shape, generator=g, device=dev).to(dt)
+
+                xs4, cond, te4 = randn(B, H, W, 4), randn(B, H, W, 64), torch.relu(randn(B, 128))
+                xs12 = randn(B, H, W, 12)
+                xa, hs = randn(B, H, W, 128), randn(B, H, W, 64)
+                xb, te = randn(B, H, W, 64), torch.relu(randn(B, 64))
+                hh, at = randn(B, H, W, 64), randn(B, H, W, 128)
+                n = xs4.element_size()
+                calls = {
+                    "tap_stem_block_cx4_4": (
+                        lambda: tap_stem_block(xs4, cond, te4, k_sar["conv0_b"], k_sar["tap_stem"]),
+                        lambda: tap_stem_block_plain(xs4, cond, te4, k_sar["conv0_b"],
+                                                     k_sar["tap_stem"]),
+                        lambda: stem_dense_s2d(xs4, cond, te4, kd_sar),
+                        lambda: stem_bound(B, H, W, n, peak, CX4=4)),
+                    "tap_stem_block_bias_only": (
+                        lambda: tap_stem_block(xs12, None, te4, k_gen["conv0_b"], k_gen["tap_stem"]),
+                        lambda: tap_stem_block_plain(xs12, None, te4, k_gen["conv0_b"],
+                                                     k_gen["tap_stem"]),
+                        lambda: stem_dense_s2d(xs12, None, te4, kd_gen),
+                        lambda: stem_bound(B, H, W, n, peak, CX4=12, cond=False)),
+                    "att_head_block_out4_4": (
+                        lambda: att_head_block(xa, hs, k_sar["att_fused"]),
+                        lambda: att_head_block_plain(xa, hs, k_sar["att_fused"]),
+                        lambda: att_unfused(mu_sar, xa, hs, kd_sar),
+                        lambda: att_bound(B, H, W, n, peak, out4=4)),
+                    "dec_block_out4_4": (
+                        lambda: dec_block(xa, xb, te, k_sar["dec"]),
+                        lambda: dec_block_plain(xa, xb, te, k_sar["dec"]),
+                        lambda: dec_unfused(mu_sar, xa, xb, te, kd_sar),
+                        lambda: dec_bound(B, H, W, n, peak, out4=4)),
+                    "packed_head_out4_4": (
+                        lambda: packed_head(hh, at, kp_sar["up4"], kp_sar["at"]),
+                        lambda: packed_head_plain(hh, at, kp_sar["up4"], kp_sar["at"]),
+                        lambda: head_unfused(hh, at, kd_sar),
+                        lambda: head_bound(B, H, W, n, peak, out4=4)),
+                }
+                for name, (fn, plain, library, bound) in calls.items():
+                    got, want = fn(), plain()
+                    torch.cuda.synchronize()
+                    single = isinstance(got, torch.Tensor)
+                    err = max_err([got] if single else got, [want] if single else want, dt,
+                                  f"{name} {dt} B={B} {H}x{W}")
+                    row = {"dtype": str(dt).split(".")[-1], "B": B, "H": H, "W": W,
+                           "max_abs_err": err}
+                    if B == B_FLAG:
+                        row.update(ms=time_ms(fn), plain_ms=time_ms(plain, reps=5),
+                                   library_ms=time_ms(library))
+                        row["bound_ms"], row["bound_by"] = bound()
+                        if dt == torch.bfloat16:
+                            # at a quarter of the x2 pixels a call issues
+                            # about as slowly as the card runs it: the
+                            # device time of each launch, and the kernel's and
+                            # the library's device ms with the issue taken out
+                            row["launch_ms"] = launch_ms(fn)
+                            row.update(device_readings(fn))
+                            row.update({f"library_{k}": v
+                                        for k, v in device_readings(library).items()})
+                    rows[name].append(row)
+            del mu_sar, mu_gen
+        return rows
 
     def check_update(sch, x, eps, seed, step, g):
         """The generator and the noise of ancestral_update at the flagship
@@ -1158,6 +1373,26 @@ def main():
             check(err <= GOLDEN_TOL and abs_sum_err <= GOLDEN_TOL,
                   f"golden {name}: max|err| {err}, mean |abs| err {abs_sum_err}")
             errs[name] = err
+        # the SAR->NDVI and class-conditional models (the latter with labels
+        # and a CFG mask) against their own golden values
+        for variant, gold, inputs in (("sar", GOLDEN_SAR, golden_input_sar),
+                                      ("generation", GOLDEN_GEN, golden_input_gen)):
+            x, t, cond, mask = (None if a is None else torch.from_numpy(a).to(dev)
+                                for a in inputs())
+            want = np.asarray(gold["values"], np.float64)
+            for name in GOLDEN_TASK_CONFIGS:
+                before = read_counts()
+                with torch.inference_mode():
+                    out = model_with(name, dev, variant=variant)(x, t, cond, mask)
+                out = out.cpu().numpy().astype(np.float64)
+                ran = {k: v - before[k] for k, v in read_counts().items()}
+                check(ran == per_forward(name),
+                      f"golden {variant} {name}: launches {ran}, expected {per_forward(name)}")
+                err = float(np.abs(out.reshape(-1)[::gold["stride"]] - want).max())
+                abs_sum_err = abs(float(np.abs(out).sum()) - gold["abs_sum"]) / out.size
+                check(err <= GOLDEN_TOL and abs_sum_err <= GOLDEN_TOL,
+                      f"golden {variant} {name}: max|err| {err}, mean |abs| err {abs_sum_err}")
+                errs[f"{variant}_{name}"] = err
         return json.dumps(errs)
 
     def model():
@@ -1200,6 +1435,39 @@ def main():
             tile_err = float(np.abs(tiles[name] - tiles["block"]).max())
             check(tile_err <= TILE_TOL, f"DDIM-100 tile, {name} vs unfused: max|diff| {tile_err}")
             res[f"tile_ddim100_float32_max_abs_diff_{name}"] = tile_err
+        # the SAR->NDVI and class-conditional models at B=48 on their 64-px
+        # images (labels with half the CFG mask zero), each configuration
+        # against dense-s2d
+        for variant in ("sar", "generation"):
+            for dt in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device=dev).manual_seed(8)
+                c = 1 if variant == "sar" else 3
+                x = torch.randn((B_FLAG, TASK_HR, TASK_HR, c), generator=g, device=dev)
+                t = torch.randint(1, T_STEPS, (B_FLAG,), generator=g, device=dev).float()
+                if variant == "sar":
+                    cond, mask = torch.rand((B_FLAG, TASK_HR, TASK_HR, 2), generator=g, device=dev), None
+                else:
+                    cond = torch.randint(0, NUM_CLASSES, (B_FLAG,), generator=g, device=dev)
+                    mask = (torch.arange(B_FLAG, device=dev) < B_FLAG // 2).float()
+                outs = {}
+                for name in ("dense",) + MODEL_TASK_CONFIGS:
+                    m = model_with(name, dev, dt, variant)
+                    with torch.inference_mode():
+                        outs[name] = m(x, t, cond, mask, s2d_kernels=m.prepare_s2d_kernels())
+                    del m
+                torch.cuda.synchronize()
+                dense = outs["dense"]
+                scale = max(1.0, dense.abs().max().item())
+                r = {"scale": scale}
+                for name in MODEL_TASK_CONFIGS:
+                    a = outs[name]
+                    check(a.shape == (B_FLAG, TASK_HR, TASK_HR, c) and torch.isfinite(a).all().item(),
+                          f"model {variant} {name} {dt}: bad output {tuple(a.shape)}")
+                    err = (a - dense).abs().max().item()
+                    check(err <= MODEL_TOL[dt] * scale,
+                          f"model {variant} {dt}: max|{name} - dense| {err} > {MODEL_TOL[dt]} * {scale}")
+                    r[f"max_abs_diff_{name}"] = err
+                res[f"{variant}_{str(dt).split('.')[-1]}"] = r
         return json.dumps(res)
 
     def serve():
@@ -1269,18 +1537,134 @@ def main():
             if ddpm == "fused_update":
                 want["ancestral_update"] = N_CHUNKS * (T_STEPS - 1)
             check(counts == want, f"{name} path: launches {counts}, expected {want}")
-            return {"config": name, "micro_batches": batches, "launches": counts, "seconds": secs}
+            return {"config": name, "variant": "superres", "micro_batches": batches,
+                    "launches": counts, "seconds": secs}
+
+        def concurrent(server, conds, secs, key, shape):
+            """Every condition as its own request, all at once; each answer
+            must come back with `shape`."""
+            results = [None] * len(conds)
+
+            def one(i):
+                results[i] = server.infer_batch([conds[i]])[0]
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(conds))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            secs[key] = time.perf_counter() - t0
+            for r in results:
+                check(r is not None and r.shape == shape, f"{key}: request unanswered or misshapen")
+            outputs.extend(results)
+
+        def refused(server, cond, what):
+            try:
+                server.infer_batch([cond])
+            except ValueError as e:
+                return str(e)
+            raise RuntimeError(f"{what} was not refused")
+
+        def task_path(variant, name, ddpm_fused, extra=None):
+            """The SAR->NDVI or generation task served from a model of
+            configuration `name`: 8 concurrent requests at DDIM-100 (max_batch
+            8; generation with CFG 3, a model batch of 16), `extra(server,
+            secs)` (a sampler call beyond the servers, returning its model
+            forwards), and with `ddpm_fused` one request on a second server
+            of the ancestral T=1500 chain with fused_update. Counts set to 0
+            just before, exact just after; then a bad request refused."""
+            model = model_with(name, dev, variant=variant)
+            task = "sar" if variant == "sar" else "generation"
+            c = 1 if variant == "sar" else 3
+            mk = lambda **kw: InferenceServer(model, "cosine", T_STEPS, TASK_HR, task=task,  # noqa: E731
+                                              max_batch=8, dtype=torch.bfloat16, device="cuda", **kw)
+            ddim = mk(ddim_steps=DDIM_STEPS)
+            servers, secs, more = [ddim], {}, 0
+            rng_t = np.random.default_rng(SEED + 3)
+            conds = ([rng_t.random((TASK_HR, TASK_HR, 2)).astype(np.float32) for _ in range(8)]
+                     if task == "sar" else [int(v) for v in rng_t.integers(0, NUM_CLASSES, 8)])
+            try:
+                if ddpm_fused:
+                    servers.append(mk(fused_update=True))
+                torch.cuda.synchronize()
+                zero_counts()
+                concurrent(ddim, conds, secs, "batch_8_requests_ddim100", (TASK_HR, TASK_HR, c))
+                if extra is not None:
+                    more = extra(ddim, secs)
+                if ddpm_fused:
+                    t0 = time.perf_counter()
+                    outputs.append(servers[1].infer_batch([conds[0]])[0])
+                    secs["micro_batch_ddpm1500_fused_update"] = time.perf_counter() - t0
+                counts = read_counts()
+                bad = (refused(ddim, np.zeros((TASK_HR // 2, TASK_HR, 2), np.float32), "a bad SAR shape")
+                       if task == "sar" else refused(ddim, NUM_CLASSES, "a label out of range"))
+            finally:
+                for server in servers:
+                    server.shutdown()
+            ddpm_batches = servers[1].batches_run if ddpm_fused else 0
+            forwards = ddim.batches_run * DDIM_STEPS + more + ddpm_batches * (T_STEPS - 1)
+            want = {k: n * forwards for k, n in per_forward(name).items()}
+            want["ancestral_update"] = ddpm_batches * (T_STEPS - 1)
+            check(counts == want, f"{variant} {name} path: launches {counts}, expected {want}")
+            return {"config": name, "variant": variant, "micro_batches": ddim.batches_run,
+                    "ddpm_micro_batches": ddpm_batches, "launches": counts, "seconds": secs,
+                    "refused": bad}
+
+        def eta_quadratic(server, secs):
+            """One generation call through DiffusionProcess.sample: DDIM-100
+            at eta 0.5 on the quadratic subsequence, CFG 3; its forwards."""
+            labels = np.arange(8) % NUM_CLASSES
+            t0 = time.perf_counter()
+            out = server.process.sample(8, cond=labels, cfg_scale=CFG, ddim_steps=DDIM_STEPS,
+                                        ddim_eta=0.5, ddim_spacing="quadratic",
+                                        generator=torch.Generator(device=dev).manual_seed(9))
+            out = out.clamp(0.0, 1.0).cpu().numpy()
+            secs["sample_ddim100_eta05_quadratic"] = time.perf_counter() - t0
+            outputs.extend(list(out))
+            return len(ddim_timesteps(T_STEPS, DDIM_STEPS, "quadratic"))
+
+        def start_t_path():
+            """x2 with start_t=250: one DDIM-100 micro-batch from the bicubic
+            warm start (DDIM's subsequence squeezed into [1, 250])."""
+            server = InferenceServer(model_with("block", dev), "cosine", T_STEPS, HR,
+                                     ddim_steps=DDIM_STEPS, start_t=250, dtype=torch.bfloat16,
+                                     device="cuda")
+            secs = {}
+            try:
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                outputs.append(server.infer_batch([lrs[0]])[0])
+                secs["micro_batch_ddim100_start_t250"] = time.perf_counter() - t0
+                counts = read_counts()
+            finally:
+                server.shutdown()
+            forwards = server.batches_run * len(ddim_timesteps(T_STEPS, DDIM_STEPS, start_t=250))
+            want = {k: n * forwards for k, n in per_forward("block").items()}
+            check(counts == want, f"start_t path: launches {counts}, expected {want}")
+            return {"config": "block", "variant": "superres", "start_t": 250,
+                    "micro_batches": server.batches_run, "launches": counts, "seconds": secs}
 
         paths = {"unfused": run_path("block", 2, "server"),
                  "fused": run_path("fused", 1, "fused_update"),
                  "stem": run_path("stem", 1, "fused_update"),
                  "tap": run_path("tap", 1, None),
                  "packed": run_path("packed", 1, "server"),
-                 "l1": run_path("l1", 1, None)}
+                 "l1": run_path("l1", 1, None),
+                 "x2_start_t": start_t_path(),
+                 "sar": task_path("sar", "stem", True),
+                 "sar_packed": task_path("sar", "packed", False),
+                 "generation": task_path("generation", "stem", True, eta_quadratic)}
         for out in outputs:
-            check(out.shape in ((HR, HR, 3), (2 * TILE_LR, 2 * TILE_LR, 3)), f"shape {out.shape}")
+            check(out.shape in ((HR, HR, 3), (2 * TILE_LR, 2 * TILE_LR, 3), (TASK_HR, TASK_HR, 1),
+                                (TASK_HR, TASK_HR, 3)), f"shape {out.shape}")
             check(np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0, "output range")
-        state["launches"] = {k: sum(p["launches"][k] for p in paths.values()) for k in KERNELS}
+        launches = dict.fromkeys(list(KERNELS) + list(SHAPE_ROWS), 0)
+        for p in paths.values():
+            for k, n in p["launches"].items():
+                launches[row_of(k, p["variant"])] += n
+        state["launches"] = launches
         return json.dumps(paths)
 
     def checkpoint():
@@ -1295,7 +1679,7 @@ def main():
             size = os.path.getsize(path)
             state, epochs = load_snapshot(path)
             check(epochs == 7, f"checkpoint: EPOCHS_RUN {epochs} != 7")
-            want = init_params(SEED, "cpu")
+            want = init_params(SEED, device="cpu")
             check(state.keys() == want.keys() and all(torch.equal(state[k], want[k]) for k in want),
                   "checkpoint: the weights loaded back differ from the weights saved")
             server = InferenceServer.from_snapshot(path, "cosine", T_STEPS, HR,
@@ -1347,7 +1731,8 @@ def main():
     # packed_conv is on no path: its launches are the kernel phase's
     state["launches"]["packed_conv"] = state["packed_conv_launches"]
     kernels = []
-    for name, (_, src, replaces, dt) in KERNELS.items():
+    for name in list(KERNELS) + list(SHAPE_ROWS):
+        _, src, replaces, dt = KERNELS[SHAPE_ROWS[name][0] if name in SHAPE_ROWS else name]
         flag = next(r for r in state["kernel_rows"][name]
                     if r["dtype"] == str(dt).split(".")[-1] and r["B"] == B_FLAG)
         kernels.append({

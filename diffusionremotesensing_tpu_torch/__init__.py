@@ -12,8 +12,12 @@ kernels handed to the ``ops`` transforms are HWIO. Inside the model the
 convolutions run as channels-last ``torch`` convolutions on permuted views,
 so no layout copies are made at the boundary.
 
-The TPU kernels of the super-resolution path are hand-written CUDA kernels
-here, built with ``nvcc`` at first use and bound with ``ctypes``:
+It serves the reference's three tasks: super-resolution, SAR->NDVI and
+class-conditional generation with classifier-free guidance
+(``serving.InferenceServer(task=...)``).
+
+The TPU kernels of the served paths are hand-written CUDA kernels here,
+built with ``nvcc`` at first use and bound with ``ctypes``:
 ``ops/tap_block.py`` (ResConvBlock-0 fused, ``csrc/tap_block.cu``) and, in
 the fully fused configuration, ``ops/att_block.py`` (``fused_att=True``),
 ``ops/dec_block.py`` (``dec_block=True``) and ``ops/fused_update.py`` (the

@@ -17,7 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from diffusionremotesensing_tpu_torch.diffusion import DiffusionProcess
+from diffusionremotesensing_tpu_torch.diffusion import DiffusionProcess, warm_start_state
+from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 
 
 def patchify_coords(height: int, width: int, patch_size: int, stride: Optional[int],
@@ -65,14 +66,16 @@ class AggregationSampler:
     """Chunked tiled super-resolution through a :class:`DiffusionProcess`
     (whose image_size is patch_size * magnification_factor). DDPM sampling
     (``ddim_steps=None``) takes ``fused_update=True`` to run each step's
-    update as one ``ancestral_update`` kernel call."""
+    update as one ``ancestral_update`` kernel call. ``start_t`` starts each
+    patch from its bicubic upsample q-sampled to t = start_t and runs only
+    the steps below it (DDIM squeezes its subsequence into [1, start_t])."""
 
     MAX_IN_FLIGHT = 4  # chunks enqueued on the device before the oldest is gathered
 
     def __init__(self, process: DiffusionProcess, patch_size: int, stride: int,
                  magnification_factor: int, batch_size: int = 48,
                  ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True,
-                 fused_update: bool = False):
+                 fused_update: bool = False, start_t: Optional[int] = None):
         if stride > patch_size:
             raise ValueError("stride must be <= patch_size")
         if fused_update and ddim_steps is not None:
@@ -88,6 +91,7 @@ class AggregationSampler:
         self.ddim_steps = ddim_steps
         self.ddim_clip_x0 = ddim_clip_x0
         self.fused_update = fused_update
+        self.start_t = start_t
         hr = patch_size * magnification_factor
         self.weight = gaussian_weights(hr, hr)
 
@@ -102,8 +106,9 @@ class AggregationSampler:
 
     def _sampler(self):
         if self.ddim_steps is not None:
-            return self.process.ddim_sampler(self.ddim_steps, self.ddim_clip_x0)
-        return self.process.sampler(fused_update=self.fused_update)
+            return self.process.ddim_sampler(self.ddim_steps, clip_x0=self.ddim_clip_x0,
+                                             start_t=self.start_t)
+        return self.process.sampler(fused_update=self.fused_update, start_t=self.start_t)
 
     def __call__(self, img_lr: np.ndarray, generator: Optional[torch.Generator] = None,
                  device="cuda") -> np.ndarray:
@@ -129,7 +134,12 @@ class AggregationSampler:
             block = np.stack([img_lr[y0 // mag:y1 // mag, x0 // mag:x1 // mag]
                               for (y0, y1, x0, x1) in boxes[start:start + size]])
             cond = torch.from_numpy(block).to(device)
-            x_T = torch.randn((size, hr, hr, c), generator=generator, device=device)
+            if self.start_t is not None:
+                # warm start: each patch's bicubic upsample q-sampled to start_t
+                init = upsample_bicubic(cond, mag)
+                x_T = warm_start_state(self.process.schedule, init, self.start_t, generator)
+            else:
+                x_T = torch.randn((size, hr, hr, c), generator=generator, device=device)
             pending.append((start, sampler(x_T, cond, generator=generator)))
             if len(pending) >= self.MAX_IN_FLIGHT:
                 blend(*pending.pop(0))

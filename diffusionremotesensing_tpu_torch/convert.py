@@ -1,4 +1,6 @@
 """Weights for the port: from the reference package's variables, or random.
+Both for each of the three models (super-resolution, SAR->NDVI,
+class-conditional generation).
 
 :func:`from_jax_variables` is this package's own copy of the mapping that
 ``diffusionremotesensing_tpu/io.py:export_torch_state_dict`` (:338) applies,
@@ -15,12 +17,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diffusionremotesensing_tpu_torch.models.unet import residual_attention_unet_superres
+from diffusionremotesensing_tpu_torch.models.unet import (
+    _NAMES,
+    residual_attention_unet_generation,
+    residual_attention_unet_sar_to_ndvi,
+    residual_attention_unet_superres,
+)
+
+# init_params' variants: the factory of each of the repo's three models
+VARIANTS = {
+    "superres": residual_attention_unet_superres,
+    "sar": residual_attention_unet_sar_to_ndvi,
+    "generation": residual_attention_unet_generation,
+}
+
+
+def conditioning_of(params) -> str:
+    """The conditioning a variable tree was made for: 'class' without a
+    condition encoder, 'sar' when the encoder's channels differ from the
+    model input's (2 SAR channels for 1 NDVI channel), else 'superres'."""
+    if "cond_encoder" not in params:
+        return "class"
+    cond_in = np.asarray(params["cond_encoder"]["conv_out"]["conv"]["kernel"]).shape[2]
+    image_in = np.asarray(params["conv0"]["conv"]["kernel"]).shape[2]
+    return "superres" if cond_in == image_in else "sar"
 
 
 def from_jax_variables(params, batch_stats) -> dict:
-    """Super-resolution UNet variables (nested dicts of arrays) -> a state_dict
-    for :class:`~diffusionremotesensing_tpu_torch.models.unet.ResidualAttentionUNet`."""
+    """UNet variables (nested dicts of arrays) of any of the three variants
+    -> a state_dict for
+    :class:`~diffusionremotesensing_tpu_torch.models.unet.ResidualAttentionUNet`
+    under the reference torch model's names of that variant (read from the
+    tree by :func:`conditioning_of`)."""
+    enc_name, cond_conv_name, skip_name = _NAMES[conditioning_of(params)]
     out = {}
 
     def T(x):
@@ -52,7 +81,7 @@ def from_jax_variables(params, batch_stats) -> dict:
         put_linear(f"{prefix}.time_mlp.0", p["time_mlp"]["fc1"])
         put_linear(f"{prefix}.time_mlp.2", p["time_mlp"]["fc2"])
         put_conv(f"{prefix}.conv1.0", p["conv1"])
-        put_conv(f"{prefix}.conv_upsampled_lr_img", p["conv_skip"])
+        put_conv(f"{prefix}.{skip_name}", p["conv_skip"])
         put_conv(f"{prefix}.conv2.0", p["conv2"])
         put_conv(f"{prefix}.shortcut_conv.0", p["shortcut_conv"])
         put_bn([f"{prefix}.batch_norm1", f"{prefix}.conv1.1"], p["BatchNorm_0"], s["BatchNorm_0"])
@@ -60,16 +89,17 @@ def from_jax_variables(params, batch_stats) -> dict:
         put_bn([f"{prefix}.shortcut_batch_norm", f"{prefix}.shortcut_conv.1"],
                p["BatchNorm_2"], s["BatchNorm_2"])
 
-    if "cond_encoder" not in params:
-        raise KeyError("expected the super-resolution model's variables (no 'cond_encoder')")
     put_conv("conv0", params["conv0"])
     put_conv("output", params["output"])
-    put_conv("conv_upsampled_lr_img", params["conv_cond"])
-    for i in range(3):
-        blk = params["cond_encoder"][f"block{i}"]
-        put_conv(f"LR_encoder.blocks.{i}.conv1", blk["conv1"])
-        put_conv(f"LR_encoder.blocks.{i}.conv2", blk["conv2"])
-    put_conv("LR_encoder.conv_out", params["cond_encoder"]["conv_out"])
+    if enc_name is not None:
+        put_conv(cond_conv_name, params["conv_cond"])
+        for i in range(3):
+            blk = params["cond_encoder"][f"block{i}"]
+            put_conv(f"{enc_name}.blocks.{i}.conv1", blk["conv1"])
+            put_conv(f"{enc_name}.blocks.{i}.conv2", blk["conv2"])
+        put_conv(f"{enc_name}.conv_out", params["cond_encoder"]["conv_out"])
+    if "label_emb" in params:
+        out["label_emb.weight"] = T(params["label_emb"]["embedding"])
     for i in range(3):
         put_resblock(f"conv_blocks.{i}", f"conv_block{i}")
         put_conv(f"downs.{i}", params[f"down{i}"])
@@ -94,17 +124,23 @@ def from_jax_variables(params, batch_stats) -> dict:
     return out
 
 
-def init_params(seed: int, device="cuda", magnification_factor: int = 2) -> dict:
-    """A random full-width super-resolution state_dict drawn from a CPU
-    ``torch.Generator`` seeded with ``seed`` (the same numbers on every
-    machine), then moved to ``device``.
+def init_params(seed: int, variant: str = "superres", device="cuda",
+                magnification_factor: int = 2) -> dict:
+    """A random full-width state_dict of the model ``variant`` ('superres',
+    at ``magnification_factor``; 'sar'; 'generation', 10 classes)
+    drawn from a CPU ``torch.Generator`` seeded with ``seed`` (the same
+    numbers on every machine), then moved to ``device``.
 
     Conv and linear weights and biases follow torch's default
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)); BatchNorms get random but
-    well-conditioned affines and running statistics (scale and var near 1),
-    so that folding them into the kernels is exercised."""
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the label embedding its N(0, 1);
+    BatchNorms get random but well-conditioned affines and running
+    statistics (scale and var near 1), so that folding them into the kernels
+    is exercised."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got {variant!r}")
     gen = torch.Generator().manual_seed(seed)
-    model = residual_attention_unet_superres(magnification_factor=magnification_factor)
+    kwargs = dict(magnification_factor=magnification_factor) if variant == "superres" else {}
+    model = VARIANTS[variant](**kwargs)
 
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen) * (hi - lo) + lo
@@ -115,6 +151,8 @@ def init_params(seed: int, device="cuda", magnification_factor: int = 2) -> dict
             bound = 1.0 / np.sqrt(mod.weight[0].numel())
             drawn[id(mod)] = {"weight": uniform(mod.weight.shape, -bound, bound),
                               "bias": uniform(mod.bias.shape, -bound, bound)}
+        elif isinstance(mod, torch.nn.Embedding):
+            drawn[id(mod)] = {"weight": torch.randn(mod.weight.shape, generator=gen)}
         elif isinstance(mod, torch.nn.BatchNorm2d):
             c = mod.num_features
             drawn[id(mod)] = {"weight": uniform((c,), 0.8, 1.2),

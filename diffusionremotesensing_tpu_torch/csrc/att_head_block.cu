@@ -10,7 +10,12 @@
 //   psi    = sigmoid(a @ wpsi + bpsi)              (one channel)
 //   gated  = x * psi
 //   attn_s = gated @ rc + brc                      (block-diagonal result conv)
-//   out    = conv3x3_SAME(attn_s, head_at)         (-> out4 = 12 channels)
+//   out    = conv3x3_SAME(attn_s, head_at)         (-> out4 channels)
+//
+// out4 = 4 out_dim is a template parameter, OUT4: 12 for the x2 and
+// class-conditional models (3 output channels), 4 for SAR->NDVI (1). The
+// head computes NPAD = 16 columns either way (the weight is zero-padded);
+// only the columns written change.
 //
 // Products accumulate in float32; g, a, psi, gated, attn_s and out are
 // rounded to the compute type where the reference kernel rounds them. The
@@ -110,7 +115,6 @@ using wt::to_f;
 constexpr int C4 = 128;     // x channels (4 taps x 32)
 constexpr int C = 32;       // gate width
 constexpr int CH = 64;      // h channels
-constexpr int OUT4 = 12;    // head channels written
 constexpr int NPAD = 16;    // head columns computed (the weight is zero-padded to 16)
 
 __host__ __device__ constexpr int round1024(int b) { return (b + 1023) / 1024 * 1024; }
@@ -353,7 +357,9 @@ constexpr int HEAD_BYTES = 1024 + NPL * PLANE + NB * PIECE + 8 * HEAD_BARS;
 // Grid: min(#SMs, tiles) blocks of HEAD_THREADS threads, dynamic shared
 // memory HEAD_BYTES. amap: attn_s (B, H, W, 128) as 4-D (128, W, H, B) with
 // boxes (64, SW, SH, 1); kmap: atk (9 * 128 rows, 16) with boxes (16, 64),
-// 32-byte swizzle. out (B, H, W, 12).
+// 32-byte swizzle. out (B, H, W, OUT4): OUT4 of the 16 columns, as 4-byte
+// pairs (at OUT4 = 4 a pixel's row is 8 bytes).
+template <int OUT4 = 12>
 __global__ void __launch_bounds__(HEAD_THREADS, 1)
 att_head_kernel(const __grid_constant__ sm90::TensorMap amap,
                 const __grid_constant__ sm90::TensorMap kmap, bf16* __restrict__ out, int B,
@@ -467,7 +473,7 @@ att_head_kernel(const __grid_constant__ sm90::TensorMap amap,
     release(NB - 1);
 
     // ---- epilogue: rows g and g + 8 of the warp's 16 pixels, per M-tile;
-    // columns 8 j + 2 q + e, the 12 real ones as 4-byte pairs
+    // columns 8 j + 2 q + e, the OUT4 real ones as 4-byte pairs
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       const int y = y0 + row_w + 2 * m;
@@ -528,7 +534,8 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __re
 }
 
 // Grid (ceil(W/TILE), ceil(H/TILE), B), NTHREADS threads, dynamic shared
-// memory Smem::bytes.
+// memory Smem::bytes. out (B, H, W, OUT4).
+template <int OUT4 = 12>
 __global__ void __launch_bounds__(NTHREADS, 1)
 att_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
                const float* __restrict__ gw, const float* __restrict__ gb,
@@ -653,6 +660,7 @@ att_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,
 
 namespace {
 
+template <int OUT4>
 int launch_bf16(const void* const* p, void* out, void* attn, int B, int H, int W,
                 cudaStream_t s) {
   const cuuint64_t npix = (cuuint64_t)B * H * W;
@@ -688,22 +696,23 @@ int launch_bf16(const void* const* p, void* out, void* attn, int B, int H, int W
       (int)npix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(att_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(att_head_kernel<OUT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              HEAD_BYTES);
   if (err != cudaSuccess) return (int)err;
-  att_head_kernel<<<(int)(tiles < sms ? tiles : sms), HEAD_THREADS, HEAD_BYTES, s>>>(
+  att_head_kernel<OUT4><<<(int)(tiles < sms ? tiles : sms), HEAD_THREADS, HEAD_BYTES, s>>>(
       am, km, static_cast<bf16*>(out), B, H, W);
   return (int)cudaGetLastError();
 }
 
+template <int OUT4>
 int launch_f32(const void* const* p, void* out, int B, int H, int W, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(att_f32_kernel,
+  cudaError_t err = cudaFuncSetAttribute(att_f32_kernel<OUT4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem::bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
   auto a = [&](int i) { return static_cast<const float*>(p[i]); };
-  att_f32_kernel<<<grid, NTHREADS, Smem::bytes, s>>>(
+  att_f32_kernel<OUT4><<<grid, NTHREADS, Smem::bytes, s>>>(
       a(0), a(1), a(2), a(3), a(4), a(5), a(6), a(7), a(8), a(9), a(10), a(11), a(12),
       static_cast<float*>(out), H, W);
   return (int)cudaGetLastError();
@@ -717,12 +726,18 @@ int launch_f32(const void* const* p, void* out, int B, int H, int W, cudaStream_
 // gw (64,32), gb (32), wg (32,32), bg (32), wx (128,32), bx (32), wpsi (32),
 // bpsi (1), rc (128,128) block-diagonal (bfloat16 reads its four diagonal
 // 32 x 32 blocks), brc (128), atk (9*128, 16) the head_at kernel with its
-// 12 columns zero-padded to 16. out: (B,H,W,12); attn: the scratch attn_s
-// (B,H,W,128) that bfloat16's two launches pass between them (unused in
-// float32).
+// out4 columns zero-padded to 16. out: (B,H,W,out4), out4 12 or 4; attn:
+// the scratch attn_s (B,H,W,128) that bfloat16's two launches pass between
+// them (unused in float32).
 extern "C" int att_head_block_launch(const void* const* ptrs, void* out, void* attn, int B, int H,
-                                     int W, int is_bf16, void* stream) {
+                                     int W, int out4, int is_bf16, void* stream) {
   if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(ptrs, out, attn, B, H, W, s) : launch_f32(ptrs, out, B, H, W, s);
+  if (out4 == 12)
+    return is_bf16 ? launch_bf16<12>(ptrs, out, attn, B, H, W, s)
+                   : launch_f32<12>(ptrs, out, B, H, W, s);
+  if (out4 == 4)
+    return is_bf16 ? launch_bf16<4>(ptrs, out, attn, B, H, W, s)
+                   : launch_f32<4>(ptrs, out, B, H, W, s);
+  return (int)cudaErrorInvalidValue;
 }

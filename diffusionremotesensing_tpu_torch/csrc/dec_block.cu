@@ -7,7 +7,11 @@
 //   h   = conv3x3(concat(xa, xb)) + ba          (stage-1 concat conv, 192 -> 64)
 //   hh  = relu(conv3x3(round(h + te)) + bb)     (UpConvBlock-2 body, 64 -> 64;
 //                                                zero padding of round(h + te))
-//   out = conv4x4(hh, head_up4, pad (1,2))      (composed head, 64 -> out4 = 12)
+//   out = conv4x4(hh, head_up4, pad (1,2))      (composed head, 64 -> out4)
+//
+// out4 = 4 out_dim is a template parameter, OUT4: 12 for the x2 and
+// class-conditional models, 4 for SAR->NDVI. The head computes NPAD = 16
+// columns either way (k4k is zero-padded); only the columns written change.
 //
 // and writes h (the gating branch reads it), hh's row 0 and column 0 (the
 // head's boundary strips, applied outside as in the reference) and out. The
@@ -130,7 +134,6 @@ constexpr int CA = 128;       // xa channels (the up branch)
 constexpr int CB = 64;        // xb channels (attention 1)
 constexpr int CK = CA + CB;   // concat channels
 constexpr int CM = 64;        // h and hh channels
-constexpr int OUT4 = 12;      // head channels written
 constexpr int NPAD = 16;      // head columns computed (the weight is zero-padded to 16)
 
 // ------------------------------------------------ bfloat16: wgmma kernels
@@ -212,9 +215,9 @@ __device__ __forceinline__ void tc_mma(float (&acc)[2][Tc<MODE>::N / 2],
 // (C, W, H, B) with boxes (64, SW, SH, 1) (CONCAT: xa, xb; BODY: h; HEAD:
 // hh); wmap: the weight matrix (rows tap * 64 NPLANE + channel, N columns)
 // with boxes (N, 64): W_a, W_b or k4k. bias: ba or bb (none for HEAD); te:
-// (B, 64), BODY's; out (B, H, W, N or 12), and BODY's strips r0 (B, 1, W,
-// 64) and c0 (B, H, 1, 64).
-template <int MODE>
+// (B, 64), BODY's; out (B, H, W, N or OUT4: HEAD writes OUT4 of its 16
+// columns), and BODY's strips r0 (B, 1, W, 64) and c0 (B, H, 1, 64).
+template <int MODE, int OUT4 = 12>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 dec_tc_kernel(const __grid_constant__ sm90::TensorMap amap,
               const __grid_constant__ sm90::TensorMap bmap,
@@ -395,7 +398,8 @@ dec_tc_kernel(const __grid_constant__ sm90::TensorMap amap,
         const bool inside = y < H && x < W;  // every lane takes part in the shuffles
         const size_t pix = ((size_t)b * H + y) * W + x;
         if constexpr (MODE == HEAD) {
-          // columns 8 j + 2 q + e; the 12 real ones as 4-byte pairs
+          // columns 8 j + 2 q + e; the OUT4 real ones as 4-byte pairs (at
+          // OUT4 = 4 a pixel's row is 8 bytes)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
             if (inside && 8 * j + 2 * q < OUT4)
@@ -525,7 +529,9 @@ dec_concat_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb
 }
 
 // Grid (ceil(W/TILE), ceil(H/TILE), B), NTHREADS threads, dynamic shared
-// memory TailSmem::bytes. wb: (9*CM, CM) BN folded; k4k: (16*CM, NPAD).
+// memory TailSmem::bytes. wb: (9*CM, CM) BN folded; k4k: (16*CM, NPAD);
+// out (B, H, W, OUT4).
+template <int OUT4 = 12>
 __global__ void __launch_bounds__(NTHREADS)
 dec_tail_f32_kernel(const float* __restrict__ h, const float* __restrict__ te,
                     const float* __restrict__ wb, const float* __restrict__ bb,
@@ -617,20 +623,21 @@ dec_tail_f32_kernel(const float* __restrict__ h, const float* __restrict__ te,
 
 namespace {
 
-template <int MODE>
+template <int MODE, int OUT4>
 int launch_mode(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& wmap,
                 const void* bias, const void* te, void* out, void* r0, void* c0, int B, int H,
                 int W, int grid, cudaStream_t s) {
   constexpr int smem = Tc<MODE>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(dec_tc_kernel<MODE>,
+  cudaError_t err = cudaFuncSetAttribute(dec_tc_kernel<MODE, OUT4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dec_tc_kernel<MODE><<<grid, TC_THREADS, smem, s>>>(
+  dec_tc_kernel<MODE, OUT4><<<grid, TC_THREADS, smem, s>>>(
       amap, bmap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(te),
       static_cast<bf16*>(out), static_cast<bf16*>(r0), static_cast<bf16*>(c0), B, H, W);
   return (int)cudaGetLastError();
 }
 
+template <int OUT4>
 int launch_bf16(const void* const* p, void* const* o, int B, int H, int W, cudaStream_t s) {
   const cuuint64_t b = B, h = H, w = W;
   const cuuint64_t xa_dims[4] = {CA, w, h, b}, xb_dims[4] = {CB, w, h, b};
@@ -655,16 +662,18 @@ int launch_bf16(const void* const* p, void* const* o, int B, int H, int W, cudaS
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const int grid = (int)(tiles < sms ? tiles : sms);
   // h, then hh and its strips, then out
-  int err = launch_mode<CONCAT>(xa, xb, wa, p[3], nullptr, o[0], nullptr, nullptr, B, H, W,
+  // OUT4 is HEAD's alone: one CONCAT and one BODY kernel serve both widths
+  int err = launch_mode<CONCAT, 12>(xa, xb, wa, p[3], nullptr, o[0], nullptr, nullptr, B, H, W,
                                 grid, s);
   if (err == 0)
-    err = launch_mode<BODY>(hm, hm, wb, p[6], p[4], o[4], o[1], o[2], B, H, W, grid, s);
+    err = launch_mode<BODY, 12>(hm, hm, wb, p[6], p[4], o[4], o[1], o[2], B, H, W, grid, s);
   if (err == 0)
-    err = launch_mode<HEAD>(hhm, hhm, k4, nullptr, nullptr, o[3], nullptr, nullptr, B, H, W,
+    err = launch_mode<HEAD, OUT4>(hhm, hhm, k4, nullptr, nullptr, o[3], nullptr, nullptr, B, H, W,
                             grid, s);
   return err;
 }
 
+template <int OUT4>
 int launch_f32(const void* const* p, void* const* o, int B, int H, int W, cudaStream_t s) {
   auto a = [&](int i) { return static_cast<const float*>(p[i]); };
   auto w = [&](int i) { return static_cast<float*>(o[i]); };
@@ -672,8 +681,8 @@ int launch_f32(const void* const* p, void* const* o, int B, int H, int W, cudaSt
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)ConcatSmem::bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dec_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)TailSmem::bytes);
+  err = cudaFuncSetAttribute(dec_tail_f32_kernel<OUT4>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TailSmem::bytes);
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)B * H * W;
   dec_concat_f32_kernel<<<(unsigned)((total + MP - 1) / MP), NTHREADS, ConcatSmem::bytes, s>>>(
@@ -681,8 +690,8 @@ int launch_f32(const void* const* p, void* const* o, int B, int H, int W, cudaSt
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  dec_tail_f32_kernel<<<grid, NTHREADS, TailSmem::bytes, s>>>(w(0), a(4), a(5), a(6), a(7), w(1),
-                                                              w(2), w(3), H, W);
+  dec_tail_f32_kernel<OUT4><<<grid, NTHREADS, TailSmem::bytes, s>>>(
+      w(0), a(4), a(5), a(6), a(7), w(1), w(2), w(3), H, W);
   return (int)cudaGetLastError();
 }
 
@@ -692,12 +701,17 @@ int launch_f32(const void* const* p, void* const* o, int B, int H, int W, cudaSt
 // success). ins, contiguous and of one type (bfloat16 if is_bf16, else
 // float32): xa (B,H,W,128), xb (B,H,W,64), wa (9*192, 64), ba (64),
 // te (B,64), wb (9*64, 64), bb (64), k4k (16*64, 16) the head_up4 kernel
-// with its 12 columns zero-padded to 16. outs: h (B,H,W,64),
-// hh row 0 (B,1,W,64), hh column 0 (B,H,1,64), out (B,H,W,12), and the
-// scratch hh (B,H,W,64) that bfloat16's head reads (unused in float32).
+// with its out4 columns zero-padded to 16. outs: h (B,H,W,64),
+// hh row 0 (B,1,W,64), hh column 0 (B,H,1,64), out (B,H,W,out4), out4 12
+// or 4, and the scratch hh (B,H,W,64) that bfloat16's head reads (unused
+// in float32).
 extern "C" int dec_block_launch(const void* const* ins, void* const* outs, int B, int H, int W,
-                                int is_bf16, void* stream) {
+                                int out4, int is_bf16, void* stream) {
   if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(ins, outs, B, H, W, s) : launch_f32(ins, outs, B, H, W, s);
+  if (out4 == 12)
+    return is_bf16 ? launch_bf16<12>(ins, outs, B, H, W, s) : launch_f32<12>(ins, outs, B, H, W, s);
+  if (out4 == 4)
+    return is_bf16 ? launch_bf16<4>(ins, outs, B, H, W, s) : launch_f32<4>(ins, outs, B, H, W, s);
+  return (int)cudaErrorInvalidValue;
 }

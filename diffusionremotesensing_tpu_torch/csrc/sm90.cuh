@@ -418,8 +418,10 @@ inline void wgmma_m64n256k16(float (&d)[128], const uint32_t (&a)[4], uint64_t d
 }
 
 // an mbarrier as one 64-bit word: arrivals pending in the current phase
-// (bits 0-15), the count given to mbar_init (16-31), the phase (32), bytes
-// still to land (33-63); the phase completes when both reach 0
+// (bits 0-15), the count given to mbar_init (16-31), the phases completed,
+// mod 2^16 (32-47: bit 32 is the phase parity the card keeps), and the
+// 16-byte units still to land (48-63: every TMA transaction is a multiple
+// of 16 bytes); the phase completes when both reach 0
 inline void mbar_init(uint64_t* bar, unsigned count) {
   std::atomic_ref<uint64_t>(*bar).store(uint64_t(count) << 16 | count);
 }
@@ -429,21 +431,35 @@ inline void emu_mbar_update(uint64_t* bar, int arrivals, long long tx) {
   uint64_t old = r.load(), nxt;
   do {
     uint64_t pending = (old & 0xffff) - arrivals, expected = (old >> 16) & 0xffff;
-    uint64_t phase = (old >> 32) & 1, bytes = uint64_t((long long)(old >> 33) + tx);
-    if (pending == 0 && bytes == 0) {
-      phase ^= 1;
+    uint64_t phases = (old >> 32) & 0xffff, units = uint64_t((long long)(old >> 48) + tx / 16);
+    if (pending == 0 && units == 0) {
+      phases = (phases + 1) & 0xffff;
       pending = expected;
     }
-    nxt = pending | expected << 16 | phase << 32 | bytes << 33;
+    nxt = pending | expected << 16 | phases << 32 | units << 48;
   } while (!r.compare_exchange_weak(old, nxt));
 }
 inline void mbar_arrive(uint64_t* bar) { emu_mbar_update(bar, 1, 0); }
 inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   emu_mbar_update(bar, 1, bytes);
 }
+// The card's test, "the phase of parity `parity` before the current one has
+// completed", holds for a lane in step with its warp. Here a warp's lanes
+// are threads of their own, and a lane that only waits (a producer warp's
+// lanes past the one that issues) can fall two phases behind, where the
+// parity test would never pass again. So each thread counts the phases it
+// has waited through (from -1: a fresh barrier's parity-1 wait passes at
+// once) and waits for the first phase of `parity` at or after them to
+// complete: the same answer for a thread in step, and the right one for a
+// thread behind.
 inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  thread_local std::unordered_map<const uint64_t*, long long> waited;
+  long long& seen = waited.try_emplace(bar, -1).first->second;
+  const long long phase = (seen & 1) == (long long)parity ? seen : seen + 1;
   std::atomic_ref<uint64_t> r(*bar);
-  while (((r.load() >> 32) & 1) == parity) std::this_thread::yield();
+  // phases completed minus (phase + 1), mod 2^16: not negative once it has
+  while ((((r.load() >> 32) - uint64_t(phase + 1)) & 0xffff) >= 0x8000) std::this_thread::yield();
+  seen = phase + 1;
 }
 // a tensor of 2-byte elements, up to 4-D: base, extents (innermost first;
 // 1 past the rank), strides in bytes (stride[0] = 2), the box a load

@@ -14,9 +14,17 @@
 //
 // with the BatchNorms folded by ops/tap_block.py:build_block_weights (W1's
 // three column blocks) and conv0 in the tap form (ops/tap_conv.py:
-// tap_weight, K = 16 pieces x 3 channels = 48). Products accumulate in
+// tap_weight, K0 = 16 pieces x Cx channels). Products accumulate in
 // float32; h_s, h and out are rounded to the input type where the TPU
 // kernel rounds them.
+//
+// The models' widths are template parameters: CX4 = 4 Cx, the s2d input
+// channels, 12 (the x2 and class-conditional models, 3 image channels; K0 =
+// 48, three k-steps of the wgmma product) or 4 (SAR->NDVI, 1 NDVI channel;
+// K0 = 16, one k-step); COND, whether a condition tensor is added. Without
+// one (the class-conditional and unconditioned models) base = b0 and no
+// cond pointer is read: the counterpart of the TPU kernel's bias-only
+// slabs built at B = 1, with no (B, H2, W2, 64) tensor of zeros.
 //
 // What bounds it. At the main path's shape (B=48, 64x64 s2d pixels = 128x128
 // pixels, x 3 channels, h_s 16, the block 32) the function's own work is
@@ -78,8 +86,6 @@ constexpr int HW = TW + 2;      // h slab width: 16, a warp tile's rows
 constexpr int SW = TW + 4;      // h_s slab width
 constexpr int NC = 64;          // columns of a warp tile
 constexpr int LDC = 2 * NC + 4; // a warp's epilogue buffer: two warp tiles side by side
-constexpr int CX4 = 12;         // s2d input channels (4 taps x 3)
-constexpr int K0 = 48;          // conv0 im2col width (16 pieces x 3 channels)
 constexpr int C14 = 64;         // h_s channels (4 taps x 16)
 constexpr int CI = C14 / 4;
 constexpr int CO4 = 128;        // block channels (4 taps x 32)
@@ -105,10 +111,10 @@ template <typename T> struct Smem {
 };
 
 // Grid (ceil(W2/TW), ceil(H2/TH), B), NTHREADS threads, dynamic shared
-// memory Smem<T>::bytes. x (B,H2,W2,12), cond (B,H2,W2,64), te4 (B,128),
-// w0 (48,64), b0 (64), w1 (256,384), w2 (512,128), b1/bsk/bsh/b2 (128),
-// out (B,H2,W2,128).
-template <typename T>
+// memory Smem<T>::bytes. x (B,H2,W2,CX4), cond (B,H2,W2,64) (COND; else
+// unread), te4 (B,128), w0 (4 CX4,64), b0 (64), w1 (256,384), w2 (512,128),
+// b1/bsk/bsh/b2 (128), out (B,H2,W2,128).
+template <typename T, int CX4 = 12, bool COND = true>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __restrict__ te4,
                 const T* __restrict__ w0, const T* __restrict__ b0, const T* __restrict__ w1,
@@ -117,6 +123,8 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
                 int W2) {
   using L = Smem<T>;
   constexpr int TH = Cfg<T>::TH, LDS = Cfg<T>::LDS, LDH = Cfg<T>::LDH;
+  constexpr int CX = CX4 / 4, K0 = 4 * CX4;  // image channels; conv0's im2col width
+  static_assert(16 * K0 * sizeof(T) <= 16 * LDC * sizeof(float), "a0 fits the warp's buffer");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* hs = reinterpret_cast<T*>(smem_raw + L::hs);
   T* hh = reinterpret_cast<T*>(smem_raw + L::hh);
@@ -125,18 +133,18 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const T* xb = x + (size_t)b * H2 * W2 * CX4;
-  const T* cbat = cond + (size_t)b * H2 * W2 * C14;
+  const T* cbat = COND ? cond + (size_t)b * H2 * W2 * C14 : nullptr;
 
   // ---- phase 0: h_s on its slab (image origin (y0 - 2, x0 - 2)), 16 slab
   // pixels a warp tile; conv0's im2col is staged in the warp's buffer
   T* a0 = reinterpret_cast<T*>(cb);  // [16][K0]
   for (int q = warp; q * 16 < L::NS0; q += NWARP) {
     for (int e = lane; e < 16 * K0; e += 32) {
-      const int r = e / K0, k = e % K0, piece = k / 3, p = q * 16 + r;
+      const int r = e / K0, k = e % K0, piece = k / CX, p = q * 16 + r;
       const int yy = y0 - 2 + p / SW + kPieceRow[piece] - 1;
       const int xx = x0 - 2 + p % SW + kPieceCol[piece] - 1;
       const bool inside = p < L::NS0 && yy >= 0 && yy < H2 && xx >= 0 && xx < W2;
-      a0[r * K0 + k] = inside ? xb[((size_t)yy * W2 + xx) * CX4 + (piece & 3) * 3 + k % 3]
+      a0[r * K0 + k] = inside ? xb[((size_t)yy * W2 + xx) * CX4 + (piece & 3) * CX + k % CX]
                               : from_f<T>(0.f);
     }
     __syncwarp();
@@ -153,7 +161,8 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
       float v = 0.f;
       if (hy >= 0 && hy < H2 && hx >= 0 && hx < W2)
         v = cb[r * LDC + c] +
-            round_to<T>(to_f(b0[c]) + to_f(cbat[((size_t)hy * W2 + hx) * C14 + c]));
+            round_to<T>(to_f(b0[c]) +
+                        (COND ? to_f(cbat[((size_t)hy * W2 + hx) * C14 + c]) : 0.f));
       hs[p * LDS + c] = from_f<T>(v);
     }
     __syncwarp();
@@ -224,20 +233,25 @@ tap_stem_kernel(const T* __restrict__ x, const T* __restrict__ cond, const T* __
 
 constexpr int S_THREADS = 128;             // one warpgroup: a tile of 4 x 32 pixels
 constexpr int S_TH = 4;
-constexpr int S_BYTES = 1024 + K0 * 128;   // W0 (48 rows x 64 columns) and its alignment
+// W0 (K0 = 4 CX4 rows x 64 columns, 128 bytes a row) and its alignment
+__host__ __device__ constexpr int s_bytes(int cx4) { return 1024 + 4 * cx4 * 128; }
 
 // Grid (ceil(W2/32), ceil(H2/4), B), S_THREADS threads, dynamic shared
-// memory S_BYTES. h_s = round(im2col4x4(x) @ W0 + round(b0 + cond)) on the
-// tile's pixels inside the image: x (B,H2,W2,12), cond and hs (B,H2,W2,64),
-// w0 (48,64), b0 (64). Warp w owns, in M-tile m, tile row 2 m + w / 2,
+// memory s_bytes(CX4). h_s = round(im2col4x4(x) @ W0 + round(b0 + cond))
+// on the tile's pixels inside the image: x (B,H2,W2,CX4), cond (COND; else
+// unread) and hs (B,H2,W2,64), w0 (4 CX4,64), b0 (64). K0 / 16 k-steps: 3
+// at CX4 = 12, 1 at CX4 = 4. Warp w owns, in M-tile m, tile row 2 m + w / 2,
 // pixels 16 (w % 2) .. + 15, as a warpgroup of tap_tc_kernel does. Blocks
 // of one warpgroup (155 registers a thread) let three share an SM, so that
 // one block's loads overlap another's MMAs and stores.
+template <int CX4 = 12, bool COND = true>
 __global__ void __launch_bounds__(S_THREADS)
 stem_conv0_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
                   const bf16* __restrict__ w0, const bf16* __restrict__ b0, bf16* __restrict__ hs,
                   int H2, int W2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int CX = CX4 / 4, K0 = 4 * CX4;  // image channels; conv0's im2col width
+  static_assert(K0 % 16 == 0, "whole k-steps");
   unsigned char* w0s = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int w = warp, g = lane / 4, q = lane % 4;
@@ -246,15 +260,16 @@ stem_conv0_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
 
   // cond, the largest input, is read first: this lane's column pairs
   // 8 jj + 2 q (+1) of its four pixels (rows g and g + 8 of each M-tile),
-  // zero outside the image, as packed bf16 pairs
+  // zero outside the image (and everywhere without COND), as packed bf16
+  // pairs
   uint32_t cnd[2][2][C14 / 8];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int y = y0 + row_w + 2 * m, px = x0 + px_w + g + 8 * h;
-      const bool inside = y < H2 && px < W2;
-      const bf16* cp = cond + (((size_t)b * H2 + y) * W2 + px) * C14 + 2 * q;
+      const bool inside = COND && y < H2 && px < W2;
+      const bf16* cp = COND ? cond + (((size_t)b * H2 + y) * W2 + px) * C14 + 2 * q : nullptr;
 #pragma unroll
       for (int jj = 0; jj < C14 / 8; ++jj)
         cnd[m][h][jj] = inside ? *reinterpret_cast<const uint32_t*>(cp + 8 * jj) : 0u;
@@ -271,15 +286,16 @@ stem_conv0_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
 
   // A, the im2col of x, straight into wgmma's A fragments (rows g and g + 8
   // of the warp's 16 pixels, columns 2 q (+1) and 2 q + 8 (+1) of a k-step):
-  // column k is channel k % 3 of tap block piece % 4 at piece k / 3's shift,
-  // zero outside the image. x's 24-byte pixels are read through the caches.
+  // column k is channel k % CX of tap block piece % 4 at piece k / CX's
+  // shift, zero outside the image. x's 2 CX4-byte pixels are read through
+  // the caches.
   const bf16* xb = x + (size_t)b * H2 * W2 * CX4;
   auto x_bits = [&](int y, int px, int k) -> uint32_t {
-    const int piece = k / 3;
+    const int piece = k / CX;
     const int yy = y + kPieceRow[piece] - 1, xx = px + kPieceCol[piece] - 1;
     if (yy < 0 || yy >= H2 || xx < 0 || xx >= W2) return 0u;
-    return *reinterpret_cast<const uint16_t*>(xb + ((size_t)yy * W2 + xx) * CX4 + (piece & 3) * 3 +
-                                              k % 3);
+    return *reinterpret_cast<const uint16_t*>(xb + ((size_t)yy * W2 + xx) * CX4 +
+                                              (piece & 3) * CX + k % CX);
   };
   uint32_t a[K0 / 16][2][4];
 #pragma unroll
@@ -346,31 +362,41 @@ stem_conv0_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cond,
 
 namespace {
 
+template <int CX4, bool COND>
 int launch_f32(const void* const* p, void* out, int B, int H2, int W2, cudaStream_t s) {
   using T = float;
   const size_t smem = Smem<T>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(tap_stem_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(tap_stem_kernel<T, CX4, COND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const T* q[11];
   for (int i = 0; i < 11; ++i) q[i] = static_cast<const T*>(p[i]);
   const dim3 grid((W2 + TW - 1) / TW, (H2 + Cfg<T>::TH - 1) / Cfg<T>::TH, B);
-  tap_stem_kernel<T><<<grid, NTHREADS, smem, s>>>(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7],
-                                                   q[8], q[9], q[10], static_cast<T*>(out), H2, W2);
+  tap_stem_kernel<T, CX4, COND><<<grid, NTHREADS, smem, s>>>(
+      q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10], static_cast<T*>(out), H2,
+      W2);
   return (int)cudaGetLastError();
 }
 
 // conv0 into hs, then the block (tap_block_sm90.cuh) on hs with h as its seam
+template <int CX4, bool COND>
 int launch_bf16(const void* const* p, void* out, void* hs, void* h, int B, int H2, int W2,
                 cudaStream_t s) {
   auto a = [&](int i) { return static_cast<const bf16*>(p[i]); };
   const dim3 grid((W2 + TC_TW - 1) / TC_TW, (H2 + S_TH - 1) / S_TH, B);
-  stem_conv0_kernel<<<grid, S_THREADS, S_BYTES, s>>>(a(0), a(1), a(3), a(4),
-                                                     static_cast<bf16*>(hs), H2, W2);
+  stem_conv0_kernel<CX4, COND><<<grid, S_THREADS, s_bytes(CX4), s>>>(
+      a(0), a(1), a(3), a(4), static_cast<bf16*>(hs), H2, W2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const void* q[8] = {hs, p[2], p[5], p[6], p[7], p[8], p[9], p[10]};  // x, te4, w1, w2, biases
   return launch_block_tc<0>(q, h, out, B, H2, W2, s);
+}
+
+template <int CX4, bool COND>
+int launch(const void* const* p, void* out, void* hs, void* h, int B, int H2, int W2,
+           int is_bf16, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<CX4, COND>(p, out, hs, h, B, H2, W2, s)
+                 : launch_f32<CX4, COND>(p, out, B, H2, W2, s);
 }
 
 }  // namespace
@@ -384,11 +410,19 @@ extern "C" size_t tap_stem_block_smem(int is_bf16) {
 // Launch on `stream`; returns the first cudaError_t (0 on success).
 // p: x, cond, te4, w0, b0, w1, w2, b1, bsk, bsh, b2 (shapes above the
 // kernels), all contiguous, all of one type: bfloat16 (is_bf16 != 0) or
-// float32; out (B,H2,W2,128). bfloat16 also takes the scratch h_s
-// (B,H2,W2,64) and h (B,H2,W2,128), its launches' seams (float32: unused).
+// float32; cond null for the bias-only stem; out (B,H2,W2,128). cx4: x's
+// channels, 12 or 4. bfloat16 also takes the scratch h_s (B,H2,W2,64) and
+// h (B,H2,W2,128), its launches' seams (float32: unused).
 extern "C" int tap_stem_block_launch(const void* const* p, void* out, void* hs, void* h, int B,
-                                     int H2, int W2, int is_bf16, void* stream) {
+                                     int H2, int W2, int cx4, int is_bf16, void* stream) {
   if (B < 1 || H2 < 1 || W2 < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(p, out, hs, h, B, H2, W2, s) : launch_f32(p, out, B, H2, W2, s);
+  const bool cond = p[1] != nullptr;
+  if (cx4 == 12)
+    return cond ? launch<12, true>(p, out, hs, h, B, H2, W2, is_bf16, s)
+                : launch<12, false>(p, out, hs, h, B, H2, W2, is_bf16, s);
+  if (cx4 == 4)
+    return cond ? launch<4, true>(p, out, hs, h, B, H2, W2, is_bf16, s)
+                : launch<4, false>(p, out, hs, h, B, H2, W2, is_bf16, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,10 @@ either of the two formats the reference package reads:
   of ``import_torch_state_dict``.
 
 Either way :func:`load_snapshot` returns a state_dict for
-:class:`~diffusionremotesensing_tpu_torch.models.unet.ResidualAttentionUNet`,
-through :func:`~diffusionremotesensing_tpu_torch.convert.from_jax_variables`.
+:class:`~diffusionremotesensing_tpu_torch.models.unet.ResidualAttentionUNet`
+of the snapshot's model (super-resolution, SAR->NDVI or class-conditional,
+read from its variables), through
+:func:`~diffusionremotesensing_tpu_torch.convert.from_jax_variables`.
 Orbax checkpoint directories are not read (ROADMAP, Queue 1).
 
 Example:

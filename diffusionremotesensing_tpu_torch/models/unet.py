@@ -1,8 +1,21 @@
-"""The Residual Attention UNet, super-resolution variant (port of
-``diffusionremotesensing_tpu/models/unet.py``).
+"""The Residual Attention UNet (port of
+``diffusionremotesensing_tpu/models/unet.py``), in its conditionings:
 
-Skeleton: stem 3x3 conv to 16 channels plus the condition stem (RRDB
-encode, torch-bicubic x``magnification_factor`` upsample, 3x3 conv); three
+* ``superres``: condition = the LR image: RRDB encode, torch-bicubic
+  x``magnification_factor`` upsample, 3x3 conv, added to the stem;
+* ``sar``: condition = the SAR image on the output grid (2 channels for 1
+  NDVI channel): RRDB encode and 3x3 conv, no upsample;
+* ``class``: condition = integer labels: ``label_emb`` (Embedding(num_classes,
+  100)) added to the time embedding, multiplied per sample by ``cond_mask``
+  (1 conditioned, 0 unconditioned: classifier-free guidance in one call);
+* ``none``: unconditioned.
+
+Attribute names follow the reference torch model of each task
+(LR_encoder / conv_upsampled_lr_img, SAR_encoder / conv_SAR_img, and the
+blocks' unused skip conv under the same name or ``conv_skip``), so its
+``state_dict()`` is the reference's.
+
+Skeleton: stem 3x3 conv to 16 channels plus the condition stem; three
 ResConvBlocks (16->32->64->128), each followed by a stride-2 3x3 conv;
 bottleneck ResConvBlock 128->256; three up stages of [gating signal ->
 additive attention gate on the skip -> UpConvBlock x2 -> concat -> 3x3
@@ -45,10 +58,12 @@ and 1 on the s2d path (gate 2 there is the s2d gate or ``att_head_block``;
 under ``tap44='l1'`` gate 1 is the s2d gate too).
 
 Public tensors are NHWC, as in the reference package: ``forward`` takes x
-(B, H, W, 3), t (B,) and the LR condition (B, H/mag, W/mag, 3), and returns
-float32 (B, H, W, 3). Inference only. The compute dtype is the dtype of the
-parameters (``model.to(torch.bfloat16)``); ``prepare_s2d_kernels`` folds in
-float32 whatever the parameters' dtype.
+(B, H, W, image_channels), t (B,), the condition (the LR image (B, H/mag,
+W/mag, C), the SAR image (B, H, W, 2), labels (B,) or None) and
+``cond_mask`` (B,) or None, and returns float32 (B, H, W, out_dim).
+Inference only. The compute dtype is the dtype of the parameters
+(``model.to(torch.bfloat16)``); ``prepare_s2d_kernels`` folds in float32
+whatever the parameters' dtype.
 """
 
 from __future__ import annotations
@@ -95,6 +110,12 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
 from diffusionremotesensing_tpu_torch.ops.tap_conv import tap_conv, tap_conv_pair, tap_weight
 
 TAP44_LEVELS = (False, "conv2", True, "block", "stem", "l1")
+CONDITIONINGS = ("superres", "sar", "class", "none")
+# the reference torch model's names of the condition encoder, its conv and
+# the blocks' (unused) skip conv, per conditioning
+_NAMES = {"superres": ("LR_encoder", "conv_upsampled_lr_img", "conv_upsampled_lr_img"),
+          "sar": ("SAR_encoder", "conv_SAR_img", "conv_SAR_img"),
+          "class": (None, None, "conv_skip"), "none": (None, None, "conv_skip")}
 
 # kernel-dict entries that are HWIO conv kernels (stored OIHW, channels-last)
 _CONV_KEYS = ("conv0", "blk_conv1", "blk_skip", "blk_conv2", "blk_short", "down0", "att_wx",
@@ -123,7 +144,8 @@ def _bn_affine(bn: nn.BatchNorm2d, taps: bool = True):
 
 
 class ResidualAttentionUNet(nn.Module):
-    """Epsilon-predicting Residual Attention UNet conditioned on an LR image."""
+    """Epsilon-predicting Residual Attention UNet, conditioned as
+    ``conditioning`` says (module docstring)."""
 
     def __init__(
         self,
@@ -131,7 +153,8 @@ class ResidualAttentionUNet(nn.Module):
         image_channels: int = 3,
         out_dim: int = 3,
         cond_channels: int = 3,
-        magnification_factor: int = 2,
+        num_classes: Optional[int] = None,
+        magnification_factor: Optional[int] = 2,
         time_emb_dim: int = 100,
         down_channels: Tuple[int, ...] = (16, 32, 64, 128, 256),
         up_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
@@ -141,10 +164,16 @@ class ResidualAttentionUNet(nn.Module):
         dec_block: bool = False,
         use_pallas: bool = False,
         packed_head: bool = False,
+        s2d_train: bool = False,
     ):
         super().__init__()
-        if conditioning != "superres":
-            raise NotImplementedError(f"conditioning={conditioning!r} is not ported yet")
+        if conditioning not in CONDITIONINGS:
+            raise ValueError(f"conditioning must be one of {CONDITIONINGS}, got {conditioning!r}")
+        if conditioning == "superres" and magnification_factor is None:
+            raise ValueError("superres conditioning requires magnification_factor")
+        if s2d_train:
+            raise NotImplementedError("s2d_train (the s2d training forward) waits for the port "
+                                      "of training")
         if not isinstance(tap44, (bool, str)) or tap44 not in TAP44_LEVELS:
             raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
         if (fused_att or dec_block or packed_head) and not s2d:
@@ -154,6 +183,7 @@ class ResidualAttentionUNet(nn.Module):
         self.image_channels = image_channels
         self.out_dim = out_dim
         self.cond_channels = cond_channels
+        self.num_classes = num_classes
         self.magnification_factor = magnification_factor
         self.time_emb_dim = time_emb_dim
         self.down_channels = tuple(down_channels)
@@ -167,14 +197,19 @@ class ResidualAttentionUNet(nn.Module):
         dc, uc = self.down_channels, self.up_channels
         n_lv = len(dc) - 2
 
+        enc_name, cond_conv_name, skip_name = _NAMES[conditioning]
+        self._enc_name, self._cond_conv_name = enc_name, cond_conv_name
         self.conv0 = TorchConv(image_channels, dc[0], 3)
-        self.LR_encoder = RRDB(cond_channels, num_blocks=3)
-        self.conv_upsampled_lr_img = TorchConv(cond_channels, dc[0], 3)
+        if enc_name is not None:
+            setattr(self, enc_name, RRDB(cond_channels, num_blocks=3))
+            setattr(self, cond_conv_name, TorchConv(cond_channels, dc[0], 3))
+        if conditioning == "class" and num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, time_emb_dim)
         self.conv_blocks = nn.ModuleList(
-            [ResConvBlock(dc[i], dc[i + 1], time_emb_dim) for i in range(n_lv)])
+            [ResConvBlock(dc[i], dc[i + 1], time_emb_dim, skip_name) for i in range(n_lv)])
         self.downs = nn.ModuleList(
             [TorchConv(dc[i + 1], dc[i + 1], 3, stride=2) for i in range(n_lv)])
-        self.bottle_neck = ResConvBlock(dc[-2], dc[-1], time_emb_dim)
+        self.bottle_neck = ResConvBlock(dc[-2], dc[-1], time_emb_dim, skip_name)
         self.gating_signals = nn.ModuleList(
             [GatingSignal(uc[i], uc[i + 1]) for i in range(n_lv)])
         self.attention_blocks = nn.ModuleList(
@@ -194,14 +229,22 @@ class ResidualAttentionUNet(nn.Module):
         fused_att or dec_block the head's convs live in those kernels."""
         return self.packed_head and not (self.fused_att or self.dec_block)
 
+    @property
+    def image_conditioned(self) -> bool:
+        return self._enc_name is not None
+
     # ------------------------------------------------------------ condition
 
     def encode_cond(self, cond: torch.Tensor) -> torch.Tensor:
-        """Condition stem, NHWC in and out: RRDB encode, bicubic upsample,
-        3x3 conv. Loop-invariant during sampling: samplers call it once."""
-        c = self.LR_encoder(cond.to(self.dtype).permute(0, 3, 1, 2))
-        c = upsample_bicubic(c.permute(0, 2, 3, 1), self.magnification_factor)
-        return self.conv_upsampled_lr_img(c.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        """Condition stem, NHWC in and out: RRDB encode, bicubic upsample
+        (superres only), 3x3 conv. Loop-invariant during sampling: samplers
+        call it once."""
+        if not self.image_conditioned:
+            raise ValueError("encode_cond applies to the image-conditioned variants")
+        c = getattr(self, self._enc_name)(cond.to(self.dtype).permute(0, 3, 1, 2))
+        if self.conditioning == "superres":
+            c = upsample_bicubic(c.permute(0, 2, 3, 1), self.magnification_factor).permute(0, 3, 1, 2)
+        return getattr(self, self._cond_conv_name)(c).permute(0, 2, 3, 1)
 
     def encode_cond_s2d(self, cond: torch.Tensor) -> torch.Tensor:
         """:meth:`encode_cond` in space-to-depth layout (the s2d path's input)."""
@@ -209,12 +252,23 @@ class ResidualAttentionUNet(nn.Module):
 
     # ------------------------------------------------------------- forward
 
-    def forward(self, x, t, cond=None, cond_features=None, s2d_kernels=None,
+    def time_embedding(self, t, cond=None, cond_mask=None) -> torch.Tensor:
+        """The sinusoidal embedding of t, plus (class conditioning) the label
+        embedding of ``cond`` times ``cond_mask``, in the compute dtype."""
+        t_emb = sinusoidal_time_embedding(t, self.time_emb_dim)
+        if self.conditioning == "class" and self.num_classes is not None and cond is not None:
+            lab = self.label_emb(cond.long()).float()
+            if cond_mask is not None:
+                lab = lab * cond_mask.float()[:, None]
+            t_emb = t_emb + lab
+        return t_emb.to(self.dtype)
+
+    def forward(self, x, t, cond=None, cond_mask=None, cond_features=None, s2d_kernels=None,
                 s2d_io: bool = False):
-        t_emb = sinusoidal_time_embedding(t, self.time_emb_dim).to(self.dtype)
-        if cond_features is None:
+        t_emb = self.time_embedding(t, cond, cond_mask)
+        if self.image_conditioned and cond_features is None:
             if cond is None:
-                raise ValueError("conditioning='superres' requires a condition image")
+                raise ValueError(f"conditioning={self.conditioning!r} requires a condition image")
             cond_features = self.encode_cond_s2d(cond) if self.s2d else self.encode_cond(cond)
         if self.s2d:
             if s2d_kernels is None:
@@ -222,7 +276,8 @@ class ResidualAttentionUNet(nn.Module):
             return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io)
 
         h = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
-        h = h + cond_features.to(self.dtype).permute(0, 3, 1, 2)
+        if cond_features is not None:
+            h = h + cond_features.to(self.dtype).permute(0, 3, 1, 2)
         x_skip = h
         residuals = []
         for i, (block, down) in enumerate(zip(self.conv_blocks, self.downs)):
@@ -405,12 +460,15 @@ class ResidualAttentionUNet(nn.Module):
         blk = self.conv_blocks[0]
         te4 = blk.time_bias(t_emb).repeat(1, 4)
         if self.tap44 == "stem":
-            # conv0 + bias + cond and the whole block in one call
-            res0_s = tap_stem_block(xs.contiguous(), cond_s2d.to(dt).contiguous(),
-                                    te4.contiguous(), kern["conv0_b"], kern["tap_stem"])
+            # conv0 + bias + cond and the whole block in one call; without a
+            # condition image the kernel adds the bias alone
+            cond_in = None if cond_s2d is None else cond_s2d.to(dt).contiguous()
+            res0_s = tap_stem_block(xs.contiguous(), cond_in, te4.contiguous(), kern["conv0_b"],
+                                    kern["tap_stem"])
             return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
         h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
-        h_s = h_s + cond_s2d.to(dt)
+        if cond_s2d is not None:
+            h_s = h_s + cond_s2d.to(dt)
         if self.tap44 in ("block", "l1"):
             res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
         else:
@@ -528,13 +586,44 @@ def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
                                      magnification_factor: int = 2, s2d: bool = False,
                                      tap44: object = False, fused_att: bool = False,
                                      dec_block: bool = False, use_pallas: bool = False,
-                                     packed_head: bool = False) -> ResidualAttentionUNet:
+                                     packed_head: bool = False,
+                                     s2d_train: bool = False) -> ResidualAttentionUNet:
     """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
     return ResidualAttentionUNet(
         conditioning="superres", image_channels=image_channels, out_dim=out_dim,
         cond_channels=image_channels, magnification_factor=magnification_factor,
         s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas,
-        packed_head=packed_head,
+        packed_head=packed_head, s2d_train=s2d_train,
+    )
+
+
+def residual_attention_unet_sar_to_ndvi(sar_channels: int = 2, ndvi_channels: int = 1,
+                                        s2d: bool = False, tap44: object = False,
+                                        fused_att: bool = False, dec_block: bool = False,
+                                        use_pallas: bool = False, packed_head: bool = False,
+                                        s2d_train: bool = False) -> ResidualAttentionUNet:
+    """SAR->NDVI UNet conditioned on the SAR image (4,382,238 parameters)."""
+    return ResidualAttentionUNet(
+        conditioning="sar", image_channels=ndvi_channels, out_dim=ndvi_channels,
+        cond_channels=sar_channels, magnification_factor=None, s2d=s2d, tap44=tap44,
+        fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas, packed_head=packed_head,
+        s2d_train=s2d_train,
+    )
+
+
+def residual_attention_unet_generation(image_channels: int = 3, out_dim: int = 3,
+                                       num_classes: Optional[int] = 10, s2d: bool = False,
+                                       tap44: object = False, fused_att: bool = False,
+                                       dec_block: bool = False, use_pallas: bool = False,
+                                       packed_head: bool = False,
+                                       s2d_train: bool = False) -> ResidualAttentionUNet:
+    """Class-conditional UNet with CFG masking (4,383,022 parameters at 10
+    classes); ``num_classes=None`` is unconditional."""
+    return ResidualAttentionUNet(
+        conditioning="class", image_channels=image_channels, out_dim=out_dim,
+        num_classes=num_classes, magnification_factor=None, s2d=s2d, tap44=tap44,
+        fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas, packed_head=packed_head,
+        s2d_train=s2d_train,
     )
 
 

@@ -96,7 +96,7 @@ def att_head_block_plain(x_s2d: torch.Tensor, h: torch.Tensor, w: dict) -> torch
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("att_head_block")
-    lib.att_head_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    lib.att_head_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.att_head_block_launch.restype = ctypes.c_int
     return lib
@@ -104,8 +104,9 @@ def _library():
 
 # the kernel's operands after x and h, in its argument order
 _WEIGHTS = ("gw", "gb", "wg", "bg", "wx", "bx", "wpsi", "bpsi", "rc", "brc", "atk")
-# the widths csrc/att_head_block.cu is compiled for: the x2 model's level 0
-_C4, _C, _CH, _OUT4 = 128, 32, 64, 12
+# the widths csrc/att_head_block.cu is compiled for: level 0 of the models,
+# whose head writes 12 channels (3 output channels) or 4 (SAR->NDVI's 1)
+_C4, _C, _CH, _OUT4S = 128, 32, 64, (12, 4)
 
 
 def _check(x_s2d, h, w):
@@ -113,9 +114,9 @@ def _check(x_s2d, h, w):
         raise TypeError(f"att_head_block takes float32 or bfloat16, got {x_s2d.dtype}")
     if x_s2d.dim() != 4 or x_s2d.shape[3] != _C4:
         raise ValueError(f"att_head_block: x_s2d must be (B, H, W, {_C4}), got {tuple(x_s2d.shape)}")
-    if tuple(w["at"].shape[2:]) != (_C4, _OUT4):
-        raise ValueError(f"att_head_block: head_at must be (3, 3, {_C4}, {_OUT4}), "
-                         f"got {tuple(w['at'].shape)}")
+    if w["at"].shape[2] != _C4 or w["at"].shape[3] not in _OUT4S:
+        raise ValueError(f"att_head_block: head_at must be (3, 3, {_C4}, out4), out4 in "
+                         f"{_OUT4S}, got {tuple(w['at'].shape)}")
     B, H, W, _ = x_s2d.shape
     shapes = {"x_s2d": (B, H, W, _C4), "h": (B, H, W, _CH), "gw": (_CH, _C), "gb": (_C,),
               "wg": (_C, _C), "bg": (_C,), "wx": (_C4, _C), "bx": (_C,), "wpsi": (_C, 1),
@@ -140,14 +141,15 @@ def att_head_block(x_s2d: torch.Tensor, h: torch.Tensor, w: dict) -> torch.Tenso
         raise ValueError(f"att_head_block runs on cuda or cpu tensors, got {x_s2d.device}")
     _check(x_s2d, h, w)
     B, H, W, _ = x_s2d.shape
+    out4 = w["at"].shape[3]
     is_bf16 = x_s2d.dtype == torch.bfloat16
-    out = torch.empty((B, H, W, _OUT4), dtype=x_s2d.dtype, device=x_s2d.device)
+    out = torch.empty((B, H, W, out4), dtype=x_s2d.dtype, device=x_s2d.device)
     # attn_s between bfloat16's two launches
     attn = torch.empty((B, H, W, _C4), dtype=x_s2d.dtype, device=x_s2d.device) if is_bf16 else None
     ptrs = (ctypes.c_void_p * 13)(x_s2d.data_ptr(), h.data_ptr(), *(w[k].data_ptr() for k in _WEIGHTS))
     with torch.cuda.device(x_s2d.device):
         rc = _library().att_head_block_launch(
-            ptrs, out.data_ptr(), attn.data_ptr() if is_bf16 else None, B, H, W, int(is_bf16),
+            ptrs, out.data_ptr(), attn.data_ptr() if is_bf16 else None, B, H, W, out4, int(is_bf16),
             torch.cuda.current_stream(x_s2d.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"att_head_block launch failed with CUDA error {rc}")

@@ -80,14 +80,15 @@ def dec_block_plain(xa: torch.Tensor, xb: torch.Tensor, te: torch.Tensor, w: dic
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("dec_block")
-    lib.dec_block_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    lib.dec_block_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.dec_block_launch.restype = ctypes.c_int
     return lib
 
 
-# the widths csrc/dec_block.cu is compiled for: the x2 model's level 1
-_CA, _CB, _CM, _OUT4 = 128, 64, 64, 12
+# the widths csrc/dec_block.cu is compiled for: level 1 of the models, whose
+# head writes 12 channels (3 output channels) or 4 (SAR->NDVI's 1)
+_CA, _CB, _CM, _OUT4S = 128, 64, 64, (12, 4)
 
 
 def _check(xa, xb, te, w):
@@ -95,8 +96,8 @@ def _check(xa, xb, te, w):
         raise TypeError(f"dec_block takes float32 or bfloat16, got {xa.dtype}")
     if xa.dim() != 4 or xa.shape[3] != _CA:
         raise ValueError(f"dec_block: xa must be (B, H, W, {_CA}), got {tuple(xa.shape)}")
-    if tuple(w["k4"].shape) != (4, 4, _CM, _OUT4):
-        raise ValueError(f"dec_block: head_up4 must be (4, 4, {_CM}, {_OUT4}), "
+    if tuple(w["k4"].shape[:3]) != (4, 4, _CM) or w["k4"].shape[3] not in _OUT4S:
+        raise ValueError(f"dec_block: head_up4 must be (4, 4, {_CM}, out4), out4 in {_OUT4S}, "
                          f"got {tuple(w['k4'].shape)}")
     B, H, W, _ = xa.shape
     shapes = {"xa": (B, H, W, _CA), "xb": (B, H, W, _CB), "te": (B, _CM),
@@ -118,16 +119,17 @@ def dec_block(xa: torch.Tensor, xb: torch.Tensor, te: torch.Tensor, w: dict):
         raise ValueError(f"dec_block runs on cuda or cpu tensors, got {xa.device}")
     _check(xa, xb, te, w)
     B, H, W, _ = xa.shape
+    out4 = w["k4"].shape[3]
     is_bf16 = int(xa.dtype == torch.bfloat16)
     new = functools.partial(torch.empty, dtype=xa.dtype, device=xa.device)
-    outs = (new((B, H, W, _CM)), new((B, 1, W, _CM)), new((B, H, 1, _CM)), new((B, H, W, _OUT4)))
+    outs = (new((B, H, W, _CM)), new((B, 1, W, _CM)), new((B, H, 1, _CM)), new((B, H, W, out4)))
     # bfloat16's head kernel reads hh from device memory; float32 keeps it on chip
     hh = new((B, H, W, _CM)) if is_bf16 else outs[0]
     ins = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (
         xa, xb, w["wa"], w["ba"], te, w["wb"], w["bb"], w["k4k"])))
     out_ptrs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in (*outs, hh)))
     with torch.cuda.device(xa.device):
-        rc = _library().dec_block_launch(ins, out_ptrs, B, H, W, is_bf16,
+        rc = _library().dec_block_launch(ins, out_ptrs, B, H, W, out4, is_bf16,
                                          torch.cuda.current_stream(xa.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_block launch failed with CUDA error {rc}")

@@ -21,7 +21,11 @@ the same call,
 so h_s never reaches device memory. It takes the flat s2d condition
 features (B, H2, W2, 4*16) that every other level takes; the reference's
 row-slab layout of ``build_cond_slabs`` is a VMEM device and is not carried
-over, only its one rounding of bias + cond in the compute dtype.
+over, only its one rounding of bias + cond in the compute dtype. The
+models without a condition image (class-conditional, unconditioned) pass
+``cond_s2d=None``: base = b0 and the kernel reads no condition tensor (the
+reference builds bias-only slabs at B = 1 for them). x_s2d has 4 * Cx
+channels: 12 (3 image channels) or 4 (the SAR->NDVI model's 1 channel).
 
 :func:`tap_block` and :func:`tap_stem_block` launch the hand-written CUDA
 kernels ``csrc/tap_block.cu`` and ``csrc/tap_stem_block.cu`` for CUDA
@@ -39,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
@@ -189,28 +194,30 @@ def build_stem_weights(w_conv0: torch.Tensor, bw: dict) -> dict:
     return {"w0": tap_weight(w_conv0), **bw}
 
 
-def tap_stem_block_plain(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tensor,
-                         b0: torch.Tensor, sw: dict) -> torch.Tensor:
+def tap_stem_block_plain(x_s2d: torch.Tensor, cond_s2d: Optional[torch.Tensor],
+                         te4: torch.Tensor, b0: torch.Tensor, sw: dict) -> torch.Tensor:
     """Stem + block in ``torch`` ops: x_s2d (B,H2,W2,4Cx) the s2d model
-    input, cond_s2d (B,H2,W2,4C1) the s2d condition features, te4 (B,4Co),
-    b0 (4C1,) conv0's tap-tiled bias, sw from :func:`build_stem_weights`, all
-    in x's dtype. bias + cond is summed in x's dtype, added to conv0's
-    float32 product, and h_s rounded once."""
+    input, cond_s2d (B,H2,W2,4C1) the s2d condition features or None (the
+    bias alone), te4 (B,4Co), b0 (4C1,) conv0's tap-tiled bias, sw from
+    :func:`build_stem_weights`, all in x's dtype. bias + cond is summed in
+    x's dtype, added to conv0's float32 product, and h_s rounded once."""
     dt = x_s2d.dtype
-    base = (b0.to(dt) + cond_s2d.to(dt)).float()
+    base = b0.to(dt) if cond_s2d is None else b0.to(dt) + cond_s2d.to(dt)
+    base = base.float()
     h_s = (im2col_s2d44(x_s2d).float() @ sw["w0"].float() + base).to(dt)
     return tap_block_plain(h_s, te4, sw)
 
 
-# the widths csrc/tap_stem_block.cu is compiled for: the x2 model's level 0
-_STEM_CX4, _STEM_C14, _STEM_CO4 = 12, 64, 128
+# the widths csrc/tap_stem_block.cu is compiled for: level 0 of the models,
+# whose s2d input has 12 channels (3 image channels) or 4 (SAR->NDVI's 1)
+_STEM_CX4S, _STEM_C14, _STEM_CO4 = (12, 4), 64, 128
 _STEM_ORDER = ("x_s2d", "cond_s2d", "te4", "w0", "b0", "w1", "w2", "b1", "bsk", "bsh", "b2")
 
 
 @functools.lru_cache(maxsize=None)
 def _stem_library():
     lib = cuda_build.load("tap_stem_block")
-    lib.tap_stem_block_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    lib.tap_stem_block_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.tap_stem_block_launch.restype = ctypes.c_int
     lib.tap_stem_block_smem.argtypes = [ctypes.c_int]
@@ -222,30 +229,32 @@ def _check_stem(x_s2d, cond_s2d, te4, b0, sw):
     """Raise unless the stem kernel takes these tensors as they are."""
     if x_s2d.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tap_stem_block takes float32 or bfloat16, got {x_s2d.dtype}")
-    if x_s2d.dim() != 4 or x_s2d.shape[3] != _STEM_CX4:
-        raise ValueError(f"tap_stem_block: x_s2d must be (B, H2, W2, {_STEM_CX4}), "
+    if x_s2d.dim() != 4 or x_s2d.shape[3] not in _STEM_CX4S:
+        raise ValueError(f"tap_stem_block: x_s2d must be (B, H2, W2, CX4), CX4 in {_STEM_CX4S}, "
                          f"got {tuple(x_s2d.shape)}")
-    B, H2, W2, _ = x_s2d.shape
+    B, H2, W2, cx4 = x_s2d.shape
     c14, co4 = _STEM_C14, _STEM_CO4
-    want = {"x_s2d": (B, H2, W2, _STEM_CX4), "cond_s2d": (B, H2, W2, c14), "te4": (B, co4),
-            "w0": (4 * _STEM_CX4, c14), "b0": (c14,), "w1": (4 * c14, 3 * co4),
+    want = {"x_s2d": (B, H2, W2, cx4), "cond_s2d": (B, H2, W2, c14), "te4": (B, co4),
+            "w0": (4 * cx4, c14), "b0": (c14,), "w1": (4 * c14, 3 * co4),
             "w2": (4 * co4, co4), "b1": (co4,), "bsk": (co4,), "bsh": (co4,), "b2": (co4,)}
+    if cond_s2d is None:
+        del want["cond_s2d"]
     got = dict(sw, x_s2d=x_s2d, cond_s2d=cond_s2d, te4=te4, b0=b0)
     cuda_build.check_operands("tap_stem_block", x_s2d, {k: (got[k], s) for k, s in want.items()})
 
 
-def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tensor,
+def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: Optional[torch.Tensor], te4: torch.Tensor,
                    b0: torch.Tensor, sw: dict) -> torch.Tensor:
-    """Fused stem + s2d ResConvBlock-0. CUDA tensors launch
-    ``csrc/tap_stem_block.cu`` (each call adds one to
-    ``tap_stem_block.launches``); CPU tensors run
+    """Fused stem + s2d ResConvBlock-0; ``cond_s2d=None`` adds conv0's bias
+    alone. CUDA tensors launch ``csrc/tap_stem_block.cu`` (each call adds
+    one to ``tap_stem_block.launches``); CPU tensors run
     :func:`tap_stem_block_plain`. Returns res0_s (B,H2,W2,4Co) in x's dtype."""
     if x_s2d.device.type == "cpu":
         return tap_stem_block_plain(x_s2d, cond_s2d, te4, b0, sw)
     if x_s2d.device.type != "cuda":
         raise ValueError(f"tap_stem_block runs on cuda or cpu tensors, got {x_s2d.device}")
     _check_stem(x_s2d, cond_s2d, te4, b0, sw)
-    B, H2, W2, _ = x_s2d.shape
+    B, H2, W2, cx4 = x_s2d.shape
     is_bf16 = int(x_s2d.dtype == torch.bfloat16)
     lib = _stem_library()
     smem = lib.tap_stem_block_smem(is_bf16)
@@ -253,13 +262,14 @@ def tap_stem_block(x_s2d: torch.Tensor, cond_s2d: torch.Tensor, te4: torch.Tenso
         raise ValueError(f"tap_stem_block needs {smem} bytes of shared memory")
     out = torch.empty((B, H2, W2, _STEM_CO4), dtype=x_s2d.dtype, device=x_s2d.device)
     ops = dict(sw, x_s2d=x_s2d, cond_s2d=cond_s2d, te4=te4, b0=b0)
-    ptrs = (ctypes.c_void_p * len(_STEM_ORDER))(*(ops[k].data_ptr() for k in _STEM_ORDER))
+    ptrs = (ctypes.c_void_p * len(_STEM_ORDER))(
+        *(None if ops[k] is None else ops[k].data_ptr() for k in _STEM_ORDER))
     # bfloat16's seams, h_s and h, pass through device memory between its launches
     hs = out.new_empty((B, H2, W2, _STEM_C14)) if is_bf16 else None
     h = torch.empty_like(out) if is_bf16 else None
     with torch.cuda.device(x_s2d.device):
         rc = lib.tap_stem_block_launch(ptrs, out.data_ptr(), hs.data_ptr() if is_bf16 else None,
-                                       h.data_ptr() if is_bf16 else None, B, H2, W2, is_bf16,
+                                       h.data_ptr() if is_bf16 else None, B, H2, W2, cx4, is_bf16,
                                        torch.cuda.current_stream(x_s2d.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tap_stem_block launch failed with CUDA error {rc}")

@@ -107,7 +107,7 @@ def test_chip_smoke_golden_values_are_the_reference_output():
     sys.path.insert(0, REPO)
     import chip_smoke
 
-    sd = init_params(chip_smoke.SEED, "cpu")
+    sd = init_params(chip_smoke.SEED, device="cpu")
     x, t, cond = chip_smoke.golden_input()
     out = np.asarray(jax_superres(magnification_factor=2).apply(
         import_torch_state_dict(sd), x, t, cond, train=False))
@@ -248,7 +248,7 @@ def test_chip_smoke_golden_configurations_agree_on_the_cpu(name):
 
     assert name in chip_smoke.GOLDEN_CONFIGS
     m = residual_attention_unet_superres(magnification_factor=2, **chip_smoke.CONFIGS[name])
-    m.load_state_dict(init_params(chip_smoke.SEED, "cpu"))
+    m.load_state_dict(init_params(chip_smoke.SEED, device="cpu"))
     x, t, cond = chip_smoke.golden_input()
     with torch.no_grad():
         got = m.eval()(*(torch.from_numpy(a) for a in (x, t, cond))).numpy()

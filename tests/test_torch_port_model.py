@@ -69,15 +69,16 @@ def test_duplicate_batchnorm_names_share_one_module():
 
 
 def test_init_params_is_seeded_and_loads_strict():
-    a, b = init_params(3, "cpu"), init_params(3, "cpu")
+    a, b = init_params(3, device="cpu"), init_params(3, device="cpu")
     assert set(a) == set(residual_attention_unet_superres().state_dict())
     assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["conv0.weight"], init_params(4, "cpu")["conv0.weight"])
+    assert not torch.equal(a["conv0.weight"], init_params(4, device="cpu")["conv0.weight"])
     residual_attention_unet_superres().load_state_dict(a, strict=True)
 
 
-# tap44='l1' is ported now; 'l2' is no level of the reference either
-@pytest.mark.parametrize("kwargs", [{"conditioning": "class"}, {"tap44": "l2"}, {"tap44": 1}])
+# tap44='l1' is ported now; 'l2' is no level of the reference either; the
+# class conditioning is ported, s2d_train (training) is not
+@pytest.mark.parametrize("kwargs", [{"s2d_train": True}, {"tap44": "l2"}, {"tap44": 1}])
 def test_unported_options_raise(kwargs):
     with pytest.raises((ValueError, NotImplementedError)):
         ResidualAttentionUNet(**kwargs)

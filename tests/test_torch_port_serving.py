@@ -59,7 +59,7 @@ class _JaxStandIn:
 
 
 class _TorchStandIn:
-    def sampler(self, fused_update=False):
+    def sampler(self, fused_update=False, start_t=None):
         return lambda x_T, cond, generator=None: (
             cond.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) * 0.8 + 0.1)
 
@@ -103,7 +103,7 @@ def test_microbatcher_propagates_errors():
 @pytest.fixture(scope="module")
 def model():
     m = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44="block")
-    m.load_state_dict(init_params(1, "cpu"))
+    m.load_state_dict(init_params(1, device="cpu"))
     return m
 
 
@@ -157,7 +157,8 @@ def test_server_validates_requests(model):
             server.infer_tile(np.zeros((4, 40, 3), np.float32))
     finally:
         server.shutdown()
-    with pytest.raises(NotImplementedError):
+    # the generation task is served, but not from a super-resolution model
+    with pytest.raises(ValueError, match="conditioning"):
         InferenceServer(model, "cosine", 5, image_size=16, task="generation", device="cpu")
 
 

@@ -18,22 +18,41 @@ import pytest
 
 from diffusionremotesensing_tpu.models.unet import (
     init_unet_params,
+    residual_attention_unet_generation as jax_generation,
+    residual_attention_unet_sar_to_ndvi as jax_sar,
     residual_attention_unet_superres as jax_superres,
 )
 from diffusionremotesensing_tpu_torch.convert import from_jax_variables
 from diffusionremotesensing_tpu_torch.ops import cuda_build
 from diffusionremotesensing_tpu_torch.models.unet import (
+    residual_attention_unet_generation as torch_generation,
+    residual_attention_unet_sar_to_ndvi as torch_sar,
     residual_attention_unet_superres as torch_superres,
 )
 
+GEN_CLASSES = 4  # the class-conditional model of these tests (the repo's gate has 4)
+# each variant's reference model and the port's, built with the same flags
+JAX_MODELS = {
+    "superres": lambda **kw: jax_superres(magnification_factor=2, **kw),
+    "sar": jax_sar,
+    "generation": lambda **kw: jax_generation(num_classes=GEN_CLASSES, **kw),
+}
+PORT_MODELS = {
+    "superres": lambda **kw: torch_superres(magnification_factor=2, **kw),
+    "sar": torch_sar,
+    "generation": lambda **kw: torch_generation(num_classes=GEN_CLASSES, **kw),
+}
+
 
 @functools.lru_cache(maxsize=None)
-def random_jax_variables(seed: int = 0, image_size: int = 32) -> dict:
-    """{'params', 'batch_stats'} of float32 numpy arrays for the x2 model:
-    kernels U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scale/var near 1.
-    Cached per (seed, image_size) for the whole test run, so the test files
-    share one tree: callers read it and never write to it."""
-    model = jax_superres(magnification_factor=2)
+def random_jax_variables(seed: int = 0, image_size: int = 32, variant: str = "superres") -> dict:
+    """{'params', 'batch_stats'} of float32 numpy arrays for the model
+    ``variant`` (JAX_MODELS; the x2 model by default): kernels
+    U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scale/var near 1, the
+    label embedding N(0, 1). Cached per (seed, image_size, variant) for the
+    whole test run, so the test files share one tree: callers read it and
+    never write to it."""
+    model = JAX_MODELS[variant]()
     shapes = jax.eval_shape(
         lambda: init_unet_params(model, jax.random.PRNGKey(0), image_size=image_size))
     rng = np.random.default_rng(seed)
@@ -44,6 +63,8 @@ def random_jax_variables(seed: int = 0, image_size: int = 32) -> dict:
         if name == "kernel":
             b = 1.0 / np.sqrt(np.prod(leaf.shape[:-1]))
             lo, hi = -b, b
+        elif name == "embedding":
+            return rng.standard_normal(leaf.shape).astype(np.float32)
         else:
             lo, hi = ranges[name]
         return rng.uniform(lo, hi, leaf.shape).astype(np.float32)
@@ -51,9 +72,10 @@ def random_jax_variables(seed: int = 0, image_size: int = 32) -> dict:
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def port_model(variables: dict, **kwargs):
-    """The port's x2 model in eval mode with ``variables`` loaded (strict)."""
-    m = torch_superres(magnification_factor=2, **kwargs)
+def port_model(variables: dict, variant: str = "superres", **kwargs):
+    """The port's model ``variant`` (the x2 one by default) in eval mode
+    with ``variables`` loaded (strict)."""
+    m = PORT_MODELS[variant](**kwargs)
     m.load_state_dict(from_jax_variables(variables["params"], variables["batch_stats"]),
                       strict=True)
     return m.eval()
@@ -88,6 +110,7 @@ EMULATION_PRELUDE = r"""
 #include <cstdint>
 #include <cstring>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 using std::min;
 struct dim3 { unsigned x, y, z; };

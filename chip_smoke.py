@@ -115,12 +115,34 @@ Phases, each printing one line with its name, seconds and result:
              directory, load_snapshot back (the weights equal), and
              InferenceServer.from_snapshot: one bfloat16 forward bitwise
              equal to the original model's, one served micro-batch.
-8. profile - only with --profile: where one sampler step's time goes, for
+8. train   - training, where no hand kernel runs (the JAX model gates every
+             Pallas kernel off under train=True): the flagship recipe at
+             full width (x2, init_params(SEED), HR 256, batch 32, uint8
+             images from default_rng(SEED) through the on-device DownBlur
+             at blur radius 0.5, cosine T=1500, MSE, EMA, lr 3e-4, bfloat16
+             compute on float32 parameters), dense and s2d_train, with the
+             model built with every kernel flag ('stem'): 3 warm-up steps
+             and 20 timed, one JSON line each (steps/s, ms a step, peak
+             memory, the final loss, nvidia-smi's name and power limit);
+             every launch count 0 after them. One float32 step (HR 32,
+             batch 4) on the card and on its host's CPU from the same
+             weights, batch, t and noise, dense and s2d_train: the loss,
+             every gradient, the parameters after Adam and the running
+             statistics at the CPU tests' tolerances (STEP_*). Learning:
+             one fixed batch (HR 64, batch 16, float32) for 60 steps, the
+             last 10 steps' mean loss below half the first 10's. The
+             trained snapshot (Trainer.save_snapshot) served from
+             InferenceServer.from_snapshot in the 'stem' configuration: one
+             DDIM-100 micro-batch of 8, finite, with the exact launches of
+             the stem, gate, attention-head and decoder kernels.
+9. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
              the top kernels by device time from torch.profiler with every
-             hand-written kernel.
+             hand-written kernel; and where one training step's time goes
+             (the train phase's recipe, dense and s2d_train): wall and
+             device ms, the busy share, the top kernels.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
 serve phase's paths, packed_conv's the kernel phase's; its times at B=48 in
@@ -150,6 +172,10 @@ import torch  # noqa: E402
 
 from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler  # noqa: E402
 from diffusionremotesensing_tpu_torch.convert import init_params  # noqa: E402
+from diffusionremotesensing_tpu_torch.data.device_degradation import (  # noqa: E402
+    make_downblur_transform,
+)
+from diffusionremotesensing_tpu_torch.data.loader import DataLoader  # noqa: E402
 from diffusionremotesensing_tpu_torch.diffusion import (  # noqa: E402
     ddim_timesteps,
     ddpm_step,
@@ -211,6 +237,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
 )
 from diffusionremotesensing_tpu_torch.schedules import make_schedule  # noqa: E402
 from diffusionremotesensing_tpu_torch.serving import InferenceServer  # noqa: E402
+from diffusionremotesensing_tpu_torch.train import Trainer  # noqa: E402
 
 SEED = 0
 T_STEPS = 1500
@@ -320,6 +347,27 @@ Z_MOMENT_TOL = 5e-3
 # steps, over 589,824 pairs or more: standard error 1.3e-3
 Z_CORR_TOL = 0.02
 GOLDEN_TOL = 1e-4
+# the train phase: the flagship recipe (README.md's quick start,
+# train_diffusion_superres.py's defaults): x2 super-resolution, HR 256,
+# batch 32, the on-device DownBlur at blur radius 0.5, cosine T=1500, MSE,
+# EMA, lr 3e-4, bfloat16 compute on float32 parameters; 3 warm-up and 20
+# timed steps, dense and s2d_train
+TRAIN_HR, TRAIN_B, TRAIN_BLUR, TRAIN_LR = 256, 32, 0.5, 3e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# one float32 step on the card and on its host's CPU (HR 32, batch 4), held
+# at the CPU tests' tolerances against the JAX reference
+# (tests/test_torch_port_train.py): loss rtol 1e-5; every gradient within
+# 1e-5 of the largest; the parameters after Adam within 1e-6 where the
+# gradient exceeds 1e-5 of the largest, and everywhere within 2 lr (Adam's
+# first step moves a parameter whose gradient is float32 noise by up to lr
+# either way: the biases of convolutions that feed a train-mode BatchNorm,
+# zero in exact arithmetic); the running statistics within 1e-6
+STEP_HR, STEP_B = 32, 4
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STATS_TOL = 1e-5, 1e-5, 1e-6, 1e-6
+# learning: one fixed batch (HR 64, batch 16, float32, lr 3e-4) for 60
+# steps; the mean loss of the last 10 must fall below half the first 10's
+# (on a CPU, four seeds: 0.17-0.19 of it)
+LEARN_HR, LEARN_B, LEARN_STEPS, LEARN_RATIO = 64, 16, 60, 0.5
 PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
 SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
@@ -915,6 +963,239 @@ def max_err(got, want, dt, what, tol=KERNEL_TOL):
     return worst
 
 
+def train_flops(hr, batch):
+    """One training step's operations at HR `hr` and `batch`: the
+    multiply-adds of every convolution, ConvTranspose and linear layer of
+    the x2 model's training forward, counted by forward hooks on a
+    meta-device model (shapes only, no arithmetic), x2 for FLOPs and x3
+    for the forward and the backward's two products (the input's and the
+    weights' gradients)."""
+    model = FACTORIES["superres"]().to("meta")
+    macs = []
+
+    def count(mod, inputs, out):
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            macs.append(inputs[0].numel() * mod.out_channels * mod.weight[0, 0].numel())
+        elif isinstance(mod, torch.nn.Conv2d):
+            macs.append(out.numel() * mod.weight[0].numel())
+        elif isinstance(mod, torch.nn.Linear):
+            macs.append(out.numel() * mod.in_features)
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()]
+    try:
+        with torch.no_grad():
+            model(torch.empty(batch, hr, hr, 3, device="meta"), torch.empty(batch, device="meta"),
+                  torch.empty(batch, hr // 2, hr // 2, 3, device="meta"), train=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2 * 3 * sum(macs)
+
+
+def train_bound(hr, batch, params):
+    """The least time of one training step: its operations (train_flops) at
+    the bf16 peak against its bytes at HBM's rate (the uint8 batch read
+    once; the float32 parameters, Adam's two moments and the EMA each read
+    and written once)."""
+    return _bound(train_flops(hr, batch), batch * hr * hr * 3 + 8 * 4 * params, PEAK_BF16)
+
+
+class _U8Images:
+    """n HR uint8 images drawn once from default_rng(seed), indexed round and
+    round: a dataset of `length` items for the DataLoader."""
+
+    def __init__(self, n, size, length, seed):
+        self.pool = (np.random.default_rng(seed).random((n, size, size, 3)) * 255).astype(np.uint8)
+        self.length = length
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, i):
+        return {"hr_u8": self.pool[i % len(self.pool)]}
+
+
+def _train_throughput(dev, s2d_train, tmp):
+    """The flagship recipe's steps at full width (TRAIN_*): Trainer.train
+    over a DataLoader of uint8 images with the on-device DownBlur, the model
+    built with every kernel flag (the 'stem' configuration), none of which
+    may launch in training. An epoch of 3 warm-up steps, then one of 20
+    timed (host clock, after a synchronize); the final loss is the timed
+    epoch's mean train loss, as the loop logs it."""
+    model = FACTORIES["superres"](**CONFIGS["stem"], s2d_train=s2d_train,
+                                  compute_dtype=torch.bfloat16)
+    metrics = os.path.join(tmp, f"metrics_{int(s2d_train)}.jsonl")
+    tr = Trainer(model, "cosine", T_STEPS, TRAIN_HR, lr=TRAIN_LR, loss="MSE", ema_smoothing=True,
+                 seed=SEED, device=dev, metrics_path=metrics,
+                 batch_transform=make_downblur_transform(TRAIN_HR, 2, TRAIN_BLUR))
+    state = tr.init_state(init_params(SEED, device="cpu"))
+
+    def loader(steps):
+        return DataLoader(_U8Images(2 * TRAIN_B, TRAIN_HR, steps * TRAIN_B, SEED), TRAIN_B,
+                          shuffle=False)
+
+    zero_counts()
+    state = tr.train(state, 1, loader(TRAIN_WARMUP), check_preds_epoch=10**9, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.train(state, 1, loader(TRAIN_STEPS), check_preds_epoch=10**9, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()),
+          f"train: hand kernels launched in training: {counts}")
+    check(state.step == TRAIN_WARMUP + TRAIN_STEPS, f"train: {state.step} steps taken")
+    tr.metrics.close()
+    with open(metrics) as f:
+        loss = json.loads(f.read().splitlines()[-1])["train_loss"]
+    check(np.isfinite(loss) and all(torch.isfinite(p).all() for p in state.model.parameters()),
+          f"train: loss {loss} or the parameters not finite")
+    bound, by = train_bound(TRAIN_HR, TRAIN_B, sum(p.numel() for p in state.model.parameters()))
+    return {"train": "s2d_train" if s2d_train else "dense", "hr": TRAIN_HR, "batch": TRAIN_B,
+            "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+            "steps_per_s": TRAIN_STEPS / secs, "ms_per_step": 1e3 * secs / TRAIN_STEPS,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "final_loss": loss,
+            "tflop_per_step": train_flops(TRAIN_HR, TRAIN_B) / 1e12, "bound_ms": bound,
+            "bound_by": by}
+
+
+def _step_on(device, s2d_train, sd, batch, t, noise):
+    """One float32 train step (STEP_*) on `device` from state_dict `sd`: the
+    model after it and the loss."""
+    tr = Trainer(FACTORIES["superres"](s2d_train=s2d_train), "cosine", T_STEPS, STEP_HR,
+                 lr=TRAIN_LR, ema_smoothing=True, seed=SEED, device=device)
+    state = tr.init_state(sd)
+    on = {k: v.to(device) for k, v in batch.items()}
+    loss = float(tr.train_step(state, on, t.to(device), noise.to(device)))
+    return state.model, loss
+
+
+def _compare_steps(s2d_train):
+    """The card's float32 step against its host CPU's, from the same
+    weights, batch, t and noise, at the CPU tests' tolerances (STEP_*)."""
+    rng = np.random.default_rng(SEED + 7)
+    batch = {"x": torch.from_numpy(rng.random((STEP_B, STEP_HR, STEP_HR, 3)).astype(np.float32)),
+             "cond": torch.from_numpy(
+                 rng.random((STEP_B, STEP_HR // 2, STEP_HR // 2, 3)).astype(np.float32))}
+    t = torch.from_numpy(rng.integers(1, T_STEPS, STEP_B))
+    noise = torch.from_numpy(rng.standard_normal((STEP_B, STEP_HR, STEP_HR, 3)).astype(np.float32))
+    sd = init_params(SEED, device="cpu")
+    card, loss_card = _step_on(torch.device("cuda"), s2d_train, sd, batch, t, noise)
+    host, loss_host = _step_on(torch.device("cpu"), s2d_train, sd, batch, t, noise)
+    check(abs(loss_card - loss_host) <= STEP_LOSS_RTOL * abs(loss_host),
+          f"train step: loss {loss_card} on the card, {loss_host} on the CPU")
+    cp, hp = dict(card.named_parameters()), dict(host.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in hp.values())
+    err = {"loss_rel": abs(loss_card - loss_host) / abs(loss_host), "grad": 0.0, "param_live": 0.0,
+           "param": 0.0, "stats": 0.0}
+    for n, p in hp.items():
+        g = cp[n].grad.cpu()
+        err["grad"] = max(err["grad"], float((g - p.grad).abs().max()) / gmax)
+        d = (cp[n].detach().cpu() - p.detach()).abs()
+        err["param"] = max(err["param"], float(d.max()))
+        live = p.grad.abs() > 1e-5 * gmax
+        if live.any():
+            err["param_live"] = max(err["param_live"], float(d[live].max()))
+    csd, hsd = card.state_dict(), host.state_dict()
+    err["stats"] = max(float((csd[k].cpu() - hsd[k]).abs().max()) for k in hsd if "running" in k)
+    check(err["grad"] <= STEP_GRAD_TOL and err["param_live"] <= STEP_PARAM_TOL
+          and err["param"] <= 2 * TRAIN_LR and err["stats"] <= STEP_STATS_TOL,
+          f"train step (s2d_train={s2d_train}): the card's differs from the CPU's: {err}")
+    return err
+
+
+def _learn_and_serve(dev, tmp):
+    """Fit one fixed batch (LEARN_*) and check the loss fell; save the
+    snapshot through Trainer.save_snapshot and serve one DDIM-100 micro-batch
+    of 8 from it (InferenceServer.from_snapshot, the 'stem' configuration),
+    with the exact launches of its kernels."""
+    path = os.path.join(tmp, "snapshot.msgpack")
+    tr = Trainer(FACTORIES["superres"](), "cosine", T_STEPS, LEARN_HR, snapshot_path=path,
+                 lr=TRAIN_LR, ema_smoothing=True, seed=SEED, device=dev,
+                 batch_transform=make_downblur_transform(LEARN_HR // 4, 2, TRAIN_BLUR, LEARN_HR))
+    state = tr.init_state(init_params(SEED, device="cpu"))
+    # smooth images: 16 x 16 uint8 noise, bilinear-upsampled to 64 by the transform
+    batch = tr._prep_batch({"hr_u8": _U8Images(LEARN_B, LEARN_HR // 4, LEARN_B, SEED + 1).pool})
+    losses = torch.stack([tr.train_step(state, batch) for _ in range(LEARN_STEPS)]).tolist()
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(np.isfinite(losses).all() and last < LEARN_RATIO * first,
+          f"learning: the last 10 steps' loss {last} is not below {LEARN_RATIO} x the first 10's "
+          f"{first}")
+    tr.save_snapshot(state, 1)
+    server = InferenceServer.from_snapshot(path, "cosine", T_STEPS, HR, model_flags=CONFIGS["stem"],
+                                           ddim_steps=DDIM_STEPS, dtype=torch.bfloat16,
+                                           max_batch=8, device="cuda")
+    try:
+        lrs = [np.random.default_rng(SEED + 9 + i).random((HR // 2, HR // 2, 3)).astype(np.float32)
+               for i in range(8)]
+        torch.cuda.synchronize()
+        zero_counts()
+        outs = server.infer_batch(lrs)
+        counts = read_counts()
+    finally:
+        server.shutdown()
+    check(all(o.shape == (HR, HR, 3) and np.isfinite(o).all() for o in outs),
+          "train: served outputs from the trained snapshot misshapen or not finite")
+    want = {k: n * server.batches_run * DDIM_STEPS for k, n in per_forward("stem").items()}
+    check(counts == want and server.batches_run == 1,
+          f"train: serving the trained snapshot launched {counts} in {server.batches_run} "
+          f"micro-batches, expected {want} in 1")
+    return {"learn_first10": first, "learn_last10": last, "learn_ratio": last / first,
+            "served_micro_batches": server.batches_run,
+            "served_launches": {k: v for k, v in counts.items() if v}}
+
+
+def profile_train_step(dev, s2d_train, reps=5):
+    """Where one training step's time goes at the flagship shape (TRAIN_*,
+    one fixed batch already on the device): wall ms a step (host clock over
+    `reps` steps, synchronized), device ms a step (torch.profiler's kernel
+    time summed), the device's busy share (device / wall), and the top
+    kernel families by device time, each with its share of the step's."""
+    tr = Trainer(FACTORIES["superres"](s2d_train=s2d_train, compute_dtype=torch.bfloat16),
+                 "cosine", T_STEPS, TRAIN_HR, lr=TRAIN_LR, ema_smoothing=True, seed=SEED,
+                 device=dev, batch_transform=make_downblur_transform(TRAIN_HR, 2, TRAIN_BLUR))
+    state = tr.init_state(init_params(SEED, device="cpu"))
+    batch = tr._prep_batch({"hr_u8": _U8Images(TRAIN_B, TRAIN_HR, TRAIN_B, SEED).pool})
+    for _ in range(2):
+        tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / reps
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tr.train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = {}  # device ms a step by kernel family (the name before its template arguments)
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total", 0) / 1e3 / reps
+        if ms > 0:
+            name = re.split(r"[<(]", re.sub(r"^void ", "", ev.key))[0].split("::")[-1][:60]
+            kernels[name] = kernels.get(name, 0.0) + ms
+    device = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"train_step": "s2d_train" if s2d_train else "dense", "wall_ms": wall,
+            "device_ms": device, "busy_share": device / wall,
+            "top_kernels": [[name, ms, ms / device] for name, ms in top]}
+
+
+def train_phase(dev, card):
+    """The train phase: the full-width throughput runs, dense and
+    s2d_train (one JSON line each, with `card`, nvidia-smi's name and power
+    limit), the card's step against the CPU's, the learning check and
+    serving from the trained snapshot."""
+    with tempfile.TemporaryDirectory() as d:
+        lines = [json.dumps({**_train_throughput(dev, s, d), "card": card}) for s in (False, True)]
+        torch.cuda.empty_cache()
+        steps = {("s2d_train" if s else "dense"): _compare_steps(s) for s in (False, True)}
+        served = _learn_and_serve(dev, d)
+    lines.append(json.dumps({"card_vs_cpu_step": steps, **served}))
+    return "\n".join(lines)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true", help="also run the profile phase")
@@ -933,6 +1214,7 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
         print(smi[0], flush=True)
+        state["smi"] = smi[0]
         return (f"{state['kind']}, {state['count']} visible, torch {torch.__version__}, "
                 f"CUDA {torch.version.cuda}")
 
@@ -1716,6 +1998,7 @@ def main():
             with torch.inference_mode():
                 lines += [json.dumps({"config": name, **profile_forward(proc, b, dev)})
                           for b in (B_FLAG, 1)]
+        lines += [json.dumps(profile_train_step(dev, s)) for s in (False, True)]
         return "\n".join(lines)
 
     phase("device", device)
@@ -1725,6 +2008,7 @@ def main():
     phase("model", model)
     phase("serve", serve)
     phase("checkpoint", checkpoint)
+    phase("train", lambda: train_phase(dev, state["smi"]))
     if args.profile:
         phase("profile", profile)
 

@@ -14,7 +14,11 @@ so no layout copies are made at the boundary.
 
 It serves the reference's three tasks: super-resolution, SAR->NDVI and
 class-conditional generation with classifier-free guidance
-(``serving.InferenceServer(task=...)``).
+(``serving.InferenceServer(task=...)``), and trains them
+(``train.Trainer``: the reference's step, loop and ``s2d_train``, with the
+host loader ``data.loader`` and the DownBlur on the device,
+``data.device_degradation``). No hand kernel runs in training, as in the
+reference.
 
 The TPU kernels of the served paths are hand-written CUDA kernels here,
 built with ``nvcc`` at first use and bound with ``ctypes``:

@@ -1,5 +1,6 @@
-"""Reverse diffusion: the ancestral DDPM and DDIM samplers (port of
-``diffusionremotesensing_tpu/diffusion.py``).
+"""Forward noising and reverse diffusion: ``q_sample`` and
+``sample_timesteps`` for training, the ancestral DDPM and DDIM samplers
+(port of ``diffusionremotesensing_tpu/diffusion.py``).
 
 * ancestral step, for i = start_t .. 1 (start_t = T-1 unless truncated):
   x <- (x - (1-alpha_i)/sqrt(1-alpha_hat_i) * eps_hat) / sqrt(alpha_i) + sqrt(beta_i) z,
@@ -42,6 +43,26 @@ from diffusionremotesensing_tpu_torch.ops.fused_update import (
 )
 from diffusionremotesensing_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
+
+
+def q_sample(schedule: Schedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward noising of x0 (B, H, W, C) to the integer timesteps t (B,):
+    sqrt(alpha_hat_t) x0 + sqrt(1 - alpha_hat_t) noise, in float32. The
+    caller draws ``noise`` (N(0, I), x0's shape)."""
+    ah = schedule.alpha_hat.to(x0.device)[t]
+    sqrt_ah = torch.sqrt(ah)[:, None, None, None]
+    sqrt_omah = torch.sqrt(1.0 - ah)[:, None, None, None]
+    return sqrt_ah * x0 + sqrt_omah * noise
+
+
+def sample_timesteps(generator: Optional[torch.Generator], n: int, noise_steps: int,
+                     device=None) -> torch.Tensor:
+    """n timesteps uniform over [1, noise_steps), the reference's range, from
+    ``generator`` (int64, on ``device`` or the generator's)."""
+    device = device if device is not None else (generator.device if generator is not None
+                                                else "cpu")
+    return torch.randint(1, noise_steps, (n,), generator=generator, device=device)
 
 
 def _ddpm_coefs(schedule: Schedule, t: int):
@@ -246,7 +267,9 @@ class DiffusionProcess:
 
     Built by :func:`make_process`. The weights are taken as they are when the
     process is made: a compute copy in ``dtype`` (channels-last) and, for the
-    s2d path, the prepared kernels are made once here."""
+    s2d path, the prepared kernels are made once here. ``q_sample`` and
+    ``sample_timesteps`` are the training draws, from an explicit
+    ``torch.Generator``."""
 
     def __init__(self, model, noise_schedule: str, noise_steps: int, image_size: int,
                  dtype: Optional[torch.dtype] = None, beta_start: float = 1e-4,
@@ -259,13 +282,26 @@ class DiffusionProcess:
         self.dtype = dtype
         self.device = model.conv0.weight.device
         self.schedule = make_schedule(noise_schedule, noise_steps, beta_start, beta_end)
-        net = model if model.dtype == dtype else copy.deepcopy(model).to(dtype)
+        if model.conv0.weight.dtype == dtype == model.dtype:
+            net = model
+        else:  # a copy with the parameters in the compute dtype
+            net = copy.deepcopy(model).to(dtype)
+            net.compute_dtype = None
         self.net = net.to(memory_format=torch.channels_last).eval()
         self.s2d = bool(model.s2d)
         # folded in float32 from the model's own parameters
         self.kernels = model.prepare_s2d_kernels(dtype) if self.s2d else None
         self.state_codec = (space_to_depth, depth_to_space) if self.s2d else None
         self._samplers: dict = {}
+
+    def sample_timesteps(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        return sample_timesteps(generator, n, self.noise_steps, self.device)
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+        """(x_t, noise): x0 noised to t with noise drawn from ``generator``."""
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+        return q_sample(self.schedule, x0, t, noise), noise
 
     def apply_fn(self, x, t, cond, cond_features=None, aux=None, cond_mask=None):
         return self.net(x, t, cond, cond_mask, cond_features=cond_features, s2d_kernels=aux,

@@ -385,7 +385,7 @@ def load_snapshot(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (an Orbax checkpoint): the port reads msgpack and torch "
-            "snapshots only; Orbax waits for the port of training (ROADMAP, Queue 1)")
+            "snapshots only; the Orbax format waits for a port of its own (ROADMAP, Queue 1)")
     with open(path, "rb") as f:
         head = f.read(2)
         if head not in _TORCH_HEADS:

@@ -1,13 +1,17 @@
 """UNet building blocks (port of ``diffusionremotesensing_tpu/models/blocks.py``).
 
-Inference only: every BatchNorm uses its running statistics, whatever the
-module's ``training`` flag, as the reference's ``train=False`` does. Blocks
-take and return NCHW tensors (channels-last in memory when the model's NHWC
-input is permuted into them). Attribute names follow the reference torch
-model, so ``state_dict()`` has the keys that
-``diffusionremotesensing_tpu.io.export_torch_state_dict`` emits, including
-the BatchNorms registered twice (as an attribute and inside a Sequential)
-and the unused per-block skip conv, which is part of the parameter count.
+BatchNorm follows the explicit ``train`` argument of each block's forward,
+as the reference's ``__call__(..., train=...)`` does, never the module's
+``training`` flag: ``train=False`` (the default, every served path)
+normalises with the running statistics; ``train=True`` with the batch's,
+computed in float32 as flax does, and moves the running statistics the flax
+way (:func:`bn_train`). Blocks take and return NCHW tensors (channels-last
+in memory when the model's NHWC input is permuted into them). Attribute
+names follow the reference torch model, so ``state_dict()`` has the keys
+that ``diffusionremotesensing_tpu.io.export_torch_state_dict`` emits,
+including the BatchNorms registered twice (as an attribute and inside a
+Sequential) and the unused per-block skip conv, which is part of the
+parameter count.
 """
 
 from __future__ import annotations
@@ -30,10 +34,48 @@ def BatchNorm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features)
 
 
+BN_MOMENTUM = 0.9  # flax's momentum: running = 0.9 * running + 0.1 * batch
+
+
+def _bn_f32(x: torch.Tensor, mean, var, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax's normalisation, NCHW: (x - mean) * (rsqrt(var + eps) * scale)
+    + bias in float32, cast back to x's dtype."""
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bn.bias.float()[:, None, None]
+    return y.to(x.dtype)
+
+
 def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """BatchNorm with running statistics (inference), NCHW."""
+    """BatchNorm with running statistics (inference), NCHW; in float32 when
+    the BatchNorm's parameters are float32 and x is not (a compute dtype)."""
+    if bn.weight.dtype != x.dtype:
+        return _bn_f32(x, bn.running_mean.float(), bn.running_var.float(), bn)
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                         False, 0.0, bn.eps)
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """running = 0.9 * running + 0.1 * batch, the biased variance (flax's
+    update; ``F.batch_norm(training=True)`` would store the unbiased one)."""
+    bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+    bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+
+
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm as flax computes it, NCHW: the batch mean and
+    biased variance over (N, H, W) in float32 (E[x^2] - E[x]^2, clamped at
+    0), normalised by :func:`_bn_f32`; the running statistics move by
+    :func:`update_running_stats`."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+    update_running_stats(bn, mean, var)
+    return _bn_f32(x, mean, var, bn)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+    return bn_train(x, bn) if train else bn_eval(x, bn)
 
 
 def ConvTranspose2x(features: int) -> nn.ConvTranspose2d:
@@ -87,13 +129,13 @@ class ResConvBlock(nn.Module):
         """ReLU(TimeMLP(t_emb)), (B, F)."""
         return torch.relu(self.time_mlp(t_emb))
 
-    def forward(self, x, t_emb, x_skip=None):
-        h = torch.relu(bn_eval(self.conv1[0](x), self.batch_norm1))
+    def forward(self, x, t_emb, x_skip=None, train: bool = False):
+        h = torch.relu(batch_norm(self.conv1[0](x), self.batch_norm1, train))
         if x_skip is not None:
             h = h + self.skip_conv(x_skip)
         h = h + self.time_bias(t_emb)[:, :, None, None]
-        h = bn_eval(self.conv2[0](h), self.batch_norm2)
-        s = bn_eval(self.shortcut_conv[0](x), self.shortcut_batch_norm)
+        h = batch_norm(self.conv2[0](h), self.batch_norm2, train)
+        s = batch_norm(self.shortcut_conv[0](x), self.shortcut_batch_norm, train)
         return torch.relu(s + h)
 
 
@@ -105,7 +147,8 @@ class AttentionGate(nn.Module):
     one ``ops.attention_gate.fused_attention_gate`` call, the hand-written
     CUDA kernel on the card, in float32 with only its output rounded; ``w``
     is its weights from ``build_gate_weights(self)``, built per call when not
-    given (samplers hoist them with the s2d kernels)."""
+    given (samplers hoist them with the s2d kernels). Training (``train=True``)
+    never runs the kernel, as in the reference."""
 
     def __init__(self, features: int, use_pallas: bool = False):
         super().__init__()
@@ -115,8 +158,8 @@ class AttentionGate(nn.Module):
         self.psi = nn.Sequential(TorchConv(features, 1, 1))
         self.result = nn.Sequential(TorchConv(features, features, 1), BatchNorm(features))
 
-    def forward(self, x, g, w=None):
-        if self.use_pallas:
+    def forward(self, x, g, w=None, train: bool = False):
+        if self.use_pallas and not train:
             # NHWC views of the channels-last trunk tensors: no copy; on the
             # card the wrapper refuses a view that is not contiguous
             out = fused_attention_gate(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
@@ -125,7 +168,7 @@ class AttentionGate(nn.Module):
         psi = torch.relu(self.w_g(g) + self.w_x(x))
         psi = torch.sigmoid(self.psi(psi))
         psi = psi.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-        return bn_eval(self.result[0](psi * x), self.result[1])
+        return batch_norm(self.result[0](psi * x), self.result[1], train)
 
 
 class UpConvBlock(nn.Module):
@@ -142,13 +185,13 @@ class UpConvBlock(nn.Module):
     def time_bias(self, t_emb: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.time_mlp(t_emb))
 
-    def body(self, x, t_emb):
+    def body(self, x, t_emb, train: bool = False):
         """Everything before the ConvTranspose."""
         x = x + self.time_bias(t_emb)[:, :, None, None]
-        return torch.relu(bn_eval(self.conv(x), self.batch_norm))
+        return torch.relu(batch_norm(self.conv(x), self.batch_norm, train))
 
-    def forward(self, x, t_emb):
-        return self.transform(self.body(x, t_emb))
+    def forward(self, x, t_emb, train: bool = False):
+        return self.transform(self.body(x, t_emb, train))
 
 
 class GatingSignal(nn.Module):
@@ -159,8 +202,8 @@ class GatingSignal(nn.Module):
         self.conv = TorchConv(in_ch, features, 1)
         self.batch_norm = BatchNorm(features)
 
-    def forward(self, x):
-        return torch.relu(bn_eval(self.conv(x), self.batch_norm))
+    def forward(self, x, train: bool = False):
+        return torch.relu(batch_norm(self.conv(x), self.batch_norm, train))
 
 
 class ResidualBlock(nn.Module):

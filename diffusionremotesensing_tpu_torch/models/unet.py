@@ -61,9 +61,25 @@ Public tensors are NHWC, as in the reference package: ``forward`` takes x
 (B, H, W, image_channels), t (B,), the condition (the LR image (B, H/mag,
 W/mag, C), the SAR image (B, H, W, 2), labels (B,) or None) and
 ``cond_mask`` (B,) or None, and returns float32 (B, H, W, out_dim).
-Inference only. The compute dtype is the dtype of the parameters
-(``model.to(torch.bfloat16)``); ``prepare_s2d_kernels`` folds in float32
-whatever the parameters' dtype.
+
+``train=True`` is the training forward (the reference's ``train=True``):
+every BatchNorm normalises with its batch's statistics and moves its
+running statistics the flax way (``models.blocks.bn_train``). No hand
+kernel runs under it, whatever ``tap44``, ``fused_att``, ``dec_block``,
+``use_pallas`` or ``packed_head`` say, as in the reference. With
+``s2d_train=True`` level 0 of the training forward runs in s2d layout
+through dense convolutions on kernels assembled (differentiably) from the
+parameters at each call, its BatchNorms' statistics taken per original
+channel over the four taps (the same elements, so the same statistics);
+otherwise training runs the plain forward.
+
+The compute dtype is ``compute_dtype`` when given (the reference's flax
+``dtype``: float32 parameters, bfloat16 convolutions), else the parameters'
+dtype (``model.to(torch.bfloat16)``). With float32 parameters and a
+bfloat16 compute dtype the forward casts every parameter but the
+BatchNorms' and the label embedding's (float32 in flax too) to bfloat16
+and runs on the casts, so autograd keeps float32 master weights.
+``prepare_s2d_kernels`` folds in float32 whatever the dtypes.
 """
 
 from __future__ import annotations
@@ -82,6 +98,7 @@ from diffusionremotesensing_tpu_torch.models.blocks import (
     TorchConv,
     UpConvBlock,
     sinusoidal_time_embedding,
+    update_running_stats,
 )
 from diffusionremotesensing_tpu_torch.ops.att_block import att_head_block, build_att_weights
 from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weights
@@ -124,11 +141,11 @@ _CONV_KEYS = ("conv0", "blk_conv1", "blk_skip", "blk_conv2", "blk_short", "down0
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    return conv.weight.detach().float().permute(2, 3, 1, 0)
+    return conv.weight.float().permute(2, 3, 1, 0)
 
 
 def _vec(p: torch.Tensor) -> torch.Tensor:
-    return p.detach().float()
+    return p.float()
 
 
 def _bn_dict(bn: nn.BatchNorm2d) -> dict:
@@ -165,15 +182,13 @@ class ResidualAttentionUNet(nn.Module):
         use_pallas: bool = False,
         packed_head: bool = False,
         s2d_train: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if conditioning not in CONDITIONINGS:
             raise ValueError(f"conditioning must be one of {CONDITIONINGS}, got {conditioning!r}")
         if conditioning == "superres" and magnification_factor is None:
             raise ValueError("superres conditioning requires magnification_factor")
-        if s2d_train:
-            raise NotImplementedError("s2d_train (the s2d training forward) waits for the port "
-                                      "of training")
         if not isinstance(tap44, (bool, str)) or tap44 not in TAP44_LEVELS:
             raise ValueError(f"tap44 must be one of {TAP44_LEVELS}, got {tap44!r}")
         if (fused_att or dec_block or packed_head) and not s2d:
@@ -189,6 +204,8 @@ class ResidualAttentionUNet(nn.Module):
         self.down_channels = tuple(down_channels)
         self.up_channels = tuple(up_channels)
         self.s2d = s2d
+        self.s2d_train = bool(s2d_train)
+        self.compute_dtype = compute_dtype
         self.tap44 = tap44
         self.fused_att = bool(fused_att)
         self.dec_block = bool(dec_block)
@@ -221,7 +238,16 @@ class ResidualAttentionUNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv0.weight.dtype
+        """The dtype the forward computes in (module docstring)."""
+        return self.compute_dtype or self.conv0.weight.dtype
+
+    def _compute_params(self) -> dict:
+        """The parameters by name, cast to the compute dtype but for the
+        BatchNorms' and the label embedding's."""
+        keep = {id(p) for m in self.modules() if isinstance(m, (nn.BatchNorm2d, nn.Embedding))
+                for p in m.parameters()}
+        return {n: p if id(p) in keep else p.to(self.compute_dtype)
+                for n, p in self.named_parameters()}
 
     @property
     def _packed_tail(self) -> bool:
@@ -264,16 +290,25 @@ class ResidualAttentionUNet(nn.Module):
         return t_emb.to(self.dtype)
 
     def forward(self, x, t, cond=None, cond_mask=None, cond_features=None, s2d_kernels=None,
-                s2d_io: bool = False):
+                s2d_io: bool = False, train: bool = False):
+        s2d = self.s2d_train if train else self.s2d
+        if s2d and s2d_kernels is None:
+            s2d_kernels = (self._s2d_kernels(self.dtype, train=True) if train
+                           else self.prepare_s2d_kernels())
+        if self.conv0.weight.dtype != self.dtype:
+            # the compute dtype: the same forward on cast parameters (the s2d
+            # kernels above were folded from the float32 ones)
+            return torch.func.functional_call(
+                self, self._compute_params(), (x, t, cond, cond_mask),
+                dict(cond_features=cond_features, s2d_kernels=s2d_kernels, s2d_io=s2d_io,
+                     train=train))
         t_emb = self.time_embedding(t, cond, cond_mask)
         if self.image_conditioned and cond_features is None:
             if cond is None:
                 raise ValueError(f"conditioning={self.conditioning!r} requires a condition image")
-            cond_features = self.encode_cond_s2d(cond) if self.s2d else self.encode_cond(cond)
-        if self.s2d:
-            if s2d_kernels is None:
-                s2d_kernels = self.prepare_s2d_kernels()
-            return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io)
+            cond_features = self.encode_cond_s2d(cond) if s2d else self.encode_cond(cond)
+        if s2d:
+            return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io, train)
 
         h = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
         if cond_features is not None:
@@ -281,14 +316,14 @@ class ResidualAttentionUNet(nn.Module):
         x_skip = h
         residuals = []
         for i, (block, down) in enumerate(zip(self.conv_blocks, self.downs)):
-            h = block(h, t_emb, x_skip if i == 0 else None)
+            h = block(h, t_emb, x_skip if i == 0 else None, train)
             residuals.append(h)
             h = down(h)
-        h = self.bottle_neck(h, t_emb)
+        h = self.bottle_neck(h, t_emb, train=train)
         for i in range(len(self.ups)):
-            g = self.gating_signals[i](h)
-            attn = self.attention_blocks[i](residuals[-(i + 1)], g)
-            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb), attn], dim=1))
+            g = self.gating_signals[i](h, train)
+            attn = self.attention_blocks[i](residuals[-(i + 1)], g, train=train)
+            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb, train), attn], dim=1))
         return self.output(h).float().permute(0, 2, 3, 1)
 
     # ------------------------------------------------------- s2d execution
@@ -309,13 +344,19 @@ class ResidualAttentionUNet(nn.Module):
     def prepare_s2d_kernels(self, dtype: Optional[torch.dtype] = None) -> dict:
         """Every s2d kernel, bias and folded BatchNorm of the s2d path, built
         once from the parameters in float32 and cast to ``dtype`` (default:
-        the parameters' dtype). Samplers hoist this out of the step loop."""
-        dt = dtype or self.dtype
+        the compute dtype). Samplers hoist this out of the step loop."""
+        return self._s2d_kernels(dtype or self.dtype)
+
+    def _s2d_kernels(self, dt: torch.dtype, train: bool = False) -> dict:
+        """:meth:`prepare_s2d_kernels`'s dict; with ``train`` only what the
+        training forward reads (the dense level 0, no kernel's weights),
+        differentiable in the parameters, built anew at each call."""
+        level = False if train else self.tap44
         blk, att, up = self.conv_blocks[0], self.attention_blocks[2], self.ups[2]
         k = {"conv0_b": _vec(self.conv0.bias).repeat(4)}
         k.update(self._gate_s2d_kernels(2))
         down0 = k3s2_to_s2d(_hwio(self.downs[0]))
-        if self.tap44 == "l1":
+        if level == "l1":
             # level 1 in s2d: down0 emits the s2d of its output, ResConvBlock-1
             # is a second tap_block without its skip conv, down1 and gate 1
             # read s2d
@@ -334,9 +375,9 @@ class ResidualAttentionUNet(nn.Module):
             k.update(self._gate_s2d_kernels(1))
         else:
             k["down0"], k["down0_b"] = down0, _vec(self.downs[0].bias)
-        if self.tap44 != "stem":
+        if level != "stem":
             k["conv0"] = k3_to_s2d(_hwio(self.conv0))
-        if self.tap44 in ("block", "stem", "l1"):
+        if level in ("block", "stem", "l1"):
             bw = build_block_weights(
                 _hwio(blk.conv1[0]), _vec(blk.conv1[0].bias), _bn_dict(blk.batch_norm1),
                 _hwio(blk.skip_conv), _vec(blk.skip_conv.bias),
@@ -344,7 +385,7 @@ class ResidualAttentionUNet(nn.Module):
                 _hwio(blk.shortcut_conv[0]), _vec(blk.shortcut_conv[0].bias),
                 _bn_dict(blk.shortcut_batch_norm),
             )
-            if self.tap44 == "stem":
+            if level == "stem":
                 k["tap_stem"] = build_stem_weights(_hwio(self.conv0), bw)
             else:
                 k["tap_block"] = bw
@@ -358,19 +399,20 @@ class ResidualAttentionUNet(nn.Module):
                 "blk_short": k1_to_blockdiag(_hwio(blk.shortcut_conv[0])),
                 "blk_bsh": _vec(blk.shortcut_conv[0].bias).repeat(4),
             })
-            if self.tap44 is True:
+            if level is True:
                 k["blk_conv1_44"] = tap_weight(_hwio(blk.conv1[0]))
                 k["blk_skip_44"] = tap_weight(_hwio(blk.skip_conv))
             else:
                 k["blk_conv1"] = k3_to_s2d(_hwio(blk.conv1[0]))
                 k["blk_skip"] = k3_to_s2d(_hwio(blk.skip_conv))
-            if self.tap44:
+            if level:
                 k["blk_conv2_44"] = tap_weight(_hwio(blk.conv2[0]))
             else:
                 k["blk_conv2"] = k3_to_s2d(_hwio(blk.conv2[0]))
-            k["bn0_a"], k["bn0_c"] = _bn_affine(blk.batch_norm1)
-            k["bn1_a"], k["bn1_c"] = _bn_affine(blk.batch_norm2)
-            k["bn2_a"], k["bn2_c"] = _bn_affine(blk.shortcut_batch_norm)
+            if not train:  # training normalises with the batch's statistics
+                k["bn0_a"], k["bn0_c"] = _bn_affine(blk.batch_norm1)
+                k["bn1_a"], k["bn1_c"] = _bn_affine(blk.batch_norm2)
+                k["bn2_a"], k["bn2_c"] = _bn_affine(blk.shortcut_batch_norm)
 
         # head composition: up_conv2 feeds only the 1x1 output conv, so the
         # two compose into one 3x3 conv; its up-branch half then composes
@@ -385,7 +427,7 @@ class ResidualAttentionUNet(nn.Module):
         k["head_at"] = head_s2d[:, :, n_up:, :]
         # torch ConvTranspose weight (in, out, kh, kw) -> the flipped HWIO
         # kernel of the equivalent input-dilated forward conv
-        kT = up.transform.weight.detach().float().permute(2, 3, 0, 1).flip(0, 1)
+        kT = up.transform.weight.float().permute(2, 3, 0, 1).flip(0, 1)
         K2 = kT_to_s2d(kT)
         K4 = K2.new_zeros((4, 4, K2.shape[2], H_up.shape[3]))
         for dy in range(3):
@@ -403,7 +445,7 @@ class ResidualAttentionUNet(nn.Module):
         k["head_fix_c"] = K2[1, 1] @ H_up[0, 0]
         b_T = _vec(up.transform.bias).repeat(4)
         k["head_b"] = (b_up @ w_out + b_out).repeat(4)
-        if self.fused_att:
+        if self.fused_att and not train:
             gat = self.gating_signals[2]
             k["att_fused"] = build_att_weights(
                 _hwio(gat.conv), _vec(gat.conv.bias), _bn_dict(gat.batch_norm),
@@ -411,12 +453,12 @@ class ResidualAttentionUNet(nn.Module):
                 _hwio(att.psi[0]), _vec(att.psi[0].bias), k["att_rc"], _vec(att.result[0].bias),
                 _bn_dict(att.result[1]), k["head_at"],
             )
-        if self.dec_block:
+        if self.dec_block and not train:
             k["dec"] = build_dec_weights(
                 _hwio(self.up_convs[1]), _vec(self.up_convs[1].bias),
                 _hwio(up.conv), _vec(up.conv.bias), _bn_dict(up.batch_norm), k["head_up4"],
             )
-        if self._packed_tail:
+        if self._packed_tail and not train:
             # the two head convs as the HWIO kernels packed_head takes
             k["packed_head"] = {"up4": k.pop("head_up4"), "at": k.pop("head_at")}
 
@@ -432,10 +474,10 @@ class ResidualAttentionUNet(nn.Module):
         # the ConvTranspose-bias tap table stays float32: it is reduced into
         # the (small) bias frame, where bf16 would cost visible precision
         out["head_bT_taps"] = torch.einsum("uvmo,m->uvo", H_up, b_T).to(dev)
-        if self.use_pallas:
+        if self.use_pallas and not train:
             # the fused gates' weights stay float32, as the gate computes;
             # under 'l1' gate 1 is the s2d gate
-            for i in ((0,) if self.tap44 == "l1" else (0, 1)):
+            for i in ((0,) if level == "l1" else (0, 1)):
                 out[f"gate{i}"] = build_gate_weights(self.attention_blocks[i])
         out["frames"] = {}
         return out
@@ -454,12 +496,29 @@ class ResidualAttentionUNet(nn.Module):
             kern["frames"][(Hs, Ws)] = frame
         return frame
 
-    def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io):
+    def _bn_s2d_train(self, h: torch.Tensor, bn: nn.BatchNorm2d, taps: bool = True):
+        """Train-mode BatchNorm of an NHWC tensor, as the reference's
+        ``_bn_s2d``: with ``taps`` the statistics of each original channel
+        over the four s2d taps (the same elements as the normal layout's),
+        the mean and biased variance in float32 (E[x^2] - E[x]^2), the
+        normalisation in the compute dtype; the running statistics move as
+        ``models.blocks.update_running_stats`` moves them."""
+        dt, c = h.dtype, bn.num_features
+        hr = h.float().reshape(-1, c)  # s2d channels are tap-major: (4, c) a pixel
+        mean = hr.mean(0)
+        var = hr.square().mean(0) - mean.square()
+        update_running_stats(bn, mean, var)
+        n = 4 if taps else 1
+        return ((h - mean.repeat(n).to(dt)) * torch.rsqrt(var.repeat(n).to(dt) + bn.eps)
+                * bn.weight.repeat(n).to(dt) + bn.bias.repeat(n).to(dt))
+
+    def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io, train: bool = False):
         dt = self.dtype
+        level = False if train else self.tap44
         xs = x.to(dt) if s2d_io else space_to_depth(x.to(dt))
         blk = self.conv_blocks[0]
         te4 = blk.time_bias(t_emb).repeat(1, 4)
-        if self.tap44 == "stem":
+        if level == "stem":
             # conv0 + bias + cond and the whole block in one call; without a
             # condition image the kernel adds the bias alone
             cond_in = None if cond_s2d is None else cond_s2d.to(dt).contiguous()
@@ -469,26 +528,32 @@ class ResidualAttentionUNet(nn.Module):
         h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
         if cond_s2d is not None:
             h_s = h_s + cond_s2d.to(dt)
-        if self.tap44 in ("block", "l1"):
+        if level in ("block", "l1"):
             res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
         else:
-            if self.tap44 is True:
+            if train:
+                def norm(h, bn, key):
+                    return self._bn_s2d_train(h, bn)
+            else:
+                def norm(h, bn, key):
+                    return h * kern[f"{key}_a"] + kern[f"{key}_c"]
+            if level is True:
                 c1, sk = tap_conv_pair(h_s.contiguous(), kern["blk_conv1_44"], kern["blk_skip_44"])
                 c1, sk = c1 + kern["blk_b1"], sk + kern["blk_bsk"]
             else:
                 c1 = conv_nhwc(h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
                 sk = conv_nhwc(h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
-            h = torch.relu(c1 * kern["bn0_a"] + kern["bn0_c"])
+            h = torch.relu(norm(c1, blk.batch_norm1, "bn0"))
             h = h + sk
             h = h + te4[:, None, None, :]
-            if self.tap44:  # 'conv2' and True
+            if level:  # 'conv2' and True
                 h = tap_conv(h.contiguous(), kern["blk_conv2_44"]) + kern["blk_b2"]
             else:
                 h = conv_nhwc(h, kern["blk_conv2"], kern["blk_b2"], padding=1)
-            h = h * kern["bn1_a"] + kern["bn1_c"]
+            h = norm(h, blk.batch_norm2, "bn1")
             s = conv_nhwc(h_s, kern["blk_short"], kern["blk_bsh"])
-            res0_s = torch.relu(s * kern["bn2_a"] + kern["bn2_c"] + h)
-        return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
+            res0_s = torch.relu(norm(s, blk.shortcut_batch_norm, "bn2") + h)
+        return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io, train)
 
     def _gate_s2d_kernels(self, gate: int) -> dict:
         """The s2d kernels of attention gate ``gate`` (2, or 1 under 'l1'),
@@ -500,7 +565,7 @@ class ResidualAttentionUNet(nn.Module):
         k[f"{p}_bn_a"], k[f"{p}_bn_c"] = _bn_affine(att.result[1])
         return k
 
-    def _attention_s2d(self, x_s2d, g, kern, gate: int = 2):
+    def _attention_s2d(self, x_s2d, g, kern, gate: int = 2, train: bool = False):
         """Attention gate ``gate`` (2, or 1 under 'l1') with its skip input
         in s2d layout: w_x's 2x2/s2 conv is one 1x1 over the taps, psi's
         nearest upsample a broadcast over the taps, result_conv
@@ -511,14 +576,27 @@ class ResidualAttentionUNet(nn.Module):
         psi = torch.relu(g1 + x1)
         psi = torch.sigmoid(conv_nhwc(psi, att.psi[0].weight, att.psi[0].bias))
         attn_s = conv_nhwc(x_s2d * psi, kern[f"{p}_rc"], kern[f"{p}_rc_b"])
+        if train:
+            return self._bn_s2d_train(attn_s, att.result[1])
         return attn_s * kern[f"{p}_bn_a"] + kern[f"{p}_bn_c"]
 
-    def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io):
+    def _up2_body_train(self, h, t_emb):
+        """UpConvBlock-2's body in training, as the reference's s2d path
+        computes it: its BatchNorm by ``_bn_s2d`` on the normal layout. NHWC
+        out."""
+        up = self.ups[2]
+        hh = up.conv(h + up.time_bias(t_emb)[:, :, None, None]).permute(0, 2, 3, 1)
+        return torch.relu(self._bn_s2d_train(hh, up.batch_norm, taps=False))
+
+    def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io, train: bool = False):
         """Everything after ResConvBlock-0: down0 out of s2d, levels 1+
         through the ordinary modules (level 1 in s2d under 'l1'), up stage 2
         and the composed head (through the fused kernels where
-        ``dec_block`` / ``fused_att`` / ``packed_head`` ask)."""
-        l1 = self.tap44 == "l1"
+        ``dec_block`` / ``fused_att`` / ``packed_head`` ask, never in
+        training)."""
+        l1 = self.tap44 == "l1" and not train
+        dec, fused_att = self.dec_block and not train, self.fused_att and not train
+        packed = self._packed_tail and not train
         if l1:
             # down0 at stride 2 emitting s2d, ResConvBlock-1 as one tap_block
             # call (no skip conv), down1 from s2d back to the normal layout
@@ -531,20 +609,22 @@ class ResidualAttentionUNet(nn.Module):
         else:
             h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
             h = h.permute(0, 3, 1, 2)
-            res1 = h = self.conv_blocks[1](h, t_emb)
+            res1 = h = self.conv_blocks[1](h, t_emb, train=train)
             h = self.downs[1](h)
-        res2 = h = self.conv_blocks[2](h, t_emb)
+        res2 = h = self.conv_blocks[2](h, t_emb, train=train)
         h = self.downs[2](h)
-        h = self.bottle_neck(h, t_emb)
-        attn = self.attention_blocks[0](res2, self.gating_signals[0](h), kern.get("gate0"))
-        h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb), attn], dim=1))
+        h = self.bottle_neck(h, t_emb, train=train)
+        g = self.gating_signals[0](h, train)
+        attn = self.attention_blocks[0](res2, g, kern.get("gate0"), train)
+        h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb, train), attn], dim=1))
         if l1:
             g = self.gating_signals[1](h).permute(0, 2, 3, 1)
             attn = depth_to_space(self._attention_s2d(res1_s, g, kern, gate=1)).permute(0, 3, 1, 2)
         else:
-            attn = self.attention_blocks[1](res1, self.gating_signals[1](h), kern.get("gate1"))
-        hup = self.ups[1](h, t_emb)
-        if self.dec_block:
+            g = self.gating_signals[1](h, train)
+            attn = self.attention_blocks[1](res1, g, kern.get("gate1"), train)
+        hup = self.ups[1](h, t_emb, train)
+        if dec:
             # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one call;
             # h comes back NHWC for the gating branch, hh only as its strips
             h, hh_row0, hh_col0, out_s = dec_block_kernel(
@@ -553,20 +633,21 @@ class ResidualAttentionUNet(nn.Module):
             h = h.permute(0, 3, 1, 2)
         else:
             h = self.up_convs[1](torch.cat([hup, attn], dim=1))
-            hh = self.ups[2].body(h, t_emb).permute(0, 2, 3, 1)
-            if not self._packed_tail:
+            hh = (self._up2_body_train(h, t_emb) if train
+                  else self.ups[2].body(h, t_emb).permute(0, 2, 3, 1))
+            if not packed:
                 out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
             hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
 
-        if self.fused_att:
+        if fused_att:
             # gating2 + attention gate 2 + head_at in one call: attn_s never
             # exists outside the kernel
             out_s = out_s + att_head_block(res0_s.contiguous(),
                                            h.permute(0, 2, 3, 1).contiguous(), kern["att_fused"])
         else:
-            attn_s = self._attention_s2d(res0_s, self.gating_signals[2](h).permute(0, 2, 3, 1),
-                                         kern)
-            if self._packed_tail:
+            g = self.gating_signals[2](h, train).permute(0, 2, 3, 1)
+            attn_s = self._attention_s2d(res0_s, g, kern, train=train)
+            if packed:
                 # head_up4 on hh + head_at on attn_s in one call
                 kp = kern["packed_head"]
                 out_s = packed_head_kernel(hh.contiguous(), attn_s.contiguous(), kp["up4"],
@@ -586,14 +667,15 @@ def residual_attention_unet_superres(image_channels: int = 3, out_dim: int = 3,
                                      magnification_factor: int = 2, s2d: bool = False,
                                      tap44: object = False, fused_att: bool = False,
                                      dec_block: bool = False, use_pallas: bool = False,
-                                     packed_head: bool = False,
-                                     s2d_train: bool = False) -> ResidualAttentionUNet:
+                                     packed_head: bool = False, s2d_train: bool = False,
+                                     compute_dtype: Optional[torch.dtype] = None
+                                     ) -> ResidualAttentionUNet:
     """Super-resolution UNet conditioned on the LR image (4,383,058 parameters)."""
     return ResidualAttentionUNet(
         conditioning="superres", image_channels=image_channels, out_dim=out_dim,
         cond_channels=image_channels, magnification_factor=magnification_factor,
         s2d=s2d, tap44=tap44, fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas,
-        packed_head=packed_head, s2d_train=s2d_train,
+        packed_head=packed_head, s2d_train=s2d_train, compute_dtype=compute_dtype,
     )
 
 
@@ -601,13 +683,15 @@ def residual_attention_unet_sar_to_ndvi(sar_channels: int = 2, ndvi_channels: in
                                         s2d: bool = False, tap44: object = False,
                                         fused_att: bool = False, dec_block: bool = False,
                                         use_pallas: bool = False, packed_head: bool = False,
-                                        s2d_train: bool = False) -> ResidualAttentionUNet:
+                                        s2d_train: bool = False,
+                                        compute_dtype: Optional[torch.dtype] = None
+                                        ) -> ResidualAttentionUNet:
     """SAR->NDVI UNet conditioned on the SAR image (4,382,238 parameters)."""
     return ResidualAttentionUNet(
         conditioning="sar", image_channels=ndvi_channels, out_dim=ndvi_channels,
         cond_channels=sar_channels, magnification_factor=None, s2d=s2d, tap44=tap44,
         fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas, packed_head=packed_head,
-        s2d_train=s2d_train,
+        s2d_train=s2d_train, compute_dtype=compute_dtype,
     )
 
 
@@ -615,15 +699,16 @@ def residual_attention_unet_generation(image_channels: int = 3, out_dim: int = 3
                                        num_classes: Optional[int] = 10, s2d: bool = False,
                                        tap44: object = False, fused_att: bool = False,
                                        dec_block: bool = False, use_pallas: bool = False,
-                                       packed_head: bool = False,
-                                       s2d_train: bool = False) -> ResidualAttentionUNet:
+                                       packed_head: bool = False, s2d_train: bool = False,
+                                       compute_dtype: Optional[torch.dtype] = None
+                                       ) -> ResidualAttentionUNet:
     """Class-conditional UNet with CFG masking (4,383,022 parameters at 10
     classes); ``num_classes=None`` is unconditional."""
     return ResidualAttentionUNet(
         conditioning="class", image_channels=image_channels, out_dim=out_dim,
         num_classes=num_classes, magnification_factor=None, s2d=s2d, tap44=tap44,
         fused_att=fused_att, dec_block=dec_block, use_pallas=use_pallas, packed_head=packed_head,
-        s2d_train=s2d_train,
+        s2d_train=s2d_train, compute_dtype=compute_dtype,
     )
 
 

@@ -1,0 +1,412 @@
+"""The training engine: one train step, one host loop, all three tasks (port
+of ``diffusionremotesensing_tpu/train.py``).
+
+What a step computes, as the reference does:
+
+* t ~ U[1, T), noise ~ N(0, I), x_t = q_sample(x0, t, noise);
+* the model's training forward (``train=True``: batch-statistic
+  BatchNorms, running statistics moved the flax way, no hand kernel), the
+  loss of its eps prediction against the noise (``pad_mask`` weighting
+  wrap-padded rows out), the gradients by autograd;
+* Adam (``torch.optim.Adam``, betas (0.9, 0.999), eps 1e-8, constant lr:
+  optax's ``adam`` update), every parameter given a gradient (the unused
+  skip convs a zero one, as the reference's autodiff gives them);
+* the EMA of the parameters (beta 0.995 after a 2000-step warm-up copy,
+  ``ema_smoothing``), which snapshots, validation and previews use.
+
+The loop: class-conditional label dropout (with probability
+``label_dropout`` the whole batch is trained unconditioned; drawn on the
+host from ``numpy.random.default_rng(seed)``, train batches only); a
+snapshot every ``check_preds_epoch`` epochs without a validation loader, else
+on each validation improvement, with early stopping after ``patience``
+epochs without one; ``epochs_run`` resume from the snapshot, which restarts
+Adam's moments (the reference does not checkpoint them); SIGTERM and SIGINT
+snapshot and stop at the next batch boundary. ``steps_per_dispatch`` K moves
+K stacked batches to the device at once and then takes their K steps in the
+same order as K = 1 would, flushing early when the batch's fields or shapes
+change. ``batch_transform`` runs on the device batch (the on-device
+DownBlur, ``data.device_degradation``).
+
+t and the noise come from a ``torch.Generator`` on the trainer's device
+seeded with ``seed`` (another stream than the reference's keys);
+``train_step`` takes them explicitly too. One process, one device: a mesh
+or a multi-process run (``parallel/``) and the Orbax checkpoint format wait
+for later ports and raise.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import signal
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from diffusionremotesensing_tpu_torch.diffusion import make_process, q_sample, sample_timesteps
+from diffusionremotesensing_tpu_torch.ema import EMA_BETA, EMA_WARMUP_STEPS, ema_update
+from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot
+from diffusionremotesensing_tpu_torch.losses import VGG19Features, make_loss_fn
+from diffusionremotesensing_tpu_torch.profiling import MetricsLogger
+from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
+from diffusionremotesensing_tpu_torch.utils import resolve_device
+
+__all__ = ["TrainState", "Trainer"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The online model (parameters and BatchNorm running statistics), its
+    optimizer, the EMA of its parameters (aligned with
+    ``model.parameters()``; None when EMA is off) and the optimizer steps
+    taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    ema_params: Optional[List[torch.Tensor]]
+    step: int = 0
+
+
+class Trainer:
+    """A UNet bound to a schedule, a loss and Adam, with its train,
+    validation and sample steps and the epoch loop (module docstring).
+
+    ``model`` is a ``ResidualAttentionUNet``; it trains in its compute dtype
+    (``compute_dtype``) with ``s2d_train`` as it says, on ``device``
+    (``cuda`` unless the caller asks for the CPU). Batches are dicts of
+    NHWC arrays: 'x' the clean target, optionally 'cond' (image or labels),
+    'cond_mask' and 'pad_mask', or 'hr_u8' for ``batch_transform``.
+    ``vgg`` is the perceptual loss's ``losses.VGG19Features`` (its weights
+    loaded by the caller)."""
+
+    def __init__(
+        self,
+        model,
+        noise_schedule: str,
+        noise_steps: int,
+        image_size: int,
+        snapshot_path: Optional[str] = None,
+        lr: float = 3e-4,
+        loss: str = "MSE",
+        ema_smoothing: bool = False,
+        label_dropout: float = 0.0,
+        mesh=None,
+        beta_start: float = 1e-4,
+        beta_end: float = 0.02,
+        seed: int = 0,
+        metrics_path: Optional[str] = None,
+        vgg: Optional[VGG19Features] = None,
+        allow_random_vgg: bool = False,
+        batch_transform: Optional[Callable] = None,
+        checkpoint_backend: str = "msgpack",
+        steps_per_dispatch: int = 1,
+        device="cuda",
+    ):
+        if mesh is not None or (torch.distributed.is_available()
+                                and torch.distributed.is_initialized()
+                                and torch.distributed.get_world_size() > 1):
+            raise NotImplementedError(
+                "a mesh or multi-process run needs the port of parallel/ (ROADMAP, Queue 1); "
+                "this trainer runs one process on one device")
+        if checkpoint_backend == "orbax":
+            raise NotImplementedError(
+                "checkpoint_backend='orbax' is a JAX format the port does not write (ROADMAP, "
+                "Queue 1); use 'msgpack', which the reference package reads")
+        if checkpoint_backend != "msgpack":
+            raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r}")
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self.noise_schedule, self.beta_start, self.beta_end = noise_schedule, beta_start, beta_end
+        self.noise_steps = noise_steps
+        self.image_size = image_size
+        self.snapshot_path = snapshot_path
+        self.lr = lr
+        self.ema_smoothing = ema_smoothing
+        self.label_dropout = label_dropout
+        self.loss_name = loss
+        self.batch_transform = batch_transform
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        self.epochs_run = 0
+        self._rng = np.random.default_rng(seed)  # label dropout
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)  # t and noise
+        # on the device: q_sample indexes it by t there
+        self.schedule = Schedule(*(a.to(self.device) for a in make_schedule(
+            noise_schedule, noise_steps, beta_start, beta_end)))
+        if loss == "MSE+Perceptual_noise" and vgg is None:
+            # the reference's perceptual term uses torchvision's pretrained
+            # VGG19; training against random features is another loss, so
+            # it runs only when asked for
+            if not allow_random_vgg:
+                raise ValueError(
+                    "MSE+Perceptual_noise requires pretrained VGG19 weights (pass "
+                    "vgg=losses.VGG19Features() with torchvision's vgg19 features loaded, "
+                    "losses.vgg19_features_state(torch.load(<vgg19.pth>))). To knowingly "
+                    "train against a fixed randomly-initialized VGG19 instead (a "
+                    "random-projection perceptual loss, NOT the reference semantics), pass "
+                    "allow_random_vgg=True.")
+            print("WARNING: MSE+Perceptual_noise with allow_random_vgg: a fixed randomly-"
+                  "initialized VGG19 (random-projection perceptual loss), NOT the reference's "
+                  "pretrained features.")
+            vgg = VGG19Features(seed)
+        self.loss_fn = make_loss_fn(loss, None if vgg is None else vgg.to(self.device))
+        self.metrics = MetricsLogger(metrics_path)
+        self._stop_requested = False
+
+    # ------------------------------------------------------------------ state
+
+    def _optimizer(self, model) -> torch.optim.Adam:
+        return torch.optim.Adam(model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def _ema_copy(self, model) -> Optional[List[torch.Tensor]]:
+        if not self.ema_smoothing:
+            return None
+        return [p.detach().clone() for p in model.parameters()]
+
+    def init_state(self, variables: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """The state before the first step: ``variables`` (a state_dict, e.g.
+        ``convert.init_params`` or ``io.load_snapshot``'s) loaded strictly
+        into the model when given, fresh Adam moments, the EMA a copy of
+        the parameters."""
+        if variables is not None:
+            self.model.load_state_dict(variables, strict=True)
+        return TrainState(self.model, self._optimizer(self.model), self._ema_copy(self.model))
+
+    def maybe_resume(self, state: TrainState) -> TrainState:
+        """Resume from the snapshot when it exists: its weights and BatchNorm
+        statistics, ``epochs_run``; Adam's moments restart and the EMA is a
+        copy of the loaded parameters."""
+        if self.snapshot_path and os.path.exists(self.snapshot_path):
+            variables, epochs_run = load_snapshot(self.snapshot_path)
+            state.model.load_state_dict(variables, strict=True)
+            state.optimizer = self._optimizer(state.model)
+            state.ema_params = self._ema_copy(state.model)
+            self.epochs_run = epochs_run
+            print(f"Resuming training from snapshot at Epoch {epochs_run}")
+        return state
+
+    def ema_model(self, state: TrainState) -> torch.nn.Module:
+        """The weights to serve: a copy of the model holding the EMA
+        parameters and the online BatchNorm statistics (the model itself
+        when EMA is off)."""
+        if state.ema_params is None:
+            return state.model
+        m = copy.deepcopy(state.model)
+        with torch.no_grad():
+            torch._foreach_copy_([p for p in m.parameters()], state.ema_params)
+        return m
+
+    def save_snapshot(self, state: TrainState, epoch: int) -> None:
+        """The EMA parameters (the online ones without EMA) with the online
+        BatchNorm statistics, in the reference package's msgpack format."""
+        if not self.snapshot_path:
+            return
+        save_snapshot(self.snapshot_path, self.ema_model(state), epoch)
+        print(f"Epoch {epoch} | Training snapshot saved at {self.snapshot_path}")
+
+    # ------------------------------------------------------------------ steps
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step on a device batch; t and the noise drawn from
+        the trainer's generator unless given. Returns the loss (a device
+        scalar; reading it waits for the step)."""
+        model = state.model
+        x0 = batch["x"]
+        if t is None:
+            t = sample_timesteps(self.generator, x0.shape[0], self.noise_steps, self.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        x_t = q_sample(self.schedule, x0, t, noise)
+        state.optimizer.zero_grad(set_to_none=True)
+        out = model(x_t, t, batch.get("cond"), batch.get("cond_mask"), train=True)
+        loss = self.loss_fn(out, noise, weights=batch.get("pad_mask"))
+        loss.backward()
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:  # a skip conv the forward does not use
+                p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        if state.ema_params is not None:
+            ema_update(state.ema_params, params, state.step, EMA_BETA, EMA_WARMUP_STEPS)
+        state.step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def val_step(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                 t: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The loss of ``model`` (``ema_model(state)``) on a device batch,
+        BatchNorms on their running statistics."""
+        x0 = batch["x"]
+        if t is None:
+            t = sample_timesteps(self.generator, x0.shape[0], self.noise_steps, self.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        out = model(q_sample(self.schedule, x0, t, noise), t, batch.get("cond"),
+                    batch.get("cond_mask"), train=False)
+        return self.loss_fn(out, noise, weights=batch.get("pad_mask"))
+
+    def _prep_batch(self, batch: Dict[str, np.ndarray], train: bool = True,
+                    device: bool = True) -> Dict:
+        """Host batch -> device batch, with the label dropout of train
+        batches (the reference's generation validation loop also drops, in
+        code it never runs: its validation loader is None) and then the
+        batch transform. ``device=False``: the host part only."""
+        out = dict(batch)
+        if train and self.label_dropout > 0 and "cond" in out:
+            n = out["x"].shape[0]
+            drop = self._rng.random() < self.label_dropout
+            out["cond_mask"] = np.full((n,), 0.0 if drop else 1.0, np.float32)
+        if not device:
+            return out
+        return self._to_device(out)
+
+    def _to_device(self, host: Dict) -> Dict[str, torch.Tensor]:
+        out = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in host.items()}
+        if self.batch_transform is not None and "hr_u8" in out:
+            out = self.batch_transform(out)
+        return out
+
+    # ------------------------------------------------------------------ loop
+
+    def train(self, state: TrainState, epochs: int, train_loader, val_loader=None,
+              check_preds_epoch: int = 20, patience: int = 10, verbose: bool = True,
+              on_preview: Optional[Callable[[TrainState, int], None]] = None) -> TrainState:
+        """The reference's epoch loop (module docstring). On SIGTERM or
+        SIGINT it finishes the batch in hand, snapshots and returns."""
+        self._stop_requested = False
+
+        def _on_signal(signum, frame):
+            self._stop_requested = True
+            # os.write, not print: the handler may interrupt a print that
+            # holds stdout's lock
+            os.write(2, f"signal {signum}: will snapshot and stop at the next batch "
+                        "boundary\n".encode())
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, _on_signal)
+            except ValueError:  # not the main thread
+                pass
+
+        best_loss = float("inf")
+        epochs_without_improving = 0
+        interrupted = False
+        spd = self.steps_per_dispatch
+        try:
+            for epoch in range(self.epochs_run, epochs):
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                t0 = time.time()
+                losses: List[torch.Tensor] = []
+                epoch_cut_short = False
+                pend: list = []
+                pend_sig: dict = {}
+
+                def _flush():
+                    # the pending batches as one stacked transfer a field,
+                    # then their steps in order
+                    if not pend:
+                        return
+                    stacked = self._to_device_stacked(pend)
+                    for i in range(len(pend)):
+                        b = {k: v[i] for k, v in stacked.items()}
+                        if self.batch_transform is not None and "hr_u8" in b:
+                            b = self.batch_transform(b)
+                        losses.append(self.train_step(state, b))
+                    pend.clear()
+
+                for batch in train_loader:
+                    if self._stop_requested:
+                        interrupted = epoch_cut_short = True
+                        break
+                    if spd > 1:
+                        prepped = self._prep_batch(batch, device=False)
+                        sig = {k: np.shape(v) for k, v in prepped.items()}
+                        if pend and sig != pend_sig:
+                            _flush()  # pad_mask appeared, or a short final batch
+                        pend_sig = sig
+                        pend.append(prepped)
+                        if len(pend) == spd:
+                            _flush()
+                        continue
+                    losses.append(self.train_step(state, self._prep_batch(batch)))
+                _flush()
+                running = float(torch.stack(losses).mean()) if losses else 0.0
+                sps = len(losses) / max(time.time() - t0, 1e-9)
+                if verbose:
+                    tag = " [partial epoch]" if epoch_cut_short else ""
+                    print(f"Epoch {epoch}: Running Train ({self.loss_name}) {running:.6f}  "
+                          f"[{sps:.2f} steps/s]{tag}")
+                extra = {"partial": True} if epoch_cut_short else {}
+                self.metrics.log(epoch=epoch, train_loss=running, steps_per_sec=sps,
+                                 step=state.step, **extra)
+
+                if self._stop_requested:
+                    interrupted = True
+                    self.save_snapshot(state, epoch)
+                    if verbose:
+                        print(f"Epoch {epoch}: interrupted — snapshot saved, stopping")
+                    break
+
+                if epoch % check_preds_epoch == 0:
+                    if val_loader is None:
+                        self.save_snapshot(state, epoch)
+                    if on_preview is not None:
+                        on_preview(state, epoch)
+
+                if val_loader is not None:
+                    model = self.ema_model(state)
+                    val_losses = [self.val_step(model, self._prep_batch(b, train=False))
+                                  for b in val_loader]
+                    running_val = float(torch.stack(val_losses).mean()) if val_losses else 0.0
+                    if verbose:
+                        print(f"Epoch {epoch}: Running Val loss ({self.loss_name}) "
+                              f"{running_val:.6f}")
+                    self.metrics.log(epoch=epoch, val_loss=running_val)
+                    if running_val < best_loss:
+                        best_loss = running_val
+                        epochs_without_improving = 0
+                        self.save_snapshot(state, epoch)
+                    else:
+                        epochs_without_improving += 1
+                    if epochs_without_improving >= patience:
+                        print("Early stopping! Training stopped")
+                        break
+                if verbose:
+                    print("Epochs without improving: ", epochs_without_improving)
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+            self._stop_requested = False
+        if interrupted and verbose:
+            print("Training stopped by signal; snapshot is durable — rerun to resume")
+        return state
+
+    def _to_device_stacked(self, prepped: list) -> Dict[str, torch.Tensor]:
+        """K host-prepped batches as (K, B, ...) device tensors."""
+        return {k: torch.as_tensor(np.stack([np.asarray(p[k]) for p in prepped])).to(self.device)
+                for k in prepped[0]}
+
+    # ------------------------------------------------------------------ infer
+
+    def sample(self, state: TrainState, n: int, cond=None, cfg_scale: Optional[float] = None,
+               capture_frames: bool = False, generator: Optional[torch.Generator] = None,
+               **kwargs):
+        """Sample n images with the EMA weights (the online ones without EMA)
+        through the ancestral chain (``DiffusionProcess.sample``; ``kwargs``
+        such as ``ddim_steps`` go to it), in the model's compute dtype;
+        noise from ``generator``, else the trainer's."""
+        process = make_process(self.ema_model(state), self.noise_schedule, self.noise_steps,
+                               self.image_size, beta_start=self.beta_start,
+                               beta_end=self.beta_end)
+        return process.sample(n, cond, cfg_scale=cfg_scale, capture_frames=capture_frames,
+                              generator=generator if generator is not None else self.generator,
+                              **kwargs)

@@ -308,6 +308,37 @@ def test_chip_smoke_bounds_of_the_third_slice_kernels():
     assert by == "operations" and ms == pytest.approx(flops / cs.PEAK_F32 * 1e3)
 
 
+def test_the_training_modules_are_guarded():
+    """The modules of training (the trainer, EMA, losses, profiling, the
+    loader and the on-device DownBlur) are among what the import guards
+    above check."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("train.py", "ema.py", "losses.py", "profiling.py", "data/__init__.py",
+                "data/loader.py", "data/device_degradation.py"):
+        assert mod.replace("/", os.sep) in checked
+
+
+def test_chip_smoke_train_flops_are_torchs_count():
+    """The train phase's operations: three times the forward's
+    convolution and linear FLOPs as torch's own FlopCounterMode counts them
+    on a CPU forward (the bicubic resize's small products aside); its bound
+    at HR 256, batch 32, is the operations' (2.73 TFLOP a step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    m = residual_attention_unet_superres(magnification_factor=2)
+    with FlopCounterMode(display=False) as fc:
+        m(torch.zeros(2, 32, 32, 3), torch.ones(2), torch.zeros(2, 16, 16, 3), train=True)
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert chip_smoke.train_flops(32, 2) == 3 * (counts["aten.convolution"] + counts["aten.addmm"])
+    ms, by = chip_smoke.train_bound(256, 32, 4_383_058)
+    assert by == "operations"
+    assert chip_smoke.train_flops(256, 32) == pytest.approx(2.73e12, rel=2e-3)
+    assert ms == pytest.approx(chip_smoke.train_flops(256, 32) / chip_smoke.PEAK_BF16 * 1e3)
+
+
 def test_the_fourth_slice_modules_are_guarded():
     """The modules of packed_head and packed_conv are among what the import
     guards above check."""

@@ -76,9 +76,9 @@ def test_init_params_is_seeded_and_loads_strict():
     residual_attention_unet_superres().load_state_dict(a, strict=True)
 
 
-# tap44='l1' is ported now; 'l2' is no level of the reference either; the
-# class conditioning is ported, s2d_train (training) is not
-@pytest.mark.parametrize("kwargs", [{"s2d_train": True}, {"tap44": "l2"}, {"tap44": 1}])
+# tap44='l1', the class conditioning and s2d_train (training) are ported
+# now; 'l2' is no level of the reference, 'depth' no conditioning of it
+@pytest.mark.parametrize("kwargs", [{"conditioning": "depth"}, {"tap44": "l2"}, {"tap44": 1}])
 def test_unported_options_raise(kwargs):
     with pytest.raises((ValueError, NotImplementedError)):
         ResidualAttentionUNet(**kwargs)

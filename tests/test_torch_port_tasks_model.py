@@ -112,8 +112,11 @@ def test_init_params_variants_load_strict_and_are_seeded(variant):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="s2d_train"):
-        residual_attention_unet_sar_to_ndvi(s2d_train=True)
+    # s2d_train is ported now: its training forward refuses a missing
+    # condition image as the served one does
+    with pytest.raises(ValueError, match="condition image"):
+        residual_attention_unet_sar_to_ndvi(s2d_train=True)(torch.zeros(1, HR, HR, 1),
+                                                            torch.ones(1), train=True)
     with pytest.raises(ValueError, match="conditioning"):
         ResidualAttentionUNet(conditioning="text")
     with pytest.raises(ValueError, match="variant"):

@@ -33,6 +33,10 @@ And the other two tasks (random weights from init_params(SEED, variant),
               rest at the x2 widths;
 * x2_start_t: x2 with start_t=250, the bicubic warm start.
 
+And trained weights: the repo's x2 snapshot, served in the stem
+configuration at DDIM-100 and T=1500 with and without fused_update, scored
+on the eval tiles of benchmarks/learning_check.py (the quality phase).
+
 packed_conv is on no path: the JAX model never calls its TPU kernel, so the
 port has no caller either. It is held against its plain version and timed
 in the kernel phase, and its launches in the kernels line are that phase's.
@@ -50,7 +54,9 @@ Phases, each printing one line with its name, seconds and result:
              pixels, 4Ci=128, 4Co=256, no skip; packed_conv at 64->64 and
              192->64, 64x64 pixels) in bfloat16 and float32; time the kernel,
              the plain version and the port's unfused ops for the same
-             function (the yardstick, which the kernel paths never call).
+             function (the yardstick, which the kernel paths never call);
+             in bfloat16 at B=48, REPEAT_CALLS calls of each kernel equal
+             bitwise to its first (a race shows as a difference).
              tap_block (both levels), tap_stem_block, att_head_block, the
              gate (at C = 32, 64 and 128), packed_conv (64->64, 192->64 and
              32->48) and packed_head (at C2 = 128, and at C2 = 144, which
@@ -97,10 +103,11 @@ Phases, each printing one line with its name, seconds and result:
              concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
              DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused and
              stem: a server of the configuration answers 4 concurrent
-             DDIM-100 requests and 1 DDIM-100 tile, and AggregationSampler
-             with fused_update=True on its process 1 T=1500 tile. Tap and
-             l1: 4 requests and 1 DDIM-100 tile. Packed: 4 requests, 1
-             DDIM-100 tile and 1 T=1500 tile from a second server.
+             DDIM-100 requests and 1 DDIM-100 tile, and a second server
+             with fused_update=True 1 T=1500 tile. Tap, packed and
+             l1: 4 requests and 1 DDIM-100 tile (packed's T=1500 tile was
+             cut to keep the script's time once the quality phase came:
+             the unfused path runs the same sampler).
              x2_start_t: 1 DDIM-100 request from the warm start at 250. SAR
              (stem): 8 concurrent DDIM-100 requests (max_batch 8) and 1 on
              the T=1500 chain with fused_update; SAR packed: 8 DDIM-100
@@ -115,7 +122,28 @@ Phases, each printing one line with its name, seconds and result:
              directory, load_snapshot back (the weights equal), and
              InferenceServer.from_snapshot: one bfloat16 forward bitwise
              equal to the original model's, one served micro-batch.
-8. train   - training, where no hand kernel runs (the JAX model gates every
+8. quality - the repo's trained x2 snapshot
+             (benchmarks/gate_artifacts/snapshot_x2.pt, read by the port's
+             io) served by InferenceServer.from_snapshot in the stem
+             configuration, bfloat16, on the four eval tiles of
+             benchmarks/learning_check.py (drawn here with numpy), their
+             LR learning_check's (Pillow's bicubic and blur at 0.5, bit-equal
+             without PIL: data.datasets.pil_downblur_u8; the on-device
+             DownBlur's largest difference from it is reported):
+             DDIM-100, T=1500 and T=1500 with fused_update, QUALITY_DRAWS
+             (9) super-resolutions of each tile, the first
+             through infer_tile a tile at a time (9 patches, one chunk), the
+             rest through infer_tiles (chunks of 48 patches of several
+             tiles). One JSON line a pass: the first draw's per-tile and
+             mean PSNR/SSIM (the port's utils), the mean over all draws,
+             each draw's mean PSNR, bicubic's, the seconds and the exact
+             launches (100 or 1499 forwards a chunk, 1499 ancestral_update a
+             chunk on the fused pass). Fails unless every tile of every draw
+             beats bicubic in PSNR and SSIM, each pass's mean is within 1 dB
+             and 0.01 SSIM of the reference's score of the same snapshot and
+             tiles (evals/x2_ddim100.json, x2_ddpm_full.json) and the fused
+             pass within 0.5 dB and 0.005 of the unfused one.
+9. train   - training, where no hand kernel runs (the JAX model gates every
              Pallas kernel off under train=True): the flagship recipe at
              full width (x2, init_params(SEED), HR 256, batch 32, uint8
              images from default_rng(SEED) through the on-device DownBlur
@@ -124,7 +152,11 @@ Phases, each printing one line with its name, seconds and result:
              model built with every kernel flag ('stem'): 3 warm-up steps
              and 20 timed, one JSON line each (steps/s, ms a step, peak
              memory, the final loss, nvidia-smi's name and power limit);
-             every launch count 0 after them. One float32 step (HR 32,
+             every launch count 0 after them. Before them the data step:
+             the first 32 of those images written as PNG files by the port's
+             codec, read back through DecodeOnlyDataset and the DataLoader,
+             the DownBlur on the card, bit-equal to the in-memory batch. One
+             float32 step (HR 32,
              batch 4) on the card and on its host's CPU from the same
              weights, batch, t and noise, dense and s2d_train: the loss,
              every gradient, the parameters after Adam and the running
@@ -135,7 +167,7 @@ Phases, each printing one line with its name, seconds and result:
              InferenceServer.from_snapshot in the 'stem' configuration: one
              DDIM-100 micro-batch of 8, finite, with the exact launches of
              the stem, gate, attention-head and decoder kernels.
-9. profile - only with --profile: where one sampler step's time goes, for
+10. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -145,7 +177,8 @@ Phases, each printing one line with its name, seconds and result:
              device ms, the busy share, the top kernels.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
-serve phase's paths, packed_conv's the kernel phase's; its times at B=48 in
+serve phase's paths and the quality phase's passes, packed_conv's the
+kernel phase's; its times at B=48 in
 its main path's dtype), a row of its own for each shape of SHAPE_ROWS
 (launched by the SAR->NDVI or generation paths), and last
 {"ok": true, "device": {...}}. Any failure raises: the script exits non-zero
@@ -170,8 +203,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler  # noqa: E402
+from diffusionremotesensing_tpu_torch.aggregation import (  # noqa: E402
+    AggregationSampler,
+    patchify_coords,
+)
 from diffusionremotesensing_tpu_torch.convert import init_params  # noqa: E402
+from diffusionremotesensing_tpu_torch.data.datasets import (  # noqa: E402
+    DecodeOnlyDataset,
+    pil_downblur_u8,
+)
 from diffusionremotesensing_tpu_torch.data.device_degradation import (  # noqa: E402
     make_downblur_transform,
 )
@@ -229,15 +269,18 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (  # noqa: E402
     tap_stem_block,
     tap_stem_block_plain,
 )
+from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic  # noqa: E402
 from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
     tap_conv,
     tap_conv_pair,
     tap_conv_pair_plain,
     tap_conv_plain,
 )
+from diffusionremotesensing_tpu_torch.png import encode_png  # noqa: E402
 from diffusionremotesensing_tpu_torch.schedules import make_schedule  # noqa: E402
 from diffusionremotesensing_tpu_torch.serving import InferenceServer  # noqa: E402
 from diffusionremotesensing_tpu_torch.train import Trainer  # noqa: E402
+from diffusionremotesensing_tpu_torch.utils import psnr, ssim  # noqa: E402
 
 SEED = 0
 T_STEPS = 1500
@@ -329,6 +372,10 @@ def row_of(kernel, variant):
 # what follows by less; 1e-2 is 2.5 ulps at the top of the range.
 # float32: float32 sums of up to 1728 products in different orders.
 KERNEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# calls of each bfloat16 kernel at B=48 held bitwise equal to its first: a
+# race that changes a rare call (a ring slot released before its reads were
+# done) shows here, where one comparison with the plain version may miss it
+REPEAT_CALLS = 1000
 # ancestral_update, float32: one product and two sums an element, and a
 # normal from the card's log/sqrt/sincospi against torch's log/cos/sin of
 # 2 pi u2, a few ulps of |z| < 5.7 apart: 1e-5
@@ -368,6 +415,24 @@ STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STATS_TOL = 1e-5, 1e-5, 1e-6
 # steps; the mean loss of the last 10 must fall below half the first 10's
 # (on a CPU, four seeds: 0.17-0.19 of it)
 LEARN_HR, LEARN_B, LEARN_STEPS, LEARN_RATIO = 64, 16, 60, 0.5
+# the quality phase: the repo's trained x2 snapshot served in the 'stem'
+# configuration, bfloat16, on the eval tiles of benchmarks/learning_check.py
+# (4 HR tiles of 256 px from default_rng(10_000), patch 64, stride 32: 9
+# patches a tile), their LR learning_check's (Pillow's bicubic and blur at
+# 0.5, computed without PIL, bit-equal: the card has no PIL), scored
+# by the port's psnr/ssim against the reference's scores of the same
+# snapshot (evals/*.json): each pass within 1 dB and 0.01 SSIM of them and
+# above bicubic on every tile; the fused update's T=1500 pass within 0.5 dB
+# and 0.005 SSIM of the unfused one's
+ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
+                         "gate_artifacts")
+QUALITY_SNAPSHOT = os.path.join(ARTIFACTS, "snapshot_x2.pt")
+EVAL_SEED, EVAL_TILES, EVAL_TILE_HR, EVAL_BLUR = 10_000, 4, 256, 0.5
+QUALITY_DRAWS = 9  # draws a tile: the mean of one draw of the four tiles spreads ~0.5 dB
+QUALITY_PSNR_TOL, QUALITY_SSIM_TOL = 1.0, 0.01
+FUSED_PSNR_TOL, FUSED_SSIM_TOL = 0.5, 0.005
+# the train phase's data step: its first TRAIN_B images as PNG files
+DATA_IMAGES = 32
 PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
 SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
@@ -949,6 +1014,20 @@ def ptxas_summary(log):
     return out
 
 
+def repeat_differ(fn, calls):
+    """How many of `calls` calls of fn() give an output that differs
+    bitwise from the first call's (every kernel here is deterministic: a
+    difference is a race)."""
+    def outs():
+        got = fn()
+        return [got] if isinstance(got, torch.Tensor) else list(got)
+    first = outs()
+    differ = torch.zeros((), dtype=torch.int64, device=first[0].device)
+    for _ in range(calls):
+        differ += torch.stack([(g != f).any() for g, f in zip(outs(), first)]).any()
+    return int(differ)
+
+
 def max_err(got, want, dt, what, tol=KERNEL_TOL):
     """max |got - want| over the outputs, each held to tol[dt] of its scale."""
     worst = 0.0
@@ -1182,17 +1261,199 @@ def profile_train_step(dev, s2d_train, reps=5):
             "top_kernels": [[name, ms, ms / device] for name, ms in top]}
 
 
+def draw_image(rng, size):
+    """One eval image of benchmarks/learning_check.py (`_draw_image`, kept
+    here so that the script needs nothing of benchmarks/): a blocky
+    low-frequency field, sharp rectangles and 1-2 px lines, uint8."""
+    small = rng.random((8, 8, 3)).astype(np.float32)
+    reps = size // 8
+    img = np.kron(small, np.ones((reps, reps, 1), np.float32))
+    for _ in range(rng.integers(6, 12)):
+        h = int(rng.integers(size // 16, size // 3))
+        w = int(rng.integers(size // 16, size // 3))
+        y = int(rng.integers(0, size - h))
+        x = int(rng.integers(0, size - w))
+        color = rng.random(3).astype(np.float32)
+        img[y : y + h, x : x + w] = color
+    for _ in range(rng.integers(4, 8)):
+        t = int(rng.integers(1, 3))
+        c = rng.random(3).astype(np.float32)
+        if rng.random() < 0.5:
+            y = int(rng.integers(0, size - t))
+            img[y : y + t, :] = c
+        else:
+            x = int(rng.integers(0, size - t))
+            img[:, x : x + t] = c
+    return (img * 255).astype(np.uint8)
+
+
+def eval_tiles():
+    """learning_check's four held-out HR tiles (256 px, default_rng(10_000))."""
+    rng = np.random.default_rng(EVAL_SEED)
+    return [draw_image(rng, EVAL_TILE_HR) for _ in range(EVAL_TILES)]
+
+
+def eval_lrs(tiles, dev):
+    """The eval tiles' LR as learning_check._degrade_lr makes it (Pillow's
+    bicubic and GaussianBlur, computed bit-equal without PIL by
+    data.datasets.pil_downblur_u8), and its largest difference from the
+    DownBlur on the card (data.device_degradation, the training path's;
+    within 2/255 of Pillow's)."""
+    exact = [pil_downblur_u8(t, 2, EVAL_BLUR).astype(np.float32) / 255.0 for t in tiles]
+    dev_lr = make_downblur_transform(EVAL_TILE_HR, 2, EVAL_BLUR)(
+        {"hr_u8": torch.from_numpy(np.stack(tiles)).to(dev)})["cond"].cpu().numpy()
+    return exact, float(np.abs(dev_lr - np.stack(exact)).max())
+
+
+def _reference_scores(name):
+    with open(os.path.join(ARTIFACTS, "evals", name)) as f:
+        return json.load(f)
+
+
+def _scores(sr, hr, bic):
+    return {"sr_psnr_db": psnr(sr, hr), "sr_ssim": ssim(sr, hr),
+            "bicubic_psnr_db": psnr(bic, hr), "bicubic_ssim": ssim(bic, hr)}
+
+
+def _score_pass(dev, name, kwargs, ref_name, hrs, lrs, bics, draws):
+    """One pass of the quality phase: the x2 snapshot served by
+    InferenceServer.from_snapshot in the 'stem' configuration (bf16) with
+    `kwargs`; `draws` super-resolutions of each eval tile, the first
+    through infer_tile a tile at a time, the others through infer_tiles
+    (all at once: chunks of 48 patches of several tiles), each with noise of
+    its own; every one scored against its HR, and their mean against the
+    reference's score. The launches of the pass, exact."""
+    ref = _reference_scores(ref_name)
+    server = InferenceServer.from_snapshot(QUALITY_SNAPSHOT, "cosine", T_STEPS, HR,
+                                           model_flags=CONFIGS["stem"], dtype=torch.bfloat16,
+                                           device=dev, **kwargs)
+    rows, secs = [], {"infer_tile": []}
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        for hr, lr, bic in zip(hrs, lrs, bics):
+            t0 = time.perf_counter()
+            sr = server.infer_tile(lr)
+            secs["infer_tile"].append(time.perf_counter() - t0)
+            check(sr.shape == hr.shape and np.isfinite(sr).all(), f"quality {name}: bad tile")
+            rows.append(_scores(sr, hr, bic))
+        if draws > 1:
+            t0 = time.perf_counter()
+            srs = server.infer_tiles([lr for _ in range(draws - 1) for lr in lrs])
+            secs[f"infer_tiles_{draws - 1}_draws"] = time.perf_counter() - t0
+            for i, sr in enumerate(srs):
+                j = i % len(hrs)
+                check(sr.shape == hrs[j].shape and np.isfinite(sr).all(), f"quality {name}: bad tile")
+                rows.append(_scores(sr, hrs[j], bics[j]))
+        counts = read_counts()
+    finally:
+        server.shutdown()
+    steps = DDIM_STEPS if "ddim_steps" in kwargs else T_STEPS - 1
+    per_tile = len(patchify_coords(EVAL_TILE_HR // 2, EVAL_TILE_HR // 2, HR // 2, HR // 4))
+    chunks = len(hrs) * -(-per_tile // B_FLAG) + -(-(draws - 1) * len(hrs) * per_tile // B_FLAG)
+    want = {k: n * chunks * steps for k, n in per_forward("stem").items()}
+    if kwargs.get("fused_update"):
+        want["ancestral_update"] = chunks * steps
+    check(counts == want, f"quality {name}: launches {counts}, expected {want}")
+    mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    for i, r in enumerate(rows):
+        check(r["sr_psnr_db"] > r["bicubic_psnr_db"] and r["sr_ssim"] > r["bicubic_ssim"],
+              f"quality {name}: tile {i % len(hrs)} of draw {i // len(hrs)} does not beat "
+              f"bicubic: {r}")
+    dp, ds = mean["sr_psnr_db"] - ref["mean_sr_psnr_db"], mean["sr_ssim"] - ref["mean_sr_ssim"]
+    check(abs(dp) <= QUALITY_PSNR_TOL and abs(ds) <= QUALITY_SSIM_TOL,
+          f"quality {name}: mean {mean['sr_psnr_db']} dB / SSIM {mean['sr_ssim']}, the "
+          f"reference's {ref['mean_sr_psnr_db']} / {ref['mean_sr_ssim']} ({ref_name})")
+    n = len(hrs)
+    draw_means = [float(np.mean([r["sr_psnr_db"] for r in rows[d * n:(d + 1) * n]]))
+                  for d in range(draws)]
+    return {"pass": name, "sampler": "DDIM-100 clip_x0" if "ddim_steps" in kwargs else
+            "DDPM T=1500" + (" fused_update" if kwargs.get("fused_update") else ""),
+            "draws": draws, "tiles_first_draw": rows[:n],
+            "mean_first_draw": {k: float(np.mean([r[k] for r in rows[:n]])) for k in rows[0]},
+            "mean": mean, "draw_mean_psnr_db": draw_means,
+            "draw_mean_psnr_sd_db": float(np.std(draw_means, ddof=1)) if draws > 1 else None,
+            "reference": ref_name, "reference_mean_sr_psnr_db": ref["mean_sr_psnr_db"],
+            "reference_mean_sr_ssim": ref["mean_sr_ssim"], "psnr_minus_reference_db": dp,
+            "ssim_minus_reference": ds, "seconds": secs, "chunks": chunks,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def quality_phase(dev, card, draws):
+    """The repo's trained x2 snapshot (QUALITY_SNAPSHOT, read by the port's
+    io) on learning_check's eval tiles, their LR learning_check's, computed
+    without PIL (eval_lrs; the on-card DownBlur's largest difference from it
+    is reported): DDIM-100, T=1500 unfused and T=1500 with the fused update,
+    `draws` draws a tile, one JSON line each (with `card`), and the
+    fused-unfused gap. Returns the lines and the phase's launches."""
+    check(os.path.exists(QUALITY_SNAPSHOT), f"quality: {QUALITY_SNAPSHOT} is missing")
+    tiles = np.stack(eval_tiles())
+    lrs, downblur_diff = eval_lrs(tiles, dev)
+    hrs = list(tiles.astype(np.float32) / 255.0)
+    bics = list(upsample_bicubic(torch.from_numpy(np.stack(lrs)), 2).clamp(0.0, 1.0).numpy())
+    passes = [("ddim100", {"ddim_steps": DDIM_STEPS}, "x2_ddim100.json"),
+              ("ddpm1500", {}, "x2_ddpm_full.json"),
+              ("ddpm1500_fused_update", {"fused_update": True}, "x2_ddpm_full.json")]
+    results, launches = [], dict.fromkeys(KERNELS, 0)
+    for name, kwargs, ref in passes:
+        r = _score_pass(dev, name, kwargs, ref, hrs, lrs, bics, draws)
+        for k, n in r["launches"].items():
+            launches[k] += n
+        results.append(r)
+    unfused, fused = results[1]["mean"], results[2]["mean"]
+    gap = {"psnr_db": fused["sr_psnr_db"] - unfused["sr_psnr_db"],
+           "ssim": fused["sr_ssim"] - unfused["sr_ssim"]}
+    check(abs(gap["psnr_db"]) <= FUSED_PSNR_TOL and abs(gap["ssim"]) <= FUSED_SSIM_TOL,
+          f"quality: fused update against unfused at T=1500: {gap}")
+    lines = [json.dumps({**r, "card": card}) for r in results]
+    lines.append(json.dumps({"fused_minus_unfused": gap, "draws": draws,
+                             "lr_max_abs_diff_device_downblur": downblur_diff, "card": card}))
+    return "\n".join(lines), launches
+
+
+def _data_step(dev, tmp):
+    """The first DATA_IMAGES of the train phase's uint8 images written as
+    PNG files (the port's codec), read back through DecodeOnlyDataset and
+    the DataLoader, the DownBlur on the card: the batch equals the one the
+    in-memory images give, bit for bit."""
+    images = _U8Images(2 * TRAIN_B, TRAIN_HR, DATA_IMAGES, SEED)
+    folder = os.path.join(tmp, "png")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    for i in range(DATA_IMAGES):
+        with open(os.path.join(folder, f"{i:04d}.png"), "wb") as f:
+            f.write(encode_png(images[i]["hr_u8"]))
+    write_s = time.perf_counter() - t0
+    transform = make_downblur_transform(TRAIN_HR, 2, TRAIN_BLUR)
+
+    def first_batch(dataset):
+        host = next(iter(DataLoader(dataset, DATA_IMAGES, shuffle=False)))
+        return transform({"hr_u8": torch.from_numpy(host["hr_u8"]).to(dev)})
+
+    t0 = time.perf_counter()
+    got = first_batch(DecodeOnlyDataset(folder, TRAIN_HR))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want = first_batch(images)
+    check(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+          "train data: the batch from PNG files differs from the in-memory batch")
+    return {"data_png_images": DATA_IMAGES, "data_png_write_s": write_s,
+            "data_png_read_and_downblur_s": read_s, "data_batch_bit_equal": True}
+
+
 def train_phase(dev, card):
-    """The train phase: the full-width throughput runs, dense and
-    s2d_train (one JSON line each, with `card`, nvidia-smi's name and power
-    limit), the card's step against the CPU's, the learning check and
+    """The train phase: the data step (PNG files through DecodeOnlyDataset,
+    bit-equal to the in-memory batch), the full-width throughput runs, dense
+    and s2d_train (one JSON line each, with `card`, nvidia-smi's name and
+    power limit), the card's step against the CPU's, the learning check and
     serving from the trained snapshot."""
     with tempfile.TemporaryDirectory() as d:
+        data = _data_step(dev, d)
         lines = [json.dumps({**_train_throughput(dev, s, d), "card": card}) for s in (False, True)]
         torch.cuda.empty_cache()
         steps = {("s2d_train" if s else "dense"): _compare_steps(s) for s in (False, True)}
         served = _learn_and_serve(dev, d)
-    lines.append(json.dumps({"card_vs_cpu_step": steps, **served}))
+    lines.append(json.dumps({"card_vs_cpu_step": steps, **served, **data}))
     return "\n".join(lines)
 
 
@@ -1328,6 +1589,11 @@ def main():
                                   UPDATE_TOL if name == "ancestral_update" else KERNEL_TOL)
                     row = {"dtype": str(dt).split(".")[-1], "B": B, "max_abs_err": err,
                            "ms": time_ms(fn)}
+                    if B == B_FLAG and dt == torch.bfloat16:
+                        differ = repeat_differ(fn, REPEAT_CALLS)
+                        check(differ == 0, f"{name} {dt} B={B}: {differ} of {REPEAT_CALLS} calls "
+                                           "differ bitwise from the first (a race)")
+                        row["repeat_calls_bitwise_equal"] = REPEAT_CALLS
                     if B == B_FLAG:
                         row["plain_ms"] = time_ms(plain, reps=5)
                         row["library_ms"] = time_ms(library)
@@ -1782,33 +2048,29 @@ def main():
 
         def run_path(name, ddim_tiles, ddpm):
             """4 concurrent DDIM-100 requests, `ddim_tiles` DDIM-100 tiles and
-            a T=1500 tile: from a second server of the unfused sampler
-            (ddpm='server'), through AggregationSampler with fused_update
-            (ddpm='fused_update'), or none (ddpm=None). Every count is set to
-            0 just before and read just after, and must be exact."""
+            a T=1500 tile from a second server: of the unfused sampler
+            (ddpm='server'), of the fused update (ddpm='fused_update':
+            InferenceServer(..., fused_update=True).infer_tile), or none
+            (ddpm=None). Every count is set to 0 just before and read just
+            after, and must be exact."""
             model = model_with(name, dev)
             ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
                                    dtype=torch.bfloat16, device="cuda")
             servers, secs = [ddim], {}
             try:
-                if ddpm == "server":
+                if ddpm is not None:
                     servers.append(InferenceServer(model, "cosine", T_STEPS, HR,
-                                                   dtype=torch.bfloat16, device="cuda"))
-                if ddpm == "fused_update":
-                    agg = AggregationSampler(ddim.process, patch_size=HR // 2, stride=HR // 4,
-                                             magnification_factor=2, fused_update=True)
-                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                                                   dtype=torch.bfloat16, device="cuda",
+                                                   fused_update=ddpm == "fused_update"))
                 torch.cuda.synchronize()
                 zero_counts()
                 requests(ddim, secs)
                 for i in range(ddim_tiles):
                     timed(secs, f"tile_ddim100_{i}" if ddim_tiles > 1 else "tile_ddim100",
                           ddim.infer_tile)
-                if ddpm == "server":
-                    timed(secs, "tile_ddpm1500", servers[1].infer_tile)
-                elif ddpm == "fused_update":
-                    timed(secs, "tile_ddpm1500_fused_update",
-                          lambda t: agg(t, generator=gen, device=dev))
+                if ddpm is not None:
+                    timed(secs, "tile_ddpm1500" + ("_fused_update" if ddpm == "fused_update" else ""),
+                          servers[1].infer_tile)
                 counts, batches = read_counts(), ddim.batches_run
             finally:
                 for server in servers:
@@ -1932,7 +2194,7 @@ def main():
                  "fused": run_path("fused", 1, "fused_update"),
                  "stem": run_path("stem", 1, "fused_update"),
                  "tap": run_path("tap", 1, None),
-                 "packed": run_path("packed", 1, "server"),
+                 "packed": run_path("packed", 1, None),
                  "l1": run_path("l1", 1, None),
                  "x2_start_t": start_t_path(),
                  "sar": task_path("sar", "stem", True),
@@ -1991,6 +2253,12 @@ def main():
         return json.dumps({"snapshot_bytes": size, "epochs_run": epochs,
                            "forward_bitwise_equal": True, "micro_batches": server.batches_run})
 
+    def quality():
+        lines, launches = quality_phase(dev, state["smi"], QUALITY_DRAWS)
+        for k, n in launches.items():
+            state["launches"][row_of(k, "superres")] += n
+        return lines
+
     def profile():
         lines = []
         for name in ("block", "fused", "stem", "tap", "packed", "l1"):
@@ -2008,6 +2276,7 @@ def main():
     phase("model", model)
     phase("serve", serve)
     phase("checkpoint", checkpoint)
+    phase("quality", quality)
     phase("train", lambda: train_phase(dev, state["smi"]))
     if args.profile:
         phase("profile", profile)

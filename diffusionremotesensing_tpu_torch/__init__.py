@@ -2,10 +2,14 @@
 
 The JAX package beside this one is the reference: each module here mirrors
 its namesake there (``schedules``, ``models.blocks``, ``models.unet``,
-``ops.*``, ``diffusion``, ``aggregation``, ``serving``) and is held equal to
-it by ``tests/test_torch_port_*.py``. This package imports ``torch``, numpy
-and the standard library only: nothing of JAX, flax or the JAX package, so
-it runs on a machine that has none of them.
+``ops.*``, ``diffusion``, ``aggregation``, ``serving``, ``utils``,
+``data.*``) and is held equal to it by ``tests/test_torch_port_*.py``. This
+package imports ``torch``, numpy, scipy and the standard library: nothing of
+JAX, flax or the JAX package, so it runs on a machine that has none of
+them. PNG files are read and written by its own codec (``png``); PIL and
+OpenCV are imported only by the few functions that need them (other image
+formats, the host DownBlur, the BSRGAN pipelines), which raise a named
+ImportError where they are missing.
 
 Layout follows the reference's public functions: images are NHWC, conv
 kernels handed to the ``ops`` transforms are HWIO. Inside the model the
@@ -16,9 +20,10 @@ It serves the reference's three tasks: super-resolution, SAR->NDVI and
 class-conditional generation with classifier-free guidance
 (``serving.InferenceServer(task=...)``), and trains them
 (``train.Trainer``: the reference's step, loop and ``s2d_train``, with the
-host loader ``data.loader`` and the DownBlur on the device,
+host loader ``data.loader``, the datasets ``data.datasets`` and
+``data.cifar10`` and the DownBlur on the device,
 ``data.device_degradation``). No hand kernel runs in training, as in the
-reference.
+reference. The server also answers over HTTP (``InferenceServer.serve``).
 
 The TPU kernels of the served paths are hand-written CUDA kernels here,
 built with ``nvcc`` at first use and bound with ``ctypes``:

@@ -110,41 +110,82 @@ class AggregationSampler:
                                              start_t=self.start_t)
         return self.process.sampler(fused_update=self.fused_update, start_t=self.start_t)
 
+    def extract_patches(self, img_lr: np.ndarray):
+        """(H, W, C) LR in [0, 1] -> (the patches (P, p, p, C), their HR
+        boxes), the patch set ``__call__`` denoises."""
+        img_lr = np.asarray(img_lr, np.float32)
+        h, w = img_lr.shape[:2]
+        boxes = patchify_coords(h, w, self.patch_size, self.stride, self.mag)
+        mag = self.mag
+        patches = np.stack([img_lr[y0 // mag:y1 // mag, x0 // mag:x1 // mag]
+                            for (y0, y1, x0, x1) in boxes])
+        return patches, boxes
+
+    def _sampled_chunks(self, n: int, block_fn, generator, device):
+        """Denoise ``n`` patches chunk by chunk (``chunk_plan``); yields
+        ``(start, out)``, the chunk's (size, hr, hr, C) output on the device.
+        ``block_fn(start, size)`` gives the chunk's LR patches; up to
+        MAX_IN_FLIGHT chunks are enqueued before the oldest is yielded."""
+        sampler = self._sampler()
+        hr = self.patch_size * self.mag
+        pending = []
+        for start, size in self.chunk_plan(n):
+            cond = torch.from_numpy(block_fn(start, size)).to(device)
+            if self.start_t is not None:
+                # warm start: each patch's bicubic upsample q-sampled to start_t
+                init = upsample_bicubic(cond, self.mag)
+                x_T = warm_start_state(self.process.schedule, init, self.start_t, generator)
+            else:
+                x_T = torch.randn((size, hr, hr, cond.shape[-1]), generator=generator,
+                                  device=device)
+            pending.append((start, sampler(x_T, cond, generator=generator)))
+            if len(pending) >= self.MAX_IN_FLIGHT:
+                yield pending.pop(0)
+        yield from pending
+
+    def sample_patches(self, patches: np.ndarray, generator: Optional[torch.Generator] = None,
+                       device="cuda") -> np.ndarray:
+        """Denoise (P, p, p, C) LR patches -> (P, hr, hr, C), chunked as
+        ``__call__`` chunks them and drawing the same noise in the same
+        order from ``generator``."""
+        patches = np.asarray(patches, np.float32)
+        outs = [out.cpu().numpy() for _, out in self._sampled_chunks(
+            len(patches), lambda s, k: patches[s:s + k], generator, device)]
+        return np.concatenate(outs, axis=0)
+
+    def sample_tiles(self, imgs: List[np.ndarray], generator: Optional[torch.Generator] = None,
+                     device="cuda") -> List[np.ndarray]:
+        """Several (H, W, C) LR images in [0, 1] at once -> their (H*mag,
+        W*mag, C) super-resolutions in [0, 1]: the patches of every image
+        denoised together in chunks of ``batch_size`` (one image's patches
+        are drawn as ``__call__`` draws them), each chunk blended into its
+        images' canvases as it is gathered."""
+        imgs = [np.asarray(img, np.float32) for img in imgs]
+        mag = self.mag
+        index = [(k, box) for k, img in enumerate(imgs)
+                 for box in patchify_coords(img.shape[0], img.shape[1], self.patch_size,
+                                            self.stride, mag)]
+        canvases = [np.zeros((img.shape[0] * mag, img.shape[1] * mag, img.shape[2]), np.float32)
+                    for img in imgs]
+        counts = [np.zeros(c.shape[:2] + (1,), np.float32) for c in canvases]
+        wmask = self.weight[:, :, None]
+
+        def block(start, size):
+            return np.stack([imgs[k][y0 // mag:y1 // mag, x0 // mag:x1 // mag]
+                             for k, (y0, y1, x0, x1) in index[start:start + size]])
+
+        for start, out in self._sampled_chunks(len(index), block, generator, device):
+            for patch, (k, (y0, y1, x0, x1)) in zip(out.cpu().numpy(),
+                                                     index[start:start + len(out)]):
+                canvases[k][y0:y1, x0:x1] += patch * wmask
+                counts[k][y0:y1, x0:x1] += wmask
+        if not all((n != 0).all() for n in counts):
+            raise RuntimeError("patch grid left output pixels uncovered")
+        return [np.clip(c / n, 0.0, 1.0) for c, n in zip(canvases, counts)]
+
     def __call__(self, img_lr: np.ndarray, generator: Optional[torch.Generator] = None,
                  device="cuda") -> np.ndarray:
         """(H, W, C) LR in [0, 1] -> (H*mag, W*mag, C) in [0, 1]. Patches are
         extracted one chunk at a time and each chunk is blended as it is
         gathered; up to MAX_IN_FLIGHT chunks are enqueued ahead."""
-        img_lr = np.asarray(img_lr, np.float32)
-        h, w, c = img_lr.shape
-        mag, hr = self.mag, self.patch_size * self.mag
-        boxes = patchify_coords(h, w, self.patch_size, self.stride, mag)
-        sampler = self._sampler()
-        canvas = np.zeros((h * mag, w * mag, c), np.float32)
-        counts = np.zeros((h * mag, w * mag, 1), np.float32)
-        wmask = self.weight[:, :, None]
-
-        def blend(start, out):
-            for patch, (y0, y1, x0, x1) in zip(out.cpu().numpy(), boxes[start:start + len(out)]):
-                canvas[y0:y1, x0:x1] += patch * wmask
-                counts[y0:y1, x0:x1] += wmask
-
-        pending = []
-        for start, size in self.chunk_plan(len(boxes)):
-            block = np.stack([img_lr[y0 // mag:y1 // mag, x0 // mag:x1 // mag]
-                              for (y0, y1, x0, x1) in boxes[start:start + size]])
-            cond = torch.from_numpy(block).to(device)
-            if self.start_t is not None:
-                # warm start: each patch's bicubic upsample q-sampled to start_t
-                init = upsample_bicubic(cond, mag)
-                x_T = warm_start_state(self.process.schedule, init, self.start_t, generator)
-            else:
-                x_T = torch.randn((size, hr, hr, c), generator=generator, device=device)
-            pending.append((start, sampler(x_T, cond, generator=generator)))
-            if len(pending) >= self.MAX_IN_FLIGHT:
-                blend(*pending.pop(0))
-        for start, out in pending:
-            blend(start, out)
-        if not (counts != 0).all():
-            raise RuntimeError("patch grid left output pixels uncovered")
-        return np.clip(canvas / counts, 0.0, 1.0)
+        return self.sample_tiles([img_lr], generator, device)[0]

@@ -57,7 +57,7 @@
 //    of the wgmma D layout is, two columns a register, the A layout of two
 //    k-steps: the FlashAttention-3 trick for P.V); x's eight k-steps come by
 //    ldmatrix and stay in registers. The slot goes back to the producer once
-//    x is in registers.
+//    the MMA that reads x's registers is done.
 // 3. psi from the registers: a's accumulators (rounded to bf16) dotted with
 //    wpsi, a partial sum a lane over its 8 columns of each of its two rows,
 //    then two shfl_xor within the quad. gated = round(x * round(psi)) is
@@ -238,11 +238,10 @@ att_gate_kernel(const __grid_constant__ sm90::TensorMap xmap,
       for (int kk = 0; kk < 4; ++kk) sm90::wgmma_m64n32k16(acc, ha[kk], wdesc(W_GW, kk, 2048));
       sm90::wgmma_commit();
     }
-    // x's eight k-steps, loaded while g @ gw runs; the slot is then free
+    // x's eight k-steps, loaded while g @ gw runs
     uint32_t xa[8][4];
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) lda(xa[kk], xs + (kk / 4) * BOX, kk);
-    sm90::mbar_arrive(&empty[s]);
     sm90::wgmma_wait<0>();
     sm90::fence_operand(acc);
     // accumulator columns 8 j + 2 q + e of rows g (h = 0) and g + 8 (h = 1):
@@ -270,6 +269,12 @@ att_gate_kernel(const __grid_constant__ sm90::TensorMap xmap,
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operand(acc);
+    // the slot goes back only now, once an MMA has consumed the registers
+    // its ldmatrix reads filled: released right after those reads were
+    // issued, the producer's next TMA write into the slot could land before
+    // a read had returned, and a rare call computed a pixel of attn_s from
+    // the next item's x or h
+    sm90::mbar_arrive(&empty[s]);
 
     // psi = round(sigmoid(round(a) @ wpsi + bpsi)) for rows g and g + 8: a
     // lane's 8 columns, then the quad's sum

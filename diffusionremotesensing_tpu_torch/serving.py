@@ -11,8 +11,9 @@ wrap-around to a fixed shape), then denoised in one sampler call;
 sampling. ``start_t`` (super-resolution only) starts each request from its
 bicubic upsample q-sampled to t = start_t. Each sampler call draws its
 noise from a ``torch.Generator`` of its own, seeded from the server's seed
-and a request counter. The HTTP front end and the PNG codec of the
-reference package are not ported yet.
+and a request counter. ``serve`` / ``make_http_server`` put a stdlib HTTP
+front end on it (base64 PNG images through the port's own codec,
+``png.py``; no PIL).
 
 Example:
     server = InferenceServer(model, "cosine", 1500, image_size=128,
@@ -29,10 +30,15 @@ Example:
     gen = InferenceServer.from_snapshot("snapshot_gen.pt", "cosine", 1000, 32,
                                         task="generation", num_classes=4)
     imgs = gen.infer_batch([0, 3])
+    # over HTTP: GET /healthz; POST /superres, /sar_to_ndvi or /generate
+    # ({"image": base64 PNG} or {"label": n}) and /superres_tile
+    server.serve(host="0.0.0.0", port=8000)
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import queue
 import threading
 import time
@@ -50,7 +56,8 @@ from diffusionremotesensing_tpu_torch.models.unet import (
     residual_attention_unet_superres,
 )
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
-from diffusionremotesensing_tpu_torch.utils import resolve_device
+from diffusionremotesensing_tpu_torch.png import decode_png, encode_png, is_png
+from diffusionremotesensing_tpu_torch.utils import require_pil, resolve_device
 
 # the model's conditioning each task serves
 TASKS = {"superres": "superres", "sar": "sar", "generation": "class"}
@@ -161,6 +168,7 @@ class InferenceServer:
         self._ddim_steps = ddim_steps
         self._ddim_clip_x0 = ddim_clip_x0
         self._start_t = start_t
+        self._fused_update = fused_update
         cfg = CFG_SCALE if task == "generation" else None
         if ddim_steps is not None:
             self._sampler = self.process.ddim_sampler(ddim_steps, cfg_scale=cfg,
@@ -272,21 +280,29 @@ class InferenceServer:
         """Tiled super-resolution of an LR image of any size >= one patch,
         through aggregation sampling (patch = the model's LR size, stride
         half of it). Tile requests run one at a time. Super-resolution only."""
+        return self.infer_tiles([lr_img])[0]
+
+    def infer_tiles(self, lr_imgs: List[np.ndarray]) -> List[np.ndarray]:
+        """``infer_tile`` of several LR images in one call: their patches are
+        denoised together, so a sampler chunk holds patches of several
+        tiles; ``infer_tile(img)`` is ``infer_tiles([img])[0]``."""
         if self.task != "superres":
             raise ValueError("infer_tile is only available for task='superres'")
         p = self.expected_cond_shape[0]
-        img = np.asarray(lr_img, np.float32)
-        if img.ndim != 3 or img.shape[2] != self.model.cond_channels or min(img.shape[:2]) < p:
-            raise ValueError(
-                f"tile must be (H>={p}, W>={p}, {self.model.cond_channels}), got {tuple(img.shape)}")
+        imgs = [np.asarray(img, np.float32) for img in lr_imgs]
+        for img in imgs:
+            if img.ndim != 3 or img.shape[2] != self.model.cond_channels or min(img.shape[:2]) < p:
+                raise ValueError(f"tile must be (H>={p}, W>={p}, {self.model.cond_channels}), "
+                                 f"got {tuple(img.shape)}")
         with self._tile_lock:
             if self._agg is None:
                 self._agg = AggregationSampler(
                     self.process, patch_size=p, stride=p // 2,
                     magnification_factor=self.model.magnification_factor,
                     ddim_steps=self._ddim_steps, ddim_clip_x0=self._ddim_clip_x0,
-                    start_t=self._start_t)
-            return self._agg(img, generator=self._next_generator(), device=self.device)
+                    fused_update=self._fused_update, start_t=self._start_t)
+            return self._agg.sample_tiles(imgs, generator=self._next_generator(),
+                                          device=self.device)
 
     def warmup(self):
         """Run one request before accepting traffic."""
@@ -298,3 +314,110 @@ class InferenceServer:
     def shutdown(self):
         """Stop the micro-batching worker; queued requests fail."""
         self.batcher.shutdown()
+
+    # ----------------------------------------------------------- HTTP layer
+
+    def serve(self, host: str = "0.0.0.0", port: int = 8000, warmup: bool = True):
+        """Blocking stdlib HTTP server (threaded; requests micro-batch)."""
+        server = self.make_http_server(host, port, warmup=warmup)
+        print(f"serving {self.task} on {host}:{port}")
+        server.serve_forever()
+
+    def make_http_server(self, host: str = "127.0.0.1", port: int = 0, warmup: bool = False):
+        """A ``ThreadingHTTPServer`` (not yet serving): GET /healthz; POST
+        the task's path (/superres, /sar_to_ndvi, /generate) with
+        {"image": base64 PNG} or {"label": n}, and /superres_tile. 400 for a
+        missing field, a bad shape or label, 404 for a path the task does
+        not serve, 500 with "Type: message"; answers {"image": base64 PNG}."""
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        if warmup:
+            self.warmup()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _reply(self, code: int, payload: dict):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._reply(200, {"status": "ok", "task": outer.task})
+                else:
+                    self._reply(404, {"error": "unknown path"})
+
+            _PATH_TASK = {"/superres": "superres", "/sar_to_ndvi": "sar", "/generate": "generation"}
+
+            def do_POST(self):
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(length) or b"{}")
+                    if self.path == "/superres_tile":
+                        if outer.task != "superres":
+                            self._reply(404, {"error": "tile endpoint requires task=superres"})
+                            return
+                        if "image" not in req:
+                            self._reply(400, {"error": "missing required field 'image'"})
+                            return
+                        try:
+                            out = outer.infer_tile(_decode_image(req["image"]))
+                        except ValueError as e:
+                            self._reply(400, {"error": str(e)})
+                            return
+                        self._reply(200, {"image": _encode_image(out)})
+                        return
+                    if self._PATH_TASK.get(self.path) != outer.task:
+                        self._reply(404, {"error": f"path {self.path} not served by task {outer.task}"})
+                        return
+                    field = "label" if outer.task == "generation" else "image"
+                    if field not in req:
+                        self._reply(400, {"error": f"missing required field {field!r}"})
+                        return
+                    if outer.task == "generation":
+                        # int() refuses lists, None and non-numeric strings;
+                        # np.int32 refuses what overflows it: client errors
+                        try:
+                            cond = np.int32(int(req["label"]))
+                        except (TypeError, ValueError, OverflowError):
+                            self._reply(400, {"error": "field 'label' must be an integer"})
+                            return
+                    else:
+                        cond = _decode_image(req["image"])
+                    err = outer.validate(cond)
+                    if err is not None:
+                        self._reply(400, {"error": err})
+                        return
+                    out = outer.batcher.infer(cond, timeout=600)
+                    self._reply(200, {"image": _encode_image(out)})
+                except Exception as e:  # noqa: BLE001 - the client gets the error
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        return ThreadingHTTPServer((host, port), Handler)
+
+
+def _decode_image(b64: str) -> np.ndarray:
+    """base64 image -> (H, W, C) float32 in [0, 1]: PNG by the port's codec
+    (16-bit samples over 65535), any other format through PIL."""
+    data = base64.b64decode(b64)
+    if is_png(data):
+        arr = decode_png(data)
+        arr = arr.astype(np.float32) / (65535.0 if arr.dtype == np.uint16 else 255.0)
+    else:
+        import io
+
+        Image = require_pil("decoding a non-PNG request image", "PNG images")
+        arr = np.asarray(Image.open(io.BytesIO(data)), np.float32) / 255.0
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+def _encode_image(arr: np.ndarray) -> str:
+    """(H, W, C) float in [0, 1] -> base64 8-bit PNG (one channel as grey)."""
+    return base64.b64encode(
+        encode_png((np.clip(arr, 0, 1) * 255).astype(np.uint8).squeeze())).decode()

@@ -32,10 +32,21 @@ def _port_sources():
     return sorted(files)
 
 
+# the port's modules that import PIL or cv2 inside the functions that cannot
+# work without them (each raises a named ImportError where it is missing),
+# and the packages each may import so
+LAZY = {os.path.join("diffusionremotesensing_tpu_torch", "utils.py"): {"PIL"},
+        os.path.join("diffusionremotesensing_tpu_torch", "data", "degradations.py"): {"cv2"}}
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_source_imports_nothing_forbidden(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
+    lazy = LAZY.get(os.path.relpath(path, REPO), set())
+    in_functions = {id(n) for fn in ast.walk(tree)
+                    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for n in ast.walk(fn)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -44,7 +55,19 @@ def test_source_imports_nothing_forbidden(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+            top = name.split(".")[0]
+            if top in lazy and id(node) in in_functions:
+                continue
+            assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_lazy_imports_are_where_they_are_listed():
+    """Each module LAZY names does import its package lazily somewhere."""
+    for rel, pkgs in LAZY.items():
+        with open(os.path.join(REPO, rel)) as f:
+            text = f.read()
+        for pkg in pkgs:
+            assert f"import {pkg}" in text or f"from {pkg} import" in text, (rel, pkg)
 
 
 def test_importing_the_port_loads_nothing_forbidden():
@@ -216,8 +239,11 @@ def test_chip_smoke_fused_flops_are_the_nonzero_weights():
     import chip_smoke
     from diffusionremotesensing_tpu_torch.models.unet import residual_attention_unet_superres
 
-    m = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44="block",
-                                         fused_att=True, dec_block=True).eval()
+    with torch.random.fork_rng():
+        # seeded: an unseeded draw may hold an exact 0.0 among its ~10^5 entries
+        torch.manual_seed(0)
+        m = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44="block",
+                                             fused_att=True, dec_block=True).eval()
     k = m.prepare_s2d_kernels(torch.float32)
 
     def nonzero(w, names):
@@ -315,6 +341,15 @@ def test_the_training_modules_are_guarded():
     checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
     for mod in ("train.py", "ema.py", "losses.py", "profiling.py", "data/__init__.py",
                 "data/loader.py", "data/device_degradation.py"):
+        assert mod.replace("/", os.sep) in checked
+
+
+def test_the_thirteenth_slice_modules_are_guarded():
+    """The PNG codec, utils, the data modules and the HTTP layer's module
+    are among what the import guards above check."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("png.py", "utils.py", "serving.py", "data/datasets.py", "data/degradations.py",
+                "data/cifar10.py"):
         assert mod.replace("/", os.sep) in checked
 
 

@@ -14,7 +14,8 @@ benchmarks/learning_check.py draws with numpy, scored by its own helpers.
 
 The port computes in float32 in s2d execution (tap44='block'), where the
 reference's evaluation ran bfloat16; its noise comes from a torch
-generator, not the reference's keys."""
+generator, not the reference's keys. Scores are the port's own psnr/ssim
+(equal to the reference's, tests/test_torch_port_utils.py)."""
 
 import json
 import os
@@ -24,8 +25,8 @@ import pytest
 import torch
 
 from benchmarks import learning_check as lc
-from diffusionremotesensing_tpu.utils import psnr, ssim
 from diffusionremotesensing_tpu_torch.serving import InferenceServer
+from diffusionremotesensing_tpu_torch.utils import psnr, ssim
 
 pytestmark = pytest.mark.slow
 

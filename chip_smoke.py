@@ -7,12 +7,12 @@ Six paths of x2 super-resolution at full width and depth (random weights
 from init_params(SEED), cosine T=1500, bfloat16, s2d execution of level 0):
 
 * unfused: tap44='block', whose one kernel is tap_block;
-* fused:   tap44='block', fused_att=True, dec_block=True, and the ancestral
-           sampler with fused_update=True: tap_block, att_head_block,
-           dec_block and ancestral_update;
-* stem:    tap44='stem', fused_att=True, dec_block=True, use_pallas=True, and
-           fused_update=True: tap_stem_block, fused_attention_gate (gates 0
-           and 1), att_head_block, dec_block and ancestral_update;
+* fused:   tap44='block', fused_att=True, dec_block=True: tap_block,
+           att_head_block and dec_block;
+* stem:    tap44='stem', fused_att=True, dec_block=True, use_pallas=True:
+           tap_stem_block, fused_attention_gate (gates 0 and 1),
+           att_head_block and dec_block (ancestral_update runs on the
+           quality phase's, the tasks' and the cli phase's T=1500 chains);
 * tap:     tap44=True: tap_conv_pair (conv1 and skip) and tap_conv (conv2);
 * packed:  tap44='block', packed_head=True: tap_block and packed_head (the
            head's head_up4 and head_at convs on the unfused tail);
@@ -35,7 +35,13 @@ And the other two tasks (random weights from init_params(SEED, variant),
 
 And trained weights: the repo's x2 snapshot, served in the stem
 configuration at DDIM-100 and T=1500 with and without fused_update, scored
-on the eval tiles of benchmarks/learning_check.py (the quality phase).
+on the eval tiles of benchmarks/learning_check.py (the quality phase), and
+driven through the port's command line (the cli phase):
+
+* cli: `python -m diffusionremotesensing_tpu_torch.cli` in-process
+       (cli.main): aggregation with --tap44 stem --fused_att --dec_block
+       (float32): tap_stem_block, att_head_block and dec_block, and with
+       --fused_update ancestral_update; serve (bfloat16) the same three.
 
 packed_conv is on no path: the JAX model never calls its TPU kernel, so the
 port has no caller either. It is held against its plain version and timed
@@ -100,14 +106,12 @@ Phases, each printing one line with its name, seconds and result:
              dense-s2d, bfloat16 and float32.
 6. serve   - each path with every launch count set to 0 just before it and
              read just after. Unfused: an InferenceServer answers 4
-             concurrent 64x64 requests at DDIM-100, 2 tiles of 256x256 at
-             DDIM-100 and 1 tile at the ancestral T=1500 chain. Fused and
-             stem: a server of the configuration answers 4 concurrent
-             DDIM-100 requests and 1 DDIM-100 tile, and a second server
-             with fused_update=True 1 T=1500 tile. Tap, packed and
-             l1: 4 requests and 1 DDIM-100 tile (packed's T=1500 tile was
-             cut to keep the script's time once the quality phase came:
-             the unfused path runs the same sampler).
+             concurrent 64x64 requests at DDIM-100 and 2 tiles of 256x256
+             at DDIM-100. Fused, stem, tap, packed and l1: 4 requests and 1
+             DDIM-100 tile (their T=1500 tiles were cut to keep the
+             script's time, packed's once the quality phase came, the
+             others' once the cli phase came: the quality phase's T=1500
+             passes run the unfused sampler and the fused update).
              x2_start_t: 1 DDIM-100 request from the warm start at 250. SAR
              (stem): 8 concurrent DDIM-100 requests (max_batch 8) and 1 on
              the T=1500 chain with fused_update; SAR packed: 8 DDIM-100
@@ -143,7 +147,32 @@ Phases, each printing one line with its name, seconds and result:
              and 0.01 SSIM of the reference's score of the same snapshot and
              tiles (evals/x2_ddim100.json, x2_ddpm_full.json) and the fused
              pass within 0.5 dB and 0.005 of the unfused one.
-9. train   - training, where no hand kernel runs (the JAX model gates every
+9. cli     - the port's command line in-process (cli.main), in a
+             temporary directory whose models_run/x2/weights/snapshot.pt
+             links the x2 snapshot, on the quality phase's four eval LR
+             tiles written as PNG by png.py. Aggregation in directory mode
+             at DDIM-100 with CLI_FLAGS: every output 256x256x3, within
+             TILE_TOL (plus the PNG's 1/255) of AggregationSampler on the
+             same weights and image i's generator
+             (cli.aggregation_generator), above bicubic, exactly 100
+             launches of tap_stem_block, att_head_block and dec_block a
+             chunk; one tile with --fused_update --start_t 250, 250
+             ancestral_update launches. --quant int8 on the four tiles (the
+             calibrated sites printed), the int32 accumulators of an s2d
+             site and a ConvTranspose site at B=48 bitwise equal to the
+             exact plain product, and the paired quality gap: INT8_DRAWS
+             draws a tile through sample_tiles, int8 on each tile's own
+             calibration and unquantized on the same draws; the int8 mean
+             minus the unquantized may not fall more than 0.5 dB / 0.005
+             below the reference package's own gap (INT8_REF_GAP). Serve:
+             build_server from serve's flags, one HTTP round trip on an
+             ephemeral port equal to a twin server's infer_batch with the
+             same seed, exact launches; again with --quant int8 (finite,
+             above bicubic). The three models' census totals; which of
+             matplotlib, cv2 and imageio import, and with matplotlib the
+             superres trainer for one epoch of the train phase's 32 images
+             as PNG files (previews written, no hand kernel launched).
+10. train  - training, where no hand kernel runs (the JAX model gates every
              Pallas kernel off under train=True): the flagship recipe at
              full width (x2, init_params(SEED), HR 256, batch 32, uint8
              images from default_rng(SEED) through the on-device DownBlur
@@ -167,7 +196,7 @@ Phases, each printing one line with its name, seconds and result:
              InferenceServer.from_snapshot in the 'stem' configuration: one
              DDIM-100 micro-batch of 8, finite, with the exact launches of
              the stem, gate, attention-head and decoder kernels.
-10. profile - only with --profile: where one sampler step's time goes, for
+11. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -177,7 +206,8 @@ Phases, each printing one line with its name, seconds and result:
              device ms, the busy share, the top kernels.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
-serve phase's paths and the quality phase's passes, packed_conv's the
+serve phase's paths, the quality phase's passes and the cli phase's runs,
+packed_conv's the
 kernel phase's; its times at B=48 in
 its main path's dtype), a row of its own for each shape of SHAPE_ROWS
 (launched by the SAR->NDVI or generation paths), and last
@@ -187,6 +217,10 @@ sources beside it, and imports nothing of JAX.
 """
 
 import argparse
+import base64
+import contextlib
+import importlib
+import io
 import itertools
 import json
 import os
@@ -196,6 +230,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -203,6 +238,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from diffusionremotesensing_tpu_torch import cli  # noqa: E402
 from diffusionremotesensing_tpu_torch.aggregation import (  # noqa: E402
     AggregationSampler,
     patchify_coords,
@@ -223,12 +259,13 @@ from diffusionremotesensing_tpu_torch.diffusion import (  # noqa: E402
 )
 from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.blocks import bn_eval  # noqa: E402
+from diffusionremotesensing_tpu_torch.models.census import CENSUS_MODELS, module_totals  # noqa: E402
 from diffusionremotesensing_tpu_torch.models.unet import (  # noqa: E402
     residual_attention_unet_generation,
     residual_attention_unet_sar_to_ndvi,
     residual_attention_unet_superres,
 )
-from diffusionremotesensing_tpu_torch.ops import cuda_build  # noqa: E402
+from diffusionremotesensing_tpu_torch.ops import cuda_build, quant  # noqa: E402
 from diffusionremotesensing_tpu_torch.ops.att_block import (  # noqa: E402
     att_head_block,
     att_head_block_plain,
@@ -276,7 +313,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
     tap_conv_pair_plain,
     tap_conv_plain,
 )
-from diffusionremotesensing_tpu_torch.png import encode_png  # noqa: E402
+from diffusionremotesensing_tpu_torch.png import decode_png, encode_png  # noqa: E402
 from diffusionremotesensing_tpu_torch.schedules import make_schedule  # noqa: E402
 from diffusionremotesensing_tpu_torch.serving import InferenceServer  # noqa: E402
 from diffusionremotesensing_tpu_torch.train import Trainer  # noqa: E402
@@ -433,6 +470,28 @@ QUALITY_PSNR_TOL, QUALITY_SSIM_TOL = 1.0, 0.01
 FUSED_PSNR_TOL, FUSED_SSIM_TOL = 0.5, 0.005
 # the train phase's data step: its first TRAIN_B images as PNG files
 DATA_IMAGES = 32
+# the cli phase: the port's command line in-process (cli.main), from the x2
+# snapshot, on the quality phase's eval tiles written as PNG. Its aggregation
+# runs float32 (the reference's Aggregation_Sampling has no dtype flag) with
+# these kernel flags, serve bfloat16 (serve's default)
+CLI_FLAGS = ["--magnification_factor", "2", "--tap44", "stem", "--fused_att", "--dec_block"]
+CLI_MODEL = dict(s2d=True, tap44="stem", fused_att=True, dec_block=True)
+CLI_START_T = 250  # the fused-update tile's warm start: 250 ancestral steps
+# the int8 quality gap: INT8_DRAWS draws a tile through sample_tiles, each
+# tile on its own calibration, int8 and unquantized on the same draws; the
+# gap (int8 mean minus unquantized) may not fall more than the tolerances
+# below the reference package's own gap on these tiles (CPU, float32, dense
+# s2d, which quantizes ResConvBlock-0's convs too, one x_T a tile:
+# tests/test_torch_port_quality_superres.py, slow)
+INT8_DRAWS = 4
+INT8_REF_GAP = {"psnr_db": -0.9816937237514338, "ssim": -0.055083131881240255}
+INT8_GAP_PSNR_TOL, INT8_GAP_SSIM_TOL = 0.5, 0.005
+# the sites whose int32 accumulators are held bitwise against the exact
+# product at B=48: an s2d site and a ConvTranspose site
+INT8_SITES = ("s2d.down0", "ups.1.transform")
+CALIB_PROBES = 6  # quant.sampling_probes' default timesteps at T=1500
+CENSUS_TOTALS = (4_383_058, 4_382_238, 4_383_022)
+MEDIA_PACKAGES = ("matplotlib", "cv2", "imageio")
 PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
 SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
@@ -1457,6 +1516,295 @@ def train_phase(dev, card):
     return "\n".join(lines)
 
 
+def _run_cli(argv):
+    """cli.main(argv) with every launch count set to 0 just before and read
+    just after; its standard output echoed. Returns (seconds, output,
+    launches)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    print(buf.getvalue(), end="", flush=True)
+    return secs, buf.getvalue(), counts
+
+
+def _read_png(path):
+    with open(path, "rb") as f:
+        return decode_png(f.read()).astype(np.float32) / 255.0
+
+
+def _cli_launches(forwards, fused_update=0, calibrations=0):
+    """The launches of `forwards` forwards of the cli's configuration, and
+    of `calibrations` int8 calibrations: CALIB_PROBES forwards each, and as
+    many again on the dense-s2d branch (tap44 off: no tap_stem_block)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["tap_stem_block"] = forwards + calibrations * CALIB_PROBES
+    want["att_head_block"] = want["dec_block"] = forwards + 2 * calibrations * CALIB_PROBES
+    want["ancestral_update"] = fused_update
+    return want
+
+
+def _int8_accumulators(proc, lr, dev):
+    """One B=48 forward of `proc` with its quant map attached: the int32
+    accumulators of INT8_SITES as the card computed them (torch._int_mm)
+    against the exact plain product of the same int8 operands
+    (quant.int8_matmul_plain); they must be equal bitwise."""
+    captured, current = {}, {}
+    sites, real_acc = proc.net.quant_sites, quant.conv_int8_acc
+
+    def amax(name, x):
+        a = type(sites).amax(sites, name, x)
+        current["name"] = name if a is not None else None
+        return a
+
+    def acc(xq, wq, stride=1, padding=0, lhs_dilation=1, matmul=quant.int8_matmul):
+        out = real_acc(xq, wq, stride, padding, lhs_dilation, matmul)
+        if current.get("name") in INT8_SITES and current["name"] not in captured:
+            captured[current["name"]] = (xq, wq, stride, padding, lhs_dilation, out)
+        return out
+
+    patches, _ = AggregationSampler(proc, HR // 2, HR // 4, 2).extract_patches(lr)
+    cond = torch.from_numpy(np.resize(patches, (B_FLAG,) + patches.shape[1:])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((B_FLAG, HR // 2, HR // 2, 12), generator=g, device=dev)  # s2d state
+    sites.amax, quant.conv_int8_acc = amax, acc
+    try:
+        with torch.inference_mode():
+            proc.apply_fn(x, torch.full((B_FLAG,), 500.0, device=dev), cond,
+                          proc.encode_cond_fn(cond), proc.kernels)
+    finally:
+        del sites.amax
+        quant.conv_int8_acc = real_acc
+    check(set(captured) == set(INT8_SITES), f"cli int8: sites reached {sorted(captured)}")
+    out = {}
+    for name, (xq, wq, stride, padding, dil, got) in captured.items():
+        plain = real_acc(xq.cpu(), wq.cpu(), stride, padding, dil, quant.int8_matmul_plain)
+        check(got.dtype == torch.int32 and torch.equal(got.cpu(), plain),
+              f"cli int8: {name}'s accumulators differ from the exact product")
+        out[name] = {"M": int(got.numel() // got.shape[-1]), "K": int(wq[0].numel()),
+                     "N": int(wq.shape[0]), "bitwise_equal": True}
+    return out
+
+
+def _cli_media(dev, tmp):
+    """Which media packages import; with matplotlib, the superres trainer
+    (cli.main) for one epoch of the train phase's 32 images as PNG files,
+    its previews written, no hand kernel launched."""
+    found = {}
+    for name in MEDIA_PACKAGES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except Exception:  # noqa: BLE001 - absent or broken: either way not usable
+            found[name] = False
+    out = {"media_packages": found}
+    if not found["matplotlib"]:
+        return out
+    images = _U8Images(2 * TRAIN_B, TRAIN_HR, DATA_IMAGES, SEED)
+    for i in range(DATA_IMAGES):
+        split = "train_original" if i < 3 * DATA_IMAGES // 4 else "val_original"
+        os.makedirs(os.path.join(tmp, "data", split), exist_ok=True)
+        with open(os.path.join(tmp, "data", split, f"{i:04d}.png"), "wb") as f:
+            f.write(encode_png(images[i]["hr_u8"]))
+    secs, text, counts = _run_cli(
+        ["superres", "--model_name", "cli_sr", "--dataset_path", "data", "--image_size",
+         str(TRAIN_HR), "--magnification_factor", "2", "--epochs", "1", "--batch_size", "8",
+         "--loss", "MSE", "--Blur_radius", str(TRAIN_BLUR)])
+    results = os.path.join(tmp, "models_run", "cli_sr", "results")
+    check(os.path.exists(os.path.join(tmp, "models_run", "cli_sr", "weights", "snapshot.pt"))
+          and sorted(os.listdir(results)) == ["superres_0_epoch.png", "superres_results.png"],
+          "cli superres: no snapshot or previews")
+    check(not any(counts.values()), f"cli superres: hand kernels launched {counts}")
+    out["superres_train_one_epoch_s"] = secs
+    return out
+
+
+def cli_phase(dev, card):
+    """The cli phase (module docstring): aggregation, int8, serve, census and
+    the media packages. Returns the JSON lines and the main-path launches."""
+    check(os.path.exists(QUALITY_SNAPSHOT), f"cli: {QUALITY_SNAPSHOT} is missing")
+    tiles = np.stack(eval_tiles())
+    lrs = [pil_downblur_u8(t, 2, EVAL_BLUR) for t in tiles]
+    lrf = [lr.astype(np.float32) / 255.0 for lr in lrs]
+    hrs = list(tiles.astype(np.float32) / 255.0)
+    bics = list(upsample_bicubic(torch.from_numpy(np.stack(lrf)), 2).clamp(0.0, 1.0).numpy())
+    launches, lines = dict.fromkeys(KERNELS, 0), []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            weights = os.path.join(tmp, "models_run", "x2", "weights")
+            os.makedirs(weights)
+            os.symlink(QUALITY_SNAPSHOT, os.path.join(weights, "snapshot.pt"))
+            os.makedirs("lr")
+            for k, lr in enumerate(lrs):
+                with open(os.path.join("lr", f"tile{k}.png"), "wb") as f:
+                    f.write(encode_png(lr))
+            base = ["aggregation", "--model_name", "x2", *CLI_FLAGS]
+
+            # 1. aggregation, directory mode, DDIM-100: each tile against the
+            # sampler on the same weights and image i's generator
+            secs, _, counts = _run_cli([*base, "--ddim_steps", str(DDIM_STEPS), "--img_lr_dir",
+                                        "lr", "--destination_dir", "sr"])
+            check(counts == _cli_launches(len(lrs) * DDIM_STEPS),
+                  f"cli aggregation: launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+            model = residual_attention_unet_superres(magnification_factor=2, **CLI_MODEL)
+            model.load_state_dict(load_snapshot(QUALITY_SNAPSHOT)[0])
+            proc = make_process(model.to(dev).eval(), "cosine", T_STEPS, HR)
+            sampler = AggregationSampler(proc, HR // 2, HR // 4, 2, ddim_steps=DDIM_STEPS)
+            agg = {"seconds": secs, "tiles": []}
+            for k in range(len(lrs)):
+                got = _read_png(os.path.join("sr", f"tile{k}.png"))
+                want = sampler(lrf[k], generator=cli.aggregation_generator(dev, k), device=dev)
+                err = float(np.abs(got - want).max())
+                check(got.shape == hrs[k].shape and err <= 1 / 255 + TILE_TOL,
+                      f"cli aggregation: tile {k} {got.shape}, {err} from the sampler's")
+                row = _scores(got, hrs[k], bics[k])
+                check(row["sr_psnr_db"] > row["bicubic_psnr_db"],
+                      f"cli aggregation: tile {k} does not beat bicubic: {row}")
+                agg["tiles"].append({**row, "max_abs_diff_from_sampler": err})
+
+            # the ancestral chain with the fused update, warm-started at 250
+            secs, _, counts = _run_cli([*base, "--fused_update", "--start_t", str(CLI_START_T),
+                                        "--img_lr_path", os.path.join("lr", "tile0.png"),
+                                        "--destination_path", "fused.png"])
+            check(counts == _cli_launches(CLI_START_T, CLI_START_T),
+                  f"cli aggregation fused_update: launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+            fused = _read_png("fused.png")
+            check(fused.shape == hrs[0].shape and np.isfinite(fused).all(),
+                  "cli aggregation fused_update: bad tile")
+            agg["fused_update_start_t"] = {"seconds": secs, **_scores(fused, hrs[0], bics[0])}
+            lines.append(json.dumps({"cli_aggregation": agg, "card": card}))
+
+            # 2. int8: the cli on the four tiles, the accumulators at B=48, the
+            # paired quality gap over INT8_DRAWS draws a tile
+            secs, text, counts = _run_cli([*base, "--ddim_steps", str(DDIM_STEPS), "--quant",
+                                           "int8", "--img_lr_dir", "lr", "--destination_dir",
+                                           "sr_int8"])
+            check(counts == _cli_launches(len(lrs) * DDIM_STEPS, calibrations=len(lrs)),
+                  f"cli int8: launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+            n_sites = [int(m) for m in re.findall(r"int8 quantized execution: (\d+) conv-site", text)]
+            check(len(n_sites) == len(lrs) and min(n_sites) > 0, f"cli int8: sites {n_sites}")
+            cli_int8 = []
+            for k in range(len(lrs)):
+                got = _read_png(os.path.join("sr_int8", f"tile{k}.png"))
+                check(got.shape == hrs[k].shape and np.isfinite(got).all(), f"cli int8: tile {k}")
+                cli_int8.append(_scores(got, hrs[k], bics[k]))
+            qgen = torch.Generator(device=dev)
+            t0 = time.perf_counter()
+            qmap = quant.quantize_superres_tile(proc.net, proc.schedule.alpha_hat, lrf[0], HR // 2,
+                                                2, qgen.manual_seed(21))
+            torch.cuda.synchronize()
+            quant.attach(proc.net, qmap)
+            calib_s = time.perf_counter() - t0
+            acc = _int8_accumulators(proc, lrf[0], dev)
+            rows = {"int8": [], "float": []}
+            secs_q = {"int8": 0.0, "float": 0.0, "calibration": calib_s}
+            for k in range(len(lrs)):
+                t0 = time.perf_counter()
+                qmap = quant.quantize_superres_tile(proc.net, proc.schedule.alpha_hat, lrf[k],
+                                                    HR // 2, 2, qgen.manual_seed(21))
+                torch.cuda.synchronize()
+                secs_q["calibration"] += time.perf_counter() - t0
+                for name, q in (("int8", qmap), ("float", None)):
+                    quant.attach(proc.net, q)
+                    t0 = time.perf_counter()
+                    srs = sampler.sample_tiles([lrf[k]] * INT8_DRAWS, device=dev,
+                                               generator=qgen.manual_seed(1000 + k))
+                    secs_q[name] += time.perf_counter() - t0
+                    for sr in srs:
+                        check(np.isfinite(sr).all(), f"cli int8: {name} draw of tile {k}")
+                        rows[name].append(_scores(sr, hrs[k], bics[k]))
+            quant.attach(proc.net, None)
+            mean = {n: {"psnr_db": float(np.mean([r["sr_psnr_db"] for r in rs])),
+                        "ssim": float(np.mean([r["sr_ssim"] for r in rs]))}
+                    for n, rs in rows.items()}
+            gap = {m: mean["int8"][m] - mean["float"][m] for m in ("psnr_db", "ssim")}
+            print(json.dumps({"int8_mean": mean["int8"], "float_mean": mean["float"],
+                              "int8_minus_float": gap, "reference_gap": INT8_REF_GAP}), flush=True)
+            check(gap["psnr_db"] >= INT8_REF_GAP["psnr_db"] - INT8_GAP_PSNR_TOL
+                  and gap["ssim"] >= INT8_REF_GAP["ssim"] - INT8_GAP_SSIM_TOL,
+                  f"cli int8: gap {gap} against the reference's {INT8_REF_GAP}")
+            n_tiles = len(lrs) * INT8_DRAWS
+            lines.append(json.dumps({"cli_int8": {
+                "cli_seconds": secs, "sites": n_sites, "cli_tiles": cli_int8,
+                "accumulators_b48": acc, "draws": INT8_DRAWS, "mean": mean,
+                "int8_minus_float": gap, "reference_gap": INT8_REF_GAP,
+                "calibration_s_per_tile": secs_q["calibration"] / (len(lrs) + 1),
+                "ddim100_s_per_tile": {"int8": secs_q["int8"] / n_tiles,
+                                       "float": secs_q["float"] / n_tiles}}, "card": card}))
+
+            # 3. serve: one HTTP round trip through build_server, equal to a
+            # twin server's infer_batch with the same seed; then --quant int8
+            serve_argv = ["serve", "--snapshot_path", QUALITY_SNAPSHOT, "--task", "superres",
+                          "--model_input_size", str(HR), "--magnification_factor", "2",
+                          "--ddim_steps", str(DDIM_STEPS), "--seed", "0", "--tap44", "stem",
+                          "--fused_att", "--dec_block"]
+            lr_req, hr_req = lrs[0][:HR // 2, :HR // 2], hrs[0][:HR, :HR]
+            bic_req = bics[0][:HR, :HR]
+            torch.cuda.synchronize()
+            zero_counts()
+            server = cli.build_server(cli.parse_args(serve_argv))
+            http = server.make_http_server("127.0.0.1", 0)
+            th = threading.Thread(target=http.serve_forever, daemon=True)
+            th.start()
+            try:
+                body = json.dumps({"image": base64.b64encode(encode_png(lr_req)).decode()}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{http.server_port}/superres",
+                                             body, {"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    answer = json.loads(r.read())
+                http_s = time.perf_counter() - t0
+            finally:
+                http.shutdown()
+                http.server_close()
+                server.shutdown()
+            counts = read_counts()
+            check(counts == _cli_launches(DDIM_STEPS), f"cli serve: launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+            got = decode_png(base64.b64decode(answer["image"])).astype(np.float32) / 255.0
+            twin = cli.build_server(cli.parse_args(serve_argv))
+            try:
+                want = twin.infer_batch([lr_req.astype(np.float32) / 255.0])[0]
+            finally:
+                twin.shutdown()
+            err = float(np.abs(got - want).max())
+            check(got.shape == (HR, HR, 3) and err <= 1 / 255 + TILE_TOL,
+                  f"cli serve: HTTP answer {got.shape}, {err} from infer_batch's")
+            serve_q = cli.build_server(cli.parse_args([*serve_argv, "--quant", "int8"]))
+            try:
+                out_q = serve_q.infer_batch([lr_req.astype(np.float32) / 255.0])[0]
+            finally:
+                serve_q.shutdown()
+            sq = _scores(out_q, hr_req, bic_req)
+            check(out_q.shape == (HR, HR, 3) and np.isfinite(out_q).all()
+                  and sq["sr_psnr_db"] > sq["bicubic_psnr_db"], f"cli serve int8: {sq}")
+            serve = {"http_round_trip_s": http_s, "max_abs_diff_from_infer_batch": err,
+                     "http": _scores(got, hr_req, bic_req), "int8": sq,
+                     "int8_sites": len(serve_q.process.net.quant_sites.scales)}
+
+            # 4. census, 5. media packages
+            census = {label: sum(module_totals(f()).values()) for label, f in CENSUS_MODELS}
+            check(tuple(census.values()) == CENSUS_TOTALS, f"cli census: {census}")
+            media = _cli_media(dev, tmp)
+            lines.append(json.dumps({"cli_serve": serve, "census": census, **media, "card": card}))
+        finally:
+            os.chdir(cwd)
+    return "\n".join(lines), launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true", help="also run the profile phase")
@@ -2046,40 +2394,25 @@ def main():
             outputs.append(fn(tile))
             secs[key] = time.perf_counter() - t0
 
-        def run_path(name, ddim_tiles, ddpm):
-            """4 concurrent DDIM-100 requests, `ddim_tiles` DDIM-100 tiles and
-            a T=1500 tile from a second server: of the unfused sampler
-            (ddpm='server'), of the fused update (ddpm='fused_update':
-            InferenceServer(..., fused_update=True).infer_tile), or none
-            (ddpm=None). Every count is set to 0 just before and read just
-            after, and must be exact."""
-            model = model_with(name, dev)
-            ddim = InferenceServer(model, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS,
-                                   dtype=torch.bfloat16, device="cuda")
-            servers, secs = [ddim], {}
+        def run_path(name, ddim_tiles):
+            """4 concurrent DDIM-100 requests and `ddim_tiles` DDIM-100
+            tiles. Every count is set to 0 just before and read just after,
+            and must be exact."""
+            ddim = InferenceServer(model_with(name, dev), "cosine", T_STEPS, HR,
+                                   ddim_steps=DDIM_STEPS, dtype=torch.bfloat16, device="cuda")
+            secs = {}
             try:
-                if ddpm is not None:
-                    servers.append(InferenceServer(model, "cosine", T_STEPS, HR,
-                                                   dtype=torch.bfloat16, device="cuda",
-                                                   fused_update=ddpm == "fused_update"))
                 torch.cuda.synchronize()
                 zero_counts()
                 requests(ddim, secs)
                 for i in range(ddim_tiles):
                     timed(secs, f"tile_ddim100_{i}" if ddim_tiles > 1 else "tile_ddim100",
                           ddim.infer_tile)
-                if ddpm is not None:
-                    timed(secs, "tile_ddpm1500" + ("_fused_update" if ddpm == "fused_update" else ""),
-                          servers[1].infer_tile)
                 counts, batches = read_counts(), ddim.batches_run
             finally:
-                for server in servers:
-                    server.shutdown()
-            forwards = batches * DDIM_STEPS + N_CHUNKS * (ddim_tiles * DDIM_STEPS
-                                                          + (T_STEPS - 1 if ddpm else 0))
+                ddim.shutdown()
+            forwards = batches * DDIM_STEPS + N_CHUNKS * ddim_tiles * DDIM_STEPS
             want = {k: n * forwards for k, n in per_forward(name).items()}
-            if ddpm == "fused_update":
-                want["ancestral_update"] = N_CHUNKS * (T_STEPS - 1)
             check(counts == want, f"{name} path: launches {counts}, expected {want}")
             return {"config": name, "variant": "superres", "micro_batches": batches,
                     "launches": counts, "seconds": secs}
@@ -2190,12 +2523,16 @@ def main():
             return {"config": "block", "variant": "superres", "start_t": 250,
                     "micro_batches": server.batches_run, "launches": counts, "seconds": secs}
 
-        paths = {"unfused": run_path("block", 2, "server"),
-                 "fused": run_path("fused", 1, "fused_update"),
-                 "stem": run_path("stem", 1, "fused_update"),
-                 "tap": run_path("tap", 1, None),
-                 "packed": run_path("packed", 1, None),
-                 "l1": run_path("l1", 1, None),
+        # the T=1500 tiles of these paths were cut to keep the script's
+        # time (packed's once the quality phase came, the others' once the
+        # cli phase came): the quality phase's T=1500 passes run the
+        # unfused sampler and the fused update on 48-patch chunks
+        paths = {"unfused": run_path("block", 2),
+                 "fused": run_path("fused", 1),
+                 "stem": run_path("stem", 1),
+                 "tap": run_path("tap", 1),
+                 "packed": run_path("packed", 1),
+                 "l1": run_path("l1", 1),
                  "x2_start_t": start_t_path(),
                  "sar": task_path("sar", "stem", True),
                  "sar_packed": task_path("sar", "packed", False),
@@ -2259,6 +2596,12 @@ def main():
             state["launches"][row_of(k, "superres")] += n
         return lines
 
+    def cli_():
+        lines, launches = cli_phase(dev, state["smi"])
+        for k, n in launches.items():
+            state["launches"][row_of(k, "superres")] += n
+        return lines
+
     def profile():
         lines = []
         for name in ("block", "fused", "stem", "tap", "packed", "l1"):
@@ -2277,6 +2620,7 @@ def main():
     phase("serve", serve)
     phase("checkpoint", checkpoint)
     phase("quality", quality)
+    phase("cli", cli_)
     phase("train", lambda: train_phase(dev, state["smi"]))
     if args.profile:
         phase("profile", profile)

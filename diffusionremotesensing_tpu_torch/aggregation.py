@@ -66,7 +66,8 @@ class AggregationSampler:
     """Chunked tiled super-resolution through a :class:`DiffusionProcess`
     (whose image_size is patch_size * magnification_factor). DDPM sampling
     (``ddim_steps=None``) takes ``fused_update=True`` to run each step's
-    update as one ``ancestral_update`` kernel call. ``start_t`` starts each
+    update as one ``ancestral_update`` kernel call; DDIM takes ``ddim_eta``
+    and ``ddim_spacing`` ('linear' or 'quadratic'). ``start_t`` starts each
     patch from its bicubic upsample q-sampled to t = start_t and runs only
     the steps below it (DDIM squeezes its subsequence into [1, start_t])."""
 
@@ -75,7 +76,8 @@ class AggregationSampler:
     def __init__(self, process: DiffusionProcess, patch_size: int, stride: int,
                  magnification_factor: int, batch_size: int = 48,
                  ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True,
-                 fused_update: bool = False, start_t: Optional[int] = None):
+                 fused_update: bool = False, start_t: Optional[int] = None,
+                 ddim_eta: float = 0.0, ddim_spacing: str = "linear"):
         if stride > patch_size:
             raise ValueError("stride must be <= patch_size")
         if fused_update and ddim_steps is not None:
@@ -90,6 +92,8 @@ class AggregationSampler:
         self.batch_size = batch_size
         self.ddim_steps = ddim_steps
         self.ddim_clip_x0 = ddim_clip_x0
+        self.ddim_eta = ddim_eta
+        self.ddim_spacing = ddim_spacing
         self.fused_update = fused_update
         self.start_t = start_t
         hr = patch_size * magnification_factor
@@ -106,8 +110,9 @@ class AggregationSampler:
 
     def _sampler(self):
         if self.ddim_steps is not None:
-            return self.process.ddim_sampler(self.ddim_steps, clip_x0=self.ddim_clip_x0,
-                                             start_t=self.start_t)
+            return self.process.ddim_sampler(self.ddim_steps, eta=self.ddim_eta,
+                                             tau_spacing=self.ddim_spacing,
+                                             clip_x0=self.ddim_clip_x0, start_t=self.start_t)
         return self.process.sampler(fused_update=self.fused_update, start_t=self.start_t)
 
     def extract_patches(self, img_lr: np.ndarray):

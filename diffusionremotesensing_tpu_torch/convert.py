@@ -9,7 +9,9 @@ needed to use it. Conv kernels go from HWIO to OIHW, Dense kernels are
 transposed, each BatchNorm is emitted under every name the reference model
 registers it by, and the ConvTranspose kernel (kept by the reference package
 as the flipped HWIO kernel of the equivalent forward conv) goes to torch's
-(in, out, kh, kw) with the spatial flip undone.
+(in, out, kh, kw) with the spatial flip undone. :func:`from_jax_quant`
+carries the reference's W8A8 ``"quant"`` collection to the port's conv-site
+names (``ops.quant``).
 """
 
 from __future__ import annotations
@@ -121,6 +123,61 @@ def from_jax_variables(params, batch_stats) -> dict:
         put_bn([f"ups.{i}.batch_norm"], u["BatchNorm_0"], su["BatchNorm_0"])
         put_convtranspose(f"ups.{i}.transform", u["transform"])
         put_conv(f"up_convs.{i}", params[f"up_conv{i}"])
+    return out
+
+
+_BLOCK_CONVS = {"conv1": "conv1.0", "conv2": "conv2.0", "shortcut_conv": "shortcut_conv.0"}
+_GATE_CONVS = {"w_g": "w_g.0", "w_x": "w_x.0", "psi": "psi.0", "result_conv": "result.0"}
+
+
+def quant_site_name(path, conditioning: str) -> str:
+    """The port's name of a W8A8 conv site (``ops.quant``) from its path in
+    the reference package's ``"quant"`` collection: an s2d label
+    (``("s2d.conv0",)``) keeps its name; a module site's flax path
+    (``("conv_block1", "conv1", "amax")``) becomes the module path the
+    state_dict uses (``conv_blocks.1.conv1.0``)."""
+    enc_name, cond_conv_name, skip_name = _NAMES[conditioning]
+    parts = [p for p in path if p != "amax"]
+    head, rest = parts[0], parts[1:]
+    if head.startswith("s2d.") or head in ("conv0", "output"):
+        return head
+    if head == "conv_cond":
+        return cond_conv_name
+    if head == "cond_encoder":
+        if rest[0] == "conv_out":
+            return f"{enc_name}.conv_out"
+        return f"{enc_name}.blocks.{int(rest[0][len('block'):])}.{rest[1]}"
+    if head.startswith("conv_block") or head == "bottle_neck":
+        prefix = "bottle_neck" if head == "bottle_neck" else f"conv_blocks.{head[len('conv_block'):]}"
+        return f"{prefix}.{skip_name if rest[0] == 'conv_skip' else _BLOCK_CONVS[rest[0]]}"
+    for flax, port in (("up_conv", "up_convs"), ("down", "downs")):
+        if head.startswith(flax):
+            return f"{port}.{head[len(flax):]}"
+    if head.startswith("gating"):
+        return f"gating_signals.{head[len('gating'):]}.conv"
+    if head.startswith("attention"):
+        return f"attention_blocks.{head[len('attention'):]}.{_GATE_CONVS[rest[0]]}"
+    if head.startswith("up"):
+        return f"ups.{head[len('up'):]}.{rest[0]}"
+    raise KeyError(f"no conv site of the port for the quant path {'/'.join(path)}")
+
+
+def from_jax_quant(tree, conditioning: str) -> dict:
+    """The reference package's ``"quant"`` collection (nested dicts of
+    scalars) -> the port's quant map {site name: float32 scalar tensor}
+    (:func:`quant_site_name`), to ``ops.quant.attach`` to a model of
+    ``conditioning``."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            out[quant_site_name(path, conditioning)] = torch.tensor(
+                float(np.asarray(node, np.float32)), dtype=torch.float32)
+
+    walk(tree, ())
     return out
 
 

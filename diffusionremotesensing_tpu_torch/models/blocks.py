@@ -21,12 +21,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weights, fused_attention_gate
+from diffusionremotesensing_tpu_torch.ops.quant import conv_int8
 
 
-def TorchConv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, pad=None) -> nn.Conv2d:
+class QConv2d(nn.Conv2d):
+    """Conv2d with the W8A8 hook (``ops.quant``): its model names it
+    (``site``, the module path) and shares its ``QuantSites``; without a
+    quant map or a calibration pass it is ``nn.Conv2d``, bit for bit."""
+
+    quant_sites = None
+    site = ""
+
+    def forward(self, x):
+        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x)
+        if amax is None:
+            return super().forward(x)
+        y = conv_int8(x.permute(0, 2, 3, 1), self.weight, amax, stride=self.stride,
+                      padding=self.padding).to(x.dtype)
+        return (y + self.bias.to(x.dtype)).permute(0, 3, 1, 2)
+
+
+def TorchConv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, pad=None) -> QConv2d:
     """Conv2d with the reference's padding rule, (kernel - 1) // 2 unless given."""
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
-                     padding=(kernel - 1) // 2 if pad is None else pad)
+    return QConv2d(in_ch, out_ch, kernel, stride=stride,
+                   padding=(kernel - 1) // 2 if pad is None else pad)
 
 
 def BatchNorm(features: int) -> nn.BatchNorm2d:
@@ -78,12 +96,30 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor
     return bn_train(x, bn) if train else bn_eval(x, bn)
 
 
-def ConvTranspose2x(features: int) -> nn.ConvTranspose2d:
+class QConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d with the W8A8 hook, as :class:`QConv2d`; its int8 path
+    is the reference's: the input-dilated forward convolution (dilation 2,
+    padding (1, 2)) with the flipped kernel."""
+
+    quant_sites = None
+    site = ""
+
+    def forward(self, x, output_size=None):
+        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x)
+        if amax is None:
+            return super().forward(x, output_size)
+        w = self.weight.permute(1, 0, 2, 3).flip(2, 3)  # the forward conv's OIHW kernel
+        y = conv_int8(x.permute(0, 2, 3, 1), w, amax, padding=((1, 2), (1, 2)),
+                      lhs_dilation=2).to(x.dtype)
+        return (y + self.bias.to(x.dtype)).permute(0, 3, 1, 2)
+
+
+def ConvTranspose2x(features: int) -> QConvTranspose2d:
     """ConvTranspose2d(k=3, s=2, p=1, output_padding=1): H -> 2H. The weight is
     torch's (in, out, kh, kw); the reference package keeps the spatially
     flipped HWIO kernel of the equivalent forward conv instead
     (``convert.from_jax_variables`` flips it)."""
-    return nn.ConvTranspose2d(features, features, 3, stride=2, padding=1, output_padding=1)
+    return QConvTranspose2d(features, features, 3, stride=2, padding=1, output_padding=1)
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, channels: int = 100) -> torch.Tensor:

@@ -94,9 +94,12 @@ from diffusionremotesensing_tpu_torch.models.blocks import (
     RRDB,
     AttentionGate,
     GatingSignal,
+    QConv2d,
+    QConvTranspose2d,
     ResConvBlock,
     TorchConv,
     UpConvBlock,
+    batch_norm,
     sinusoidal_time_embedding,
     update_running_stats,
 )
@@ -105,6 +108,7 @@ from diffusionremotesensing_tpu_torch.ops.attention_gate import build_gate_weigh
 from diffusionremotesensing_tpu_torch.ops.dec_block import build_dec_weights
 from diffusionremotesensing_tpu_torch.ops.dec_block import dec_block as dec_block_kernel
 from diffusionremotesensing_tpu_torch.ops.packed_head import packed_head as packed_head_kernel
+from diffusionremotesensing_tpu_torch.ops.quant import QuantSites, conv_int8
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 from diffusionremotesensing_tpu_torch.ops.s2d import (
     conv_nhwc,
@@ -235,6 +239,12 @@ class ResidualAttentionUNet(nn.Module):
         self.up_convs = nn.ModuleList(
             [TorchConv(uc[i] + uc[i + 1], uc[i + 1], 3) for i in range(n_lv)])
         self.output = TorchConv(uc[n_lv], out_dim, 1)
+        # the W8A8 state the conv sites share (ops.quant): each module site
+        # is named by its module path
+        self.quant_sites = QuantSites()
+        for name, m in self.named_modules():
+            if isinstance(m, (QConv2d, QConvTranspose2d)):
+                m.quant_sites, m.site = self.quant_sites, name
 
     @property
     def dtype(self) -> torch.dtype:
@@ -496,6 +506,16 @@ class ResidualAttentionUNet(nn.Module):
             kern["frames"][(Hs, Ws)] = frame
         return frame
 
+    def _qconv(self, label, x, w, bias=None, padding=0, stride=1):
+        """:func:`ops.s2d.conv_nhwc` as an s2d conv site named ``label`` (the
+        reference's label): the int8 convolution when the quant map holds
+        a scale for it (``ops.quant``), else the exact one."""
+        amax = self.quant_sites.amax(label, x)
+        if amax is None:
+            return conv_nhwc(x, w, bias, padding=padding, stride=stride)
+        y = conv_int8(x, w, amax, stride=stride, padding=padding).to(x.dtype)
+        return y if bias is None else y + bias
+
     def _bn_s2d_train(self, h: torch.Tensor, bn: nn.BatchNorm2d, taps: bool = True):
         """Train-mode BatchNorm of an NHWC tensor, as the reference's
         ``_bn_s2d``: with ``taps`` the statistics of each original channel
@@ -525,7 +545,7 @@ class ResidualAttentionUNet(nn.Module):
             res0_s = tap_stem_block(xs.contiguous(), cond_in, te4.contiguous(), kern["conv0_b"],
                                     kern["tap_stem"])
             return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
-        h_s = conv_nhwc(xs, kern["conv0"], kern["conv0_b"], padding=1)
+        h_s = self._qconv("s2d.conv0", xs, kern["conv0"], kern["conv0_b"], padding=1)
         if cond_s2d is not None:
             h_s = h_s + cond_s2d.to(dt)
         if level in ("block", "l1"):
@@ -541,17 +561,17 @@ class ResidualAttentionUNet(nn.Module):
                 c1, sk = tap_conv_pair(h_s.contiguous(), kern["blk_conv1_44"], kern["blk_skip_44"])
                 c1, sk = c1 + kern["blk_b1"], sk + kern["blk_bsk"]
             else:
-                c1 = conv_nhwc(h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
-                sk = conv_nhwc(h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
+                c1 = self._qconv("s2d.blk_conv1", h_s, kern["blk_conv1"], kern["blk_b1"], padding=1)
+                sk = self._qconv("s2d.blk_skip", h_s, kern["blk_skip"], kern["blk_bsk"], padding=1)
             h = torch.relu(norm(c1, blk.batch_norm1, "bn0"))
             h = h + sk
             h = h + te4[:, None, None, :]
             if level:  # 'conv2' and True
                 h = tap_conv(h.contiguous(), kern["blk_conv2_44"]) + kern["blk_b2"]
             else:
-                h = conv_nhwc(h, kern["blk_conv2"], kern["blk_b2"], padding=1)
+                h = self._qconv("s2d.blk_conv2", h, kern["blk_conv2"], kern["blk_b2"], padding=1)
             h = norm(h, blk.batch_norm2, "bn1")
-            s = conv_nhwc(h_s, kern["blk_short"], kern["blk_bsh"])
+            s = self._qconv("s2d.blk_short", h_s, kern["blk_short"], kern["blk_bsh"])
             res0_s = torch.relu(norm(s, blk.shortcut_batch_norm, "bn2") + h)
         return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io, train)
 
@@ -571,14 +591,23 @@ class ResidualAttentionUNet(nn.Module):
         nearest upsample a broadcast over the taps, result_conv
         block-diagonal. NHWC in and out."""
         att, p = self.attention_blocks[gate], "att" if gate == 2 else f"att{gate}"
-        g1 = conv_nhwc(g, att.w_g[0].weight, att.w_g[0].bias)
-        x1 = conv_nhwc(x_s2d, kern[f"{p}_wx"], kern[f"{p}_wx_b"])
+        g1 = self._qconv(f"s2d.{p}_wg", g, att.w_g[0].weight, att.w_g[0].bias)
+        x1 = self._qconv(f"s2d.{p}_wx", x_s2d, kern[f"{p}_wx"], kern[f"{p}_wx_b"])
         psi = torch.relu(g1 + x1)
-        psi = torch.sigmoid(conv_nhwc(psi, att.psi[0].weight, att.psi[0].bias))
-        attn_s = conv_nhwc(x_s2d * psi, kern[f"{p}_rc"], kern[f"{p}_rc_b"])
+        psi = torch.sigmoid(self._qconv(f"s2d.{p}_psi", psi, att.psi[0].weight, att.psi[0].bias))
+        attn_s = self._qconv(f"s2d.{p}_rc", x_s2d * psi, kern[f"{p}_rc"], kern[f"{p}_rc_b"])
         if train:
             return self._bn_s2d_train(attn_s, att.result[1])
         return attn_s * kern[f"{p}_bn_a"] + kern[f"{p}_bn_c"]
+
+    def _up2_body(self, h, t_emb):
+        """UpConvBlock-2's body at inference, its conv the s2d site
+        ``s2d.up2_conv`` (the same convolution ``UpConvBlock.body`` runs).
+        NCHW in, NHWC out."""
+        up = self.ups[2]
+        x = (h + up.time_bias(t_emb)[:, :, None, None]).permute(0, 2, 3, 1)
+        hh = self._qconv("s2d.up2_conv", x, up.conv.weight, up.conv.bias, padding=1)
+        return torch.relu(batch_norm(hh.permute(0, 3, 1, 2), up.batch_norm, False)).permute(0, 2, 3, 1)
 
     def _up2_body_train(self, h, t_emb):
         """UpConvBlock-2's body in training, as the reference's s2d path
@@ -600,14 +629,16 @@ class ResidualAttentionUNet(nn.Module):
         if l1:
             # down0 at stride 2 emitting s2d, ResConvBlock-1 as one tap_block
             # call (no skip conv), down1 from s2d back to the normal layout
-            h1_s = conv_nhwc(res0_s, kern["down0_s2d"], kern["down0_s2d_b"],
-                             padding=((1, 0), (1, 0)), stride=2)
+            h1_s = self._qconv("s2d.down0s", res0_s, kern["down0_s2d"], kern["down0_s2d_b"],
+                               padding=((1, 0), (1, 0)), stride=2)
             te1 = self.conv_blocks[1].time_bias(t_emb).repeat(1, 4)
             res1_s = tap_block(h1_s.contiguous(), te1.contiguous(), kern["tap_block1"])
-            h = conv_nhwc(res1_s, kern["down1_s2d"], kern["down1_b"], padding=((1, 0), (1, 0)))
+            h = self._qconv("s2d.down1", res1_s, kern["down1_s2d"], kern["down1_b"],
+                            padding=((1, 0), (1, 0)))
             h = h.permute(0, 3, 1, 2)
         else:
-            h = conv_nhwc(res0_s, kern["down0"], kern["down0_b"], padding=((1, 0), (1, 0)))
+            h = self._qconv("s2d.down0", res0_s, kern["down0"], kern["down0_b"],
+                            padding=((1, 0), (1, 0)))
             h = h.permute(0, 3, 1, 2)
             res1 = h = self.conv_blocks[1](h, t_emb, train=train)
             h = self.downs[1](h)
@@ -633,10 +664,9 @@ class ResidualAttentionUNet(nn.Module):
             h = h.permute(0, 3, 1, 2)
         else:
             h = self.up_convs[1](torch.cat([hup, attn], dim=1))
-            hh = (self._up2_body_train(h, t_emb) if train
-                  else self.ups[2].body(h, t_emb).permute(0, 2, 3, 1))
+            hh = self._up2_body_train(h, t_emb) if train else self._up2_body(h, t_emb)
             if not packed:
-                out_s = conv_nhwc(hh, kern["head_up4"], padding=((1, 2), (1, 2)))
+                out_s = self._qconv("s2d.head_up4", hh, kern["head_up4"], padding=((1, 2), (1, 2)))
             hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
 
         if fused_att:
@@ -653,11 +683,13 @@ class ResidualAttentionUNet(nn.Module):
                 out_s = packed_head_kernel(hh.contiguous(), attn_s.contiguous(), kp["up4"],
                                            kp["at"])
             else:
-                out_s = out_s + conv_nhwc(attn_s, kern["head_at"], padding=1)
+                out_s = out_s + self._qconv("s2d.head_at", attn_s, kern["head_at"], padding=1)
         # boundary corrections: the composed conv sees hh's padding through
         # intermediate row/column -1, which the uncomposed head zeroed
-        out_s[:, :1] -= conv_nhwc(hh_row0, kern["head_fix_x"], padding=((0, 0), (1, 2)))
-        out_s[:, :, :1] -= conv_nhwc(hh_col0, kern["head_fix_y"], padding=((1, 2), (0, 0)))
+        out_s[:, :1] -= self._qconv("s2d.head_fix_x", hh_row0, kern["head_fix_x"],
+                                    padding=((0, 0), (1, 2)))
+        out_s[:, :, :1] -= self._qconv("s2d.head_fix_y", hh_col0, kern["head_fix_y"],
+                                       padding=((1, 2), (0, 0)))
         out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]
         out_s = out_s.float() + self._bias_frame(kern, out_s.shape[1], out_s.shape[2])
         return out_s if s2d_io else depth_to_space(out_s)

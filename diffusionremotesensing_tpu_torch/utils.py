@@ -1,12 +1,19 @@
-"""Device resolution, image metrics, image output and dataset organisation
-shared by the port's entry points (port of ``diffusionremotesensing_tpu/
-utils.py``'s ``psnr``, ``ssim``, ``save_image``, ``convert_png_to_jpg`` and
-``data_organizer_superresolution``).
+"""Device resolution, image metrics, image and media output and dataset
+organisation shared by the port's entry points (port of
+``diffusionremotesensing_tpu/utils.py``).
 
 Images are HWC float numpy arrays in [0, 1]. ``save_image`` writes PNG
 through the port's own codec (``png.py``); other formats, and
-``convert_png_to_jpg``, need PIL and raise an ImportError where it is not
-installed.
+``convert_png_to_jpg``, need PIL. The media writers import their package
+when called: ``video_maker`` cv2, ``gif_maker`` imageio and
+``save_preview_grid`` matplotlib; each raises an ImportError naming the
+writer and the package where it is not installed.
+
+``force_cpu_if_requested`` reads ``DRS_FORCE_CPU=1`` as the caller asking
+for the CPU (:func:`default_device`); it is never a fallback. The
+reference's ``machine_scoped_cache_dir`` (XLA's compile cache) has no
+counterpart: the port's one cache is the kernels' build directory
+(``ops/cuda_build.BUILD_DIR``).
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from __future__ import annotations
 import os
 import random
 import shutil
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,12 +30,17 @@ from diffusionremotesensing_tpu_torch.png import encode_png
 
 __all__ = [
     "resolve_device",
+    "default_device",
     "psnr",
     "ssim",
     "save_image",
+    "video_maker",
+    "gif_maker",
+    "save_preview_grid",
     "convert_png_to_jpg",
     "data_organizer_superresolution",
     "require_pil",
+    "force_cpu_if_requested",
 ]
 
 
@@ -43,6 +55,26 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def force_cpu_if_requested() -> bool:
+    """Whether ``DRS_FORCE_CPU`` is set (to anything but '' or '0'): the
+    caller asking the entry points that have no ``--device`` flag (the
+    trainers) to run on the CPU."""
+    return os.environ.get("DRS_FORCE_CPU", "") not in ("", "0")
+
+
+def default_device() -> str:
+    """'cpu' when :func:`force_cpu_if_requested`, else 'cuda' (which
+    :func:`resolve_device` refuses where no card is visible)."""
+    return "cpu" if force_cpu_if_requested() else "cuda"
+
+
+def _missing(what: str, package: str, e: ImportError) -> ImportError:
+    """The ImportError of a writer whose package is not installed."""
+    err = ImportError(f"{what} needs {package}, which is not installed")
+    err.__cause__ = e
+    return err
 
 
 def require_pil(what: str, instead: Optional[str] = None):
@@ -76,6 +108,68 @@ def save_image(img: np.ndarray, path: str) -> None:
         return
     Image = require_pil(f"save_image({os.path.basename(path)!r})", "a .png path")
     Image.fromarray(arr).save(path)
+
+
+def video_maker(frames: Sequence[np.ndarray], path: str, fps: int = 100) -> None:
+    """Write a denoising trajectory as an mp4 with a 'Frame i' overlay on
+    each frame (cv2)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise _missing("video_maker", "OpenCV (cv2)", e)
+    first = _frame_to_uint8(frames[0])
+    h, w = first.shape[:2]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    try:
+        for i, frame in enumerate(frames):
+            img = _frame_to_uint8(frame)
+            if img.shape[-1] == 1:
+                img = np.repeat(img, 3, axis=-1)
+            bgr = cv2.cvtColor(img, cv2.COLOR_RGB2BGR)
+            cv2.putText(bgr, f"Frame {i}", (10, 30), cv2.FONT_HERSHEY_SIMPLEX, 1,
+                        (255, 255, 255), 2)
+            writer.write(bgr)
+    finally:
+        writer.release()
+
+
+def gif_maker(frames: Sequence[np.ndarray], path: str, fps: int = 50) -> None:
+    """Write frames as an animated GIF (imageio): the rate as a per-frame
+    ``duration`` in milliseconds (imageio's pillow plugin ignores ``fps=``),
+    ``loop=0``, an endless loop."""
+    try:
+        import imageio
+    except ImportError as e:
+        raise _missing("gif_maker", "imageio", e)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    imageio.mimsave(path, [_frame_to_uint8(f) for f in frames], duration=1000.0 / fps, loop=0)
+
+
+def save_preview_grid(rows: Iterable[Sequence[np.ndarray]], titles: Sequence[str],
+                      path: str) -> None:
+    """A matplotlib (Agg) grid of images, one row per item of ``rows`` (its
+    images match ``titles``), 5 x 5 inches an image, as the trainers'
+    previews."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError as e:
+        raise _missing("save_preview_grid", "matplotlib", e)
+    rows = list(rows)
+    ncols = len(titles)
+    fig, axs = plt.subplots(len(rows), ncols, figsize=(5 * ncols, 5 * len(rows)), squeeze=False)
+    for r, imgs in enumerate(rows):
+        for c, (img, title) in enumerate(zip(imgs, titles)):
+            arr = np.clip(np.asarray(img), 0, 1)
+            axs[r, c].imshow(arr.squeeze(), cmap="gray" if arr.shape[-1] == 1 else None)
+            axs[r, c].set_title(title)
+            axs[r, c].axis("off")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def convert_png_to_jpg(folder_path: str) -> None:

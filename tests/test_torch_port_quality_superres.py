@@ -196,3 +196,111 @@ def test_superres_x2_ddpm1500_equals_the_reference_on_the_same_noise():
     print(json.dumps({"tile0_patches_ddpm1500_psnr_db": scores, "max_abs_diff": err}))
     assert err <= 1e-4
     assert abs(scores["port"] - scores["reference"]) <= 1e-4
+
+
+# W8A8 on the trained x2 snapshot: the two packages' int8 DDIM-100 patches
+# on the reference's scales and the same x_T. An activation within float32
+# rounding of a quantization boundary rounds the other way in one package,
+# and the 100 steps carry that on: the patches read up to 0.0704 apart
+# (0.061-0.070 a tile; the float32 chains 3.0e-6), the tiles' PSNR up to
+# 0.086 dB and SSIM 0.00063 apart; held to INT8_AGREE_TOL and
+# INT8_AGREE_PSNR_TOL / INT8_AGREE_SSIM_TOL. Each package's int8-minus-float
+# gap over the four eval tiles is printed (the reference's -0.9817 dB /
+# -0.0551 SSIM, the port's on its own calibration -1.0411 / -0.0582), and
+# the port's is held to the reference's within the card's gate,
+# INT8_GAP_PSNR_TOL dB / INT8_GAP_SSIM_TOL
+INT8_AGREE_TOL = 0.1
+INT8_AGREE_PSNR_TOL, INT8_AGREE_SSIM_TOL = 0.15, 0.002
+INT8_GAP_PSNR_TOL, INT8_GAP_SSIM_TOL = 0.5, 0.005
+
+
+def _blend(sampler, out, boxes, shape):
+    """AggregationSampler's canvas of denoised patches: sum(w * patch) / sum(w),
+    clamped to [0, 1]."""
+    canvas, count = np.zeros(shape, np.float32), np.zeros(shape[:2] + (1,), np.float32)
+    w = sampler.weight[:, :, None]
+    for patch, (y0, y1, x0, x1) in zip(out, boxes):
+        canvas[y0:y1, x0:x1] += patch * w
+        count[y0:y1, x0:x1] += w
+    return np.clip(canvas / count, 0.0, 1.0)
+
+
+def test_superres_x2_int8_ddim100_against_the_reference_package():
+    """quantize_superres_tile + DDIM-100 on the x2 snapshot over the four
+    eval tiles, float32, dense s2d (the reference's default: every s2d conv
+    site quantizable), each tile's 9 patches from one x_T in both packages:
+    the reference's int8 patches, the port's on the reference's scales
+    (convert.from_jax_quant) within INT8_AGREE_TOL of them and their tiles'
+    scores within INT8_AGREE_PSNR_TOL / INT8_AGREE_SSIM_TOL; the float
+    patches of both; the port's int8 on its own calibration (its generator
+    seeded 21, where the reference folds PRNGKey(21)). Prints each
+    package's int8-minus-float PSNR/SSIM gap, the number the card's cli
+    phase is held to."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffusionremotesensing_tpu.diffusion import make_process as jax_make_process
+    from diffusionremotesensing_tpu.io import load_snapshot as jax_load_snapshot
+    from diffusionremotesensing_tpu.models.unet import residual_attention_unet_superres as jax_sr
+    from diffusionremotesensing_tpu.ops import quant as jq
+    from diffusionremotesensing_tpu_torch.convert import from_jax_quant
+    from diffusionremotesensing_tpu_torch.ops import quant as tq
+
+    path = os.path.join(ARTIFACTS, "snapshot_x2.pt")
+    tiles, lrs = _x2_eval()
+    state, _ = jax_load_snapshot(path)
+    variables = {"params": state["params"], "batch_stats": state.get("batch_stats", {})}
+    jmodel = jax_sr(magnification_factor=2, s2d=True)
+    jproc = jax_make_process(jmodel, "cosine", 1500, lc.HR)
+    jddim = jproc.ddim_sampler(100, 0.0, clip_x0=True)
+    server = InferenceServer.from_snapshot(path, "cosine", 1500, lc.HR,
+                                           model_flags=dict(s2d=True), ddim_steps=100,
+                                           device="cpu")
+    proc = server.process
+    sampler = AggregationSampler(proc, 64, 32, 2)
+    ddim = proc.ddim_sampler(100, clip_x0=True)
+    rows, errs, sites = [], [], []
+    try:
+        for k, (hr_u8, lr) in enumerate(zip(tiles, lrs)):
+            hr = hr_u8.astype(np.float32) / 255.0
+            patches, boxes = sampler.extract_patches(lr)
+            x_T = np.random.default_rng(100 + k).standard_normal(
+                (len(patches), 128, 128, 3)).astype(np.float32)
+            vq = jq.quantize_superres_tile(jmodel, variables, jproc.schedule.alpha_hat, lr, 64, 2,
+                                           jax.random.PRNGKey(21))
+            out = {}
+            for name, vs in (("ref_float", variables), ("ref_int8", vq)):
+                out[name] = np.asarray(jddim(vs, jax.random.PRNGKey(0), jnp.asarray(x_T),
+                                             jnp.asarray(patches)))
+            own = tq.quantize_superres_tile(proc.net, proc.schedule.alpha_hat, lr, 64, 2,
+                                            torch.Generator().manual_seed(21))
+            sites.append(len(own))
+            for name, qmap in (("port_float", None),
+                               ("port_int8_ref_scales", from_jax_quant(vq["quant"], "superres")),
+                               ("port_int8", own)):
+                tq.attach(proc.net, qmap)
+                with torch.no_grad():
+                    out[name] = ddim(torch.from_numpy(x_T), torch.from_numpy(patches)).numpy()
+            tq.attach(proc.net, None)
+            errs.append({"int8_ref_scales": float(np.abs(out["port_int8_ref_scales"]
+                                                         - out["ref_int8"]).max()),
+                         "float": float(np.abs(out["port_float"] - out["ref_float"]).max())})
+            srs = {n: _blend(sampler, o, boxes, hr.shape) for n, o in out.items()}
+            rows.append({n: {"psnr_db": psnr(s, hr), "ssim": ssim(s, hr)} for n, s in srs.items()})
+    finally:
+        tq.attach(proc.net, None)
+        server.shutdown()
+    mean = {n: {m: float(np.mean([r[n][m] for r in rows])) for m in ("psnr_db", "ssim")}
+            for n in rows[0]}
+    gap = {"reference": {m: mean["ref_int8"][m] - mean["ref_float"][m] for m in ("psnr_db", "ssim")},
+           "port": {m: mean["port_int8"][m] - mean["port_float"][m] for m in ("psnr_db", "ssim")}}
+    print(json.dumps({"int8_ddim100_x2": {"mean": mean, "int8_minus_float": gap,
+                                          "max_abs_diff": errs, "port_sites": sites,
+                                          "tiles": rows}}))
+    assert max(e["float"] for e in errs) <= 1e-4
+    assert max(e["int8_ref_scales"] for e in errs) <= INT8_AGREE_TOL
+    for r in rows:
+        assert abs(r["port_int8_ref_scales"]["psnr_db"] - r["ref_int8"]["psnr_db"]) <= INT8_AGREE_PSNR_TOL
+        assert abs(r["port_int8_ref_scales"]["ssim"] - r["ref_int8"]["ssim"]) <= INT8_AGREE_SSIM_TOL
+    assert gap["port"]["psnr_db"] >= gap["reference"]["psnr_db"] - INT8_GAP_PSNR_TOL
+    assert gap["port"]["ssim"] >= gap["reference"]["ssim"] - INT8_GAP_SSIM_TOL

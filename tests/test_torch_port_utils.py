@@ -242,3 +242,62 @@ def test_infer_tiles_serves_each_image_and_refuses_a_bad_one():
     assert [o.shape for o in outs] == [(32, 24, 3), (16, 40, 3)]
     for o in outs:
         assert np.isfinite(o).all() and o.min() >= 0.0 and o.max() <= 1.0
+
+
+def _frames(n=4, size=16):
+    rng = np.random.default_rng(7)
+    return [rng.random((size, size, 3)).astype(np.float32) for _ in range(n)]
+
+
+def test_gif_maker_writes_the_references_gif(tmp_path):
+    """The same frames, frame duration and loop as the reference's writer."""
+    tutils.gif_maker(_frames(), str(tmp_path / "port.gif"), fps=25)
+    jutils.gif_maker(_frames(), str(tmp_path / "ref.gif"), fps=25)
+    with Image.open(tmp_path / "port.gif") as a, Image.open(tmp_path / "ref.gif") as b:
+        assert a.n_frames == b.n_frames == 4
+        assert a.info.get("duration") == b.info.get("duration") == 40
+        assert a.info.get("loop") == b.info.get("loop") == 0
+        for i in range(4):
+            a.seek(i)
+            b.seek(i)
+            assert np.array_equal(np.asarray(a.convert("RGB")), np.asarray(b.convert("RGB")))
+
+
+def test_video_maker_writes_every_frame(tmp_path):
+    import cv2
+
+    tutils.video_maker(_frames(5, 32), str(tmp_path / "v" / "video.mp4"), fps=100)
+    cap = cv2.VideoCapture(str(tmp_path / "v" / "video.mp4"))
+    try:
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 5
+        ok, frame = cap.read()
+        assert ok and frame.shape == (32, 32, 3)
+    finally:
+        cap.release()
+
+
+def test_save_preview_grid_writes_a_figure(tmp_path):
+    rows = [(f[..., :1], f, f) for f in _frames(2)]
+    tutils.save_preview_grid(rows, ["a", "b", "c"], str(tmp_path / "p" / "grid.png"))
+    with Image.open(tmp_path / "p" / "grid.png") as img:
+        assert img.size == (1500, 1000)  # 5 inches an image at matplotlib's 100 dpi
+
+
+@pytest.mark.parametrize("writer,package,call", [
+    ("video_maker", "cv2", lambda p: tutils.video_maker(_frames(1), p)),
+    ("gif_maker", "imageio", lambda p: tutils.gif_maker(_frames(1), p)),
+    ("save_preview_grid", "matplotlib", lambda p: tutils.save_preview_grid([_frames(1)], ["x"], p)),
+])
+def test_a_writer_without_its_package_names_both(writer, package, call, tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, package, None)  # import raises ImportError
+    with pytest.raises(ImportError, match=f"{writer} needs .*{package}"):
+        call(str(tmp_path / "out"))
+
+
+def test_force_cpu_is_the_callers_request(monkeypatch):
+    for value, forced in (("1", True), ("", False), ("0", False)):
+        monkeypatch.setenv("DRS_FORCE_CPU", value)
+        assert tutils.force_cpu_if_requested() is forced
+        assert tutils.default_device() == ("cpu" if forced else "cuda")
+    monkeypatch.delenv("DRS_FORCE_CPU")
+    assert tutils.force_cpu_if_requested() is False

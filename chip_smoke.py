@@ -77,8 +77,11 @@ Phases, each printing one line with its name, seconds and result:
              more times, with the spread.
              ancestral_update also: its generator's words equal the plain
              Philox's, the given bits mode, the moments of its noise, the
-             last step exact; and, since a call issues slower than the card
-             runs it, its and its library's device ms with the host's issue
+             last step exact, the second half of the chunk at its quad
+             offset (one replica's share of a split chunk) bitwise the
+             whole chunk's half and against the plain version; and,
+             since a call issues slower than the card runs it, its and
+             its library's device ms with the host's issue
              taken out (torch.profiler, and 20 calls queued behind a sleep
              kernel between two events), each call on inputs and an output
              out of the L2 as the sampler finds them, and the host's us to
@@ -196,7 +199,25 @@ Phases, each printing one line with its name, seconds and result:
              InferenceServer.from_snapshot in the 'stem' configuration: one
              DDIM-100 micro-batch of 8, finite, with the exact launches of
              the stem, gate, attention-head and decoder kernels.
-11. profile - only with --profile: where one sampler step's time goes, for
+11. parallel - data parallelism (parallel/): torch.distributed's NCCL
+             availability and version printed; (a) a world-1 group
+             (NCCL, or gloo by a printed choice where the card's torch has
+             no NCCL) runs 3 + 5 steps of the train phase's flagship recipe
+             through Trainer(mesh=make_mesh()), each loss within
+             STEP_LOSS_RTOL of the same steps without a mesh, ms a step of
+             both; (b) the quality phase's x2 snapshot ('stem', float32) on one
+             eval tile (9 patches) through AggregationSampler on one device
+             and over make_mesh([cuda:0, cuda:0]) (two replicas, the
+             second a copy of the net, 5 patches each after the pad), DDIM-100 and the fused update's T=1500
+             chain, each within TILE_TOL of the one device's, each replica
+             launching what the one device launches; (c) two processes
+             on the card in a gloo group over CUDA tensors (NCCL takes
+             one rank a card): one float32 step,
+             each rank its half of the STEP_* batch, against one process's
+             (loss, statistics, gradient in L2, parameters), and the
+             DDIM-100 tile split over the ranks against (b)'s one-device
+             tile.
+12. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -206,7 +227,8 @@ Phases, each printing one line with its name, seconds and result:
              device ms, the busy share, the top kernels.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
-serve phase's paths, the quality phase's passes and the cli phase's runs,
+serve phase's paths, the quality phase's passes, the cli phase's runs and
+the parallel phase's split tiles,
 packed_conv's the
 kernel phase's; its times at B=48 in
 its main path's dtype), a row of its own for each shape of SHAPE_ROWS
@@ -307,6 +329,11 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (  # noqa: E402
     tap_stem_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic  # noqa: E402
+from diffusionremotesensing_tpu_torch.parallel.sharding import (  # noqa: E402
+    make_mesh,
+    process_device,
+    shard_batch,
+)
 from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
     tap_conv,
     tap_conv_pair,
@@ -465,7 +492,10 @@ ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks
                          "gate_artifacts")
 QUALITY_SNAPSHOT = os.path.join(ARTIFACTS, "snapshot_x2.pt")
 EVAL_SEED, EVAL_TILES, EVAL_TILE_HR, EVAL_BLUR = 10_000, 4, 256, 0.5
-QUALITY_DRAWS = 9  # draws a tile: the mean of one draw of the four tiles spreads ~0.5 dB
+# draws a tile: the mean of one draw of the four tiles spreads ~0.5 dB (9
+# before the parallel phase came; 6 keeps the script's time: at 8 the
+# quality phase took 260 s of a 551 s script on a slow host)
+QUALITY_DRAWS = 6
 QUALITY_PSNR_TOL, QUALITY_SSIM_TOL = 1.0, 0.01
 FUSED_PSNR_TOL, FUSED_SSIM_TOL = 0.5, 0.005
 # the train phase's data step: its first TRAIN_B images as PNG files
@@ -1209,15 +1239,21 @@ def _step_on(device, s2d_train, sd, batch, t, noise):
     return state.model, loss
 
 
-def _compare_steps(s2d_train):
-    """The card's float32 step against its host CPU's, from the same
-    weights, batch, t and noise, at the CPU tests' tolerances (STEP_*)."""
+def _step_inputs():
+    """The STEP_* batch, t and noise (CPU tensors), drawn from SEED + 7."""
     rng = np.random.default_rng(SEED + 7)
     batch = {"x": torch.from_numpy(rng.random((STEP_B, STEP_HR, STEP_HR, 3)).astype(np.float32)),
              "cond": torch.from_numpy(
                  rng.random((STEP_B, STEP_HR // 2, STEP_HR // 2, 3)).astype(np.float32))}
     t = torch.from_numpy(rng.integers(1, T_STEPS, STEP_B))
     noise = torch.from_numpy(rng.standard_normal((STEP_B, STEP_HR, STEP_HR, 3)).astype(np.float32))
+    return batch, t, noise
+
+
+def _compare_steps(s2d_train):
+    """The card's float32 step against its host CPU's, from the same
+    weights, batch, t and noise, at the CPU tests' tolerances (STEP_*)."""
+    batch, t, noise = _step_inputs()
     sd = init_params(SEED, device="cpu")
     card, loss_card = _step_on(torch.device("cuda"), s2d_train, sd, batch, t, noise)
     host, loss_host = _step_on(torch.device("cpu"), s2d_train, sd, batch, t, noise)
@@ -1805,6 +1841,230 @@ def cli_phase(dev, card):
     return "\n".join(lines), launches
 
 
+# ------------------------------------------------------------ parallel phase
+
+PAR_WARMUP, PAR_STEPS = 3, 5  # flagship steps of the world-1 group: warm-up, then timed
+PAR_RANK_TIMEOUT = 300  # seconds for the two ranks of (c), start-up included
+# (c)'s step against one process's: the whole gradient's relative L2 error.
+# A channel constant over the batch has an E[x^2] - E[x]^2 made of rounding
+# noise, near BatchNorm's eps, and its gradient follows that noise: summing
+# the statistics over two halves instead of the whole moves single
+# gradient entries by up to 3e-4 of the largest and the whole gradient by
+# 4e-4 in L2 on the CPU (the same happens in one process), while the loss
+# does not move; max-abs entry bounds (STEP_GRAD_TOL) do not hold there
+PAR_GRAD_RL2 = 5e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _par_train(dev, backend):
+    """(a) The flagship recipe (HR 256, batch 32, bfloat16, the train phase's
+    images and DownBlur), PAR_WARMUP + PAR_STEPS steps through
+    Trainer(mesh=make_mesh()) in a world-1 group on `backend`, and the same
+    steps without a mesh: every step's loss and the timed steps' ms."""
+    dist = torch.distributed
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        check(mesh.group is not None and mesh.devices == (process_device(dev.type),),
+              f"parallel: make_mesh() in a world-1 group gave {mesh}")
+        losses, ms = {}, {}
+        for name, m in (("mesh", mesh), ("no_mesh", None)):
+            model = FACTORIES["superres"](**CONFIGS["stem"], compute_dtype=torch.bfloat16)
+            tr = Trainer(model, "cosine", T_STEPS, TRAIN_HR, lr=TRAIN_LR, loss="MSE",
+                         ema_smoothing=True, seed=SEED, device=dev, mesh=m,
+                         batch_transform=make_downblur_transform(TRAIN_HR, 2, TRAIN_BLUR))
+            state = tr.init_state(init_params(SEED, device="cpu"))
+            images = _U8Images(2 * TRAIN_B, TRAIN_HR, (PAR_WARMUP + PAR_STEPS) * TRAIN_B, SEED)
+            out = []
+            for i, b in enumerate(DataLoader(images, TRAIN_B, shuffle=False)):
+                if i == PAR_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out.append(tr.train_step(state, tr._prep_batch(b)))
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+            losses[name] = torch.stack(out).tolist()
+            del tr, state, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["no_mesh"])]
+    check(np.isfinite(losses["mesh"]).all() and max(rel) <= STEP_LOSS_RTOL,
+          f"parallel (a): losses {losses['mesh']} with the world-1 group, "
+          f"{losses['no_mesh']} without")
+    return {"world1_backend": backend, "steps": PAR_WARMUP + PAR_STEPS, "losses": losses,
+            "loss_rel_diff": rel, "ms_per_step": ms}
+
+
+def _par_process(dev):
+    """The quality phase's x2 snapshot in the 'stem' configuration, float32
+    (the kernels' float32 versions), as the serve phase compares tiles: a
+    bf16 tile at 5 patches a replica against 9 on one device differs by
+    ~7e-3 after DDIM-100 on an H100, the roundings of differently tiled
+    batches carried over 100 steps."""
+    sd, _ = load_snapshot(QUALITY_SNAPSHOT)
+    m = FACTORIES["superres"](**CONFIGS["stem"])
+    m.load_state_dict(sd, strict=True)
+    return make_process(m.to(dev).eval(), "cosine", T_STEPS, HR)
+
+
+def _par_split(dev, lr):
+    """(b) One eval tile (9 patches) through AggregationSampler on one device
+    (chunks of 48) and over make_mesh([cuda:0, cuda:0]) (24 a replica: the
+    9 patches padded to 10, 5 a replica; the second replica a copy of the
+    net, as on a second card), DDIM-100 and the fused-update
+    T=1500 chain: the tiles within TILE_TOL, each replica launching what
+    the one device launches (the counts twice the one device's), the
+    seconds of each run. Returns the JSON fields, the mesh runs' launches
+    and the one-device DDIM-100 tile."""
+    proc = _par_process(dev)
+    mesh = make_mesh([process_device(dev.type)] * 2)
+    check(mesh.size == 2 and mesh.group is None, f"parallel: the one-card mesh is {mesh}")
+    res, launches, tiles = {}, dict.fromkeys(KERNELS, 0), {}
+    for name, kw in (("ddim100", {"ddim_steps": DDIM_STEPS}),
+                     ("ddpm1500_fused_update", {"fused_update": True})):
+        runs = {}
+        for run, m, bs in (("one", None, B_FLAG), ("split", mesh, B_FLAG // 2)):
+            agg = AggregationSampler(proc, HR // 2, HR // 4, 2, batch_size=bs, mesh=m, **kw)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            out = agg(lr, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            torch.cuda.synchronize()
+            runs[run] = (out, time.perf_counter() - t0, read_counts())
+        (one, s_one, c_one), (split, s_split, c_split) = runs["one"], runs["split"]
+        err = float(np.abs(split - one).max())
+        check(split.shape == one.shape and np.isfinite(split).all() and err <= TILE_TOL,
+              f"parallel (b) {name}: the split tile differs from the one-device tile by {err}")
+        check(c_split == {k: 2 * v for k, v in c_one.items()} and any(c_one.values()),
+              f"parallel (b) {name}: launches {c_split} split, {c_one} on one device")
+        for k, v in c_split.items():
+            launches[k] += v
+        tiles[name] = one
+        rep = proc.replica(mesh.devices[1], 1)
+        check(rep is not proc and rep.net is not proc.net
+              and rep.net.quant_sites is proc.net.quant_sites,
+              "parallel (b): the second replica is not a copy of the net sharing its quant sites")
+        res[name] = {"max_abs_diff": err, "seconds_one_device": s_one, "seconds_split": s_split,
+                     "launches_one_device": {k: v for k, v in c_one.items() if v},
+                     "launches_split": {k: v for k, v in c_split.items() if v}}
+    return res, launches, tiles["ddim100"]
+
+
+def _par_rank(rank, port, path, dev):
+    """(c) Rank `rank` of a 2-process gloo group on `dev` (the card: cuda:0
+    for both): one train step on its half of the inputs' global batch and
+    the inputs' tile split over the ranks; rank 0 saves both."""
+    dev = process_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        inputs = torch.load(path, weights_only=False)
+        mesh = make_mesh([dev])
+        tr = Trainer(FACTORIES["superres"](), "cosine", T_STEPS, STEP_HR, lr=TRAIN_LR,
+                     ema_smoothing=True, seed=SEED, mesh=mesh)
+        state = tr.init_state(init_params(SEED, device="cpu"))
+        batch = shard_batch({k: v.to(dev) for k, v in inputs["batch"].items()}, mesh)
+        t, noise = shard_batch((inputs["t"].to(dev), inputs["noise"].to(dev)), mesh)
+        loss = float(tr.train_step(state, batch, t, noise))
+        agg = AggregationSampler(_par_process(dev), HR // 2, HR // 4, 2, batch_size=B_FLAG // 2,
+                                 mesh=mesh, ddim_steps=DDIM_STEPS)
+        tile = agg(inputs["lr"], generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+        if rank == 0:
+            torch.save({"loss": loss, "model": {k: v.cpu() for k, v in
+                                                state.model.state_dict().items()},
+                        "grads": {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                        "tile": tile}, path + ".rank0")
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_group(dev, lr, tile_one):
+    """(c) Two processes on the one card, a gloo group over CUDA tensors
+    (NCCL takes one rank a card): one float32 DDP step (the train phase's
+    STEP_* inputs, each rank its half) against the one-process step on the
+    whole batch (the loss and statistics at the STEP_* tolerances, the
+    gradient within PAR_GRAD_RL2 in L2, the parameters after Adam within 2
+    lr), and one DDIM-100 tile split over the ranks against (b)'s
+    one-device tile within TILE_TOL."""
+    batch, t, noise = _step_inputs()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "inputs.pt")
+        torch.save({"batch": batch, "t": t, "noise": noise, "lr": lr}, path)
+        port = _free_port()
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_par_rank, args=(r, port, path, dev.type)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=PAR_RANK_TIMEOUT)
+        secs = time.perf_counter() - t0
+        hung = [p.is_alive() for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(not any(hung) and all(p.exitcode == 0 for p in procs),
+              f"parallel (c): ranks hung {hung}, exit codes {[p.exitcode for p in procs]}")
+        got = torch.load(path + ".rank0", weights_only=False)
+    one, loss = _step_on(dev, False, init_params(SEED, device="cpu"), batch, t, noise)
+    hp = dict(one.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in hp.values())
+    err = {"loss_rel": abs(got["loss"] - loss) / abs(loss), "grad_max": 0.0, "param": 0.0}
+    sq = norm = 0.0
+    for n, p in hp.items():
+        g = p.grad.cpu()
+        err["grad_max"] = max(err["grad_max"], float((got["grads"][n] - g).abs().max()) / gmax)
+        sq += float(((got["grads"][n] - g).double() ** 2).sum())
+        norm += float((g.double() ** 2).sum())
+        err["param"] = max(err["param"], float((got["model"][n] - p.detach().cpu()).abs().max()))
+    err["grad_rel_l2"] = (sq / norm) ** 0.5
+    hsd = one.state_dict()
+    err["stats"] = max(float((got["model"][k] - hsd[k].cpu()).abs().max())
+                       for k in hsd if "running" in k)
+    err["tile"] = float(np.abs(got["tile"] - tile_one).max())
+    check(err["loss_rel"] <= STEP_LOSS_RTOL and err["grad_rel_l2"] <= PAR_GRAD_RL2
+          and err["param"] <= 2 * TRAIN_LR and err["stats"] <= STEP_STATS_TOL
+          and err["tile"] <= TILE_TOL,
+          f"parallel (c): the 2-rank group differs from one process: {err}")
+    return {"ranks": 2, "backend": "gloo", "seconds_with_startup": secs, "vs_one_process": err}
+
+
+def parallel_phase(dev, card):
+    """The parallel phase: (a) the world-1 group's flagship steps, (b) the
+    one-card split of a tile, (c) a 2-rank gloo group on the one card; one
+    JSON line (with `card`). Returns it and (b)'s launches."""
+    nccl = torch.distributed.is_nccl_available()
+    version = ".".join(map(str, torch.cuda.nccl.version())) if nccl else None
+    backend = "nccl" if nccl else "gloo"
+    print(f"parallel: torch.distributed.is_nccl_available() = {nccl}, NCCL {version}; "
+          f"the world-1 group runs on {backend}" + ("" if nccl else " (chosen: no NCCL)"),
+          flush=True)
+    lr = eval_lrs(np.stack(eval_tiles()[:1]), dev)[0][0]
+    train = _par_train(dev, backend)
+    split, launches, tile_one = _par_split(dev, lr)
+    group = _par_group(dev, lr, tile_one)
+    return json.dumps({"nccl_available": nccl, "nccl_version": version, "world1": train,
+                       "split_one_card": split, "group_two_ranks": group,
+                       "card": card}), launches
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true", help="also run the profile phase")
@@ -2222,6 +2482,20 @@ def main():
             res[key] = max_err([ancestral_update(xv, ev, coefs, seed, step)],
                                [ancestral_update_plain(xv, ev, coefs, seed, step)],
                                torch.float32, f"ancestral_update {key}", UPDATE_TOL)
+        # one replica's half of a split chunk, at its first quad: the whole
+        # chunk's noise there, bit for bit, and the plain version's
+        half, per = x.shape[0] // 2, x[0].numel()
+        q0 = half * per // 4
+        part = ancestral_update(x[half:], eps[half:], coefs, seed, step, quad0=q0)
+        check(torch.equal(part, ancestral_update(x, eps, coefs, seed, step)[half:]),
+              "ancestral_update: the half at its quad offset differs from the whole's half")
+        check(torch.equal(philox_bits(seed, step, n - half * per, q0),
+                          philox_bits_plain(seed, step, n - half * per, q0)),
+              "ancestral_update: the kernel's Philox words at a quad offset differ")
+        res["quad_offset_err"] = max_err(
+            [part], [ancestral_update_plain(x[half:], eps[half:], coefs, seed, step, quad0=q0)],
+            torch.float32, "ancestral_update quad offset", UPDATE_TOL)
+        res["quad_offset_split_equal"] = True
         zero = torch.zeros_like(x)
 
         def noise(i):
@@ -2622,6 +2896,14 @@ def main():
     phase("quality", quality)
     phase("cli", cli_)
     phase("train", lambda: train_phase(dev, state["smi"]))
+
+    def parallel():
+        line, launches = parallel_phase(dev, state["smi"])
+        for k, n in launches.items():
+            state["launches"][row_of(k, "superres")] += n
+        return line
+
+    phase("parallel", parallel)
     if args.profile:
         phase("profile", profile)
 

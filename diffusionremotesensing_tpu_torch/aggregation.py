@@ -1,9 +1,15 @@
 """Aggregation sampling: tiled super-resolution of large images (port of
-``diffusionremotesensing_tpu/aggregation.py``, single device).
+``diffusionremotesensing_tpu/aggregation.py``).
 
 The LR image is cut into overlapping patches, the patch set is denoised as
-a batch axis in chunks of ``batch_size``, and the super-resolved patches
-are blended into the canvas with Gaussian weights as each chunk comes back.
+a batch axis in chunks of ``batch_size`` per replica, and the
+super-resolved patches are blended into the canvas with Gaussian weights as
+each chunk comes back. With a ``mesh`` (``parallel.make_mesh``) the patch
+axis of each chunk is split over its replicas, collective-free within a
+process (``diffusion``'s split samplers), the last chunk padded to a
+multiple of the mesh size by wrapping around the patch list, as in the JAX
+package. The noise of a chunk is drawn for its real patches alone (the pad
+rows repeat it), so a tile does not depend on the mesh it was split over.
 Reference semantics kept: the edge-clamped, de-duplicated patch grid; the
 Gaussian weights' var = 0.01 and asymmetric midpoints (x: (w-1)/2,
 y: h/2); the canvas sum(w*patch)/sum(w), clamped to [0, 1].
@@ -19,6 +25,11 @@ import torch
 
 from diffusionremotesensing_tpu_torch.diffusion import DiffusionProcess, warm_start_state
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x's rows repeated, wrapping around, to n rows."""
+    return x if x.shape[0] == n else x[torch.arange(n, device=x.device) % x.shape[0]]
 
 
 def patchify_coords(height: int, width: int, patch_size: int, stride: Optional[int],
@@ -69,7 +80,9 @@ class AggregationSampler:
     update as one ``ancestral_update`` kernel call; DDIM takes ``ddim_eta``
     and ``ddim_spacing`` ('linear' or 'quadratic'). ``start_t`` starts each
     patch from its bicubic upsample q-sampled to t = start_t and runs only
-    the steps below it (DDIM squeezes its subsequence into [1, start_t])."""
+    the steps below it (DDIM squeezes its subsequence into [1, start_t]).
+    ``mesh`` splits each chunk over its replicas; ``batch_size`` is then
+    per replica, as in the JAX package."""
 
     MAX_IN_FLIGHT = 4  # chunks enqueued on the device before the oldest is gathered
 
@@ -77,7 +90,7 @@ class AggregationSampler:
                  magnification_factor: int, batch_size: int = 48,
                  ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True,
                  fused_update: bool = False, start_t: Optional[int] = None,
-                 ddim_eta: float = 0.0, ddim_spacing: str = "linear"):
+                 ddim_eta: float = 0.0, ddim_spacing: str = "linear", mesh=None):
         if stride > patch_size:
             raise ValueError("stride must be <= patch_size")
         if fused_update and ddim_steps is not None:
@@ -96,24 +109,28 @@ class AggregationSampler:
         self.ddim_spacing = ddim_spacing
         self.fused_update = fused_update
         self.start_t = start_t
+        self.mesh = mesh
+        self.n_devices = 1 if mesh is None else mesh.size
         hr = patch_size * magnification_factor
         self.weight = gaussian_weights(hr, hr)
 
     def chunk_plan(self, n: int) -> List[Tuple[int, int]]:
-        """(start, size) of each chunk: full chunks, then the remainder as a
-        chunk of its own size."""
-        chunk = self.batch_size
+        """(start, size) of each chunk: full chunks of batch_size x the mesh
+        size, then the remainder padded to a multiple of the mesh size (its
+        own size on one device)."""
+        chunk = self.batch_size * self.n_devices
         plan = [(s, chunk) for s in range(0, (n // chunk) * chunk, chunk)]
         if n % chunk:
-            plan.append(((n // chunk) * chunk, n % chunk))
+            plan.append(((n // chunk) * chunk, -(-(n % chunk) // self.n_devices) * self.n_devices))
         return plan
 
     def _sampler(self):
+        kw = {} if self.mesh is None else {"mesh": self.mesh}
         if self.ddim_steps is not None:
             return self.process.ddim_sampler(self.ddim_steps, eta=self.ddim_eta,
                                              tau_spacing=self.ddim_spacing,
-                                             clip_x0=self.ddim_clip_x0, start_t=self.start_t)
-        return self.process.sampler(fused_update=self.fused_update, start_t=self.start_t)
+                                             clip_x0=self.ddim_clip_x0, start_t=self.start_t, **kw)
+        return self.process.sampler(fused_update=self.fused_update, start_t=self.start_t, **kw)
 
     def extract_patches(self, img_lr: np.ndarray):
         """(H, W, C) LR in [0, 1] -> (the patches (P, p, p, C), their HR
@@ -128,25 +145,38 @@ class AggregationSampler:
 
     def _sampled_chunks(self, n: int, block_fn, generator, device):
         """Denoise ``n`` patches chunk by chunk (``chunk_plan``); yields
-        ``(start, out)``, the chunk's (size, hr, hr, C) output on the device.
-        ``block_fn(start, size)`` gives the chunk's LR patches; up to
-        MAX_IN_FLIGHT chunks are enqueued before the oldest is yielded."""
+        ``(start, out)``, the chunk's real patches' (k, hr, hr, C) output on
+        the device. ``block_fn(idx)`` gives the LR patches of the patch
+        indices ``idx`` (a padded chunk's wrap around); up to MAX_IN_FLIGHT
+        chunks are enqueued before the oldest is yielded."""
         sampler = self._sampler()
         hr = self.patch_size * self.mag
         pending = []
         for start, size in self.chunk_plan(n):
-            cond = torch.from_numpy(block_fn(start, size)).to(device)
+            k = min(size, n - start)
+            cond = torch.from_numpy(block_fn(np.arange(start, start + size) % n)).to(device)
+            c = cond.shape[-1]
             if self.start_t is not None:
                 # warm start: each patch's bicubic upsample q-sampled to start_t
                 init = upsample_bicubic(cond, self.mag)
-                x_T = warm_start_state(self.process.schedule, init, self.start_t, generator)
+                eps = torch.randn((k,) + tuple(init.shape[1:]), generator=generator, device=device)
+                x_T = warm_start_state(self.process.schedule, init, self.start_t,
+                                       noise=_pad_rows(eps, size))
             else:
-                x_T = torch.randn((size, hr, hr, cond.shape[-1]), generator=generator,
-                                  device=device)
-            pending.append((start, sampler(x_T, cond, generator=generator)))
+                x_T = _pad_rows(torch.randn((k, hr, hr, c), generator=generator, device=device),
+                                size)
+            kw = {}
+            if k < size and not self.fused_update:
+                # the pad rows repeat the real patches' noise
+                kw["noise_fn"] = lambda i, shape, k=k: _pad_rows(
+                    torch.randn((k,) + tuple(shape[1:]), generator=generator, device=device),
+                    shape[0])
+            pending.append((start, k, sampler(x_T, cond, generator=generator, **kw)))
             if len(pending) >= self.MAX_IN_FLIGHT:
-                yield pending.pop(0)
-        yield from pending
+                s, k, out = pending.pop(0)
+                yield s, out[:k]
+        for s, k, out in pending:
+            yield s, out[:k]
 
     def sample_patches(self, patches: np.ndarray, generator: Optional[torch.Generator] = None,
                        device="cuda") -> np.ndarray:
@@ -155,7 +185,7 @@ class AggregationSampler:
         order from ``generator``."""
         patches = np.asarray(patches, np.float32)
         outs = [out.cpu().numpy() for _, out in self._sampled_chunks(
-            len(patches), lambda s, k: patches[s:s + k], generator, device)]
+            len(patches), lambda idx: patches[idx], generator, device)]
         return np.concatenate(outs, axis=0)
 
     def sample_tiles(self, imgs: List[np.ndarray], generator: Optional[torch.Generator] = None,
@@ -175,9 +205,9 @@ class AggregationSampler:
         counts = [np.zeros(c.shape[:2] + (1,), np.float32) for c in canvases]
         wmask = self.weight[:, :, None]
 
-        def block(start, size):
+        def block(idx):
             return np.stack([imgs[k][y0 // mag:y1 // mag, x0 // mag:x1 // mag]
-                             for k, (y0, y1, x0, x1) in index[start:start + size]])
+                             for k, (y0, y1, x0, x1) in (index[i] for i in idx)])
 
         for start, out in self._sampled_chunks(len(index), block, generator, device):
             for patch, (k, (y0, y1, x0, x1)) in zip(out.cpu().numpy(),

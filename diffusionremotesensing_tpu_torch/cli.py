@@ -40,11 +40,18 @@ Where the port differs from the reference package:
   with i; a single image is image 0); W8A8 calibration draws from a
   generator seeded 21 (aggregation) or 33 (serve), where the reference
   folds the keys of the same numbers.
-* **Not ported yet**, each raising a ``NotImplementedError`` instead of
-  running on one device silently: ``--multiple_gpus`` and
-  ``--data_parallel`` (ROADMAP Queue 1, item 3: ``parallel/``) and
-  ``--checkpoint_backend orbax`` (item 4: the Orbax backend).
-  ``is_main_process`` is True and ``_process_shard`` is (1, 0): one process.
+* **Data parallelism** (``parallel/``). ``--multiple_gpus`` on the
+  trainers runs one process per device as the reference's DDP did: start
+  them with ``torchrun --nproc_per_node=N -m diffusionremotesensing_tpu_torch.cli
+  superres --multiple_gpus ...``; each joins the group (NCCL on the card,
+  gloo with ``DRS_FORCE_CPU=1``), loads its shard (``_process_shard``) and
+  trains on its device, and rank 0 alone writes (``is_main_process``). On
+  ``aggregation`` it splits each chunk's patches over the mesh: the cards of
+  this process, or the ranks of a torchrun group, whose tiles rank 0 writes.
+  ``--data_parallel`` on ``serve`` splits every micro-batch over the cards of
+  the process (``--device``'s type), collective-free.
+* **Not ported yet**: ``--checkpoint_backend orbax`` (ROADMAP Queue 1, item
+  4: the Orbax backend) raises a ``NotImplementedError``.
 * ``DRS_TRAIN_SEED`` seeds the trainers' initial weights (torch's default
   initialisation drawn under that seed) and their noise, as in the
   reference.
@@ -60,6 +67,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from diffusionremotesensing_tpu_torch.parallel.sharding import is_main_process
 from diffusionremotesensing_tpu_torch.utils import default_device, resolve_device
 
 # --tap44 spellings -> the model's tap44 level (models.unet.TAP44_LEVELS)
@@ -96,21 +104,31 @@ def resolve_tap44(name: Optional[str], device: torch.device):
     return TAP44_SPELLINGS[name]
 
 
-def is_main_process() -> bool:
-    """One process: always the main one (multi-process runs wait for
-    ``parallel/``)."""
-    return True
-
-
 def _process_shard():
-    """(number of dataset shards, this process's shard): (1, 0), one process."""
+    """(number of dataset shards, this process's shard): the process group's
+    (world size, rank), (1, 0) in one process (DistributedSampler parity:
+    each rank loads a disjoint shard)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
     return 1, 0
 
 
-def _refuse_parallel(flag: str) -> None:
-    raise NotImplementedError(
-        f"{flag}: data parallelism waits for the port of parallel/ (ROADMAP Queue 1, item 3); "
-        "the port runs one process on one device")
+def _make_mesh_if(multiple: bool, device: torch.device):
+    """--multiple_gpus: join torchrun's group when there is one (NCCL for the
+    card, gloo for the CPU) and return the mesh of this process's devices
+    of ``device``'s type; else None."""
+    if not multiple:
+        return None
+    from diffusionremotesensing_tpu_torch.parallel.sharding import (
+        initialize_distributed,
+        local_devices,
+        make_mesh,
+    )
+
+    initialize_distributed(device.type)
+    return make_mesh(local_devices(device.type))
 
 
 def _refuse_orbax() -> None:
@@ -175,10 +193,10 @@ def _load_vgg(args):
 
 
 def _check_train_flags(args) -> None:
-    if args.multiple_gpus:
-        _refuse_parallel("--multiple_gpus")
     if getattr(args, "checkpoint_backend", "msgpack") == "orbax":
         _refuse_orbax()
+    # before the loaders: the group gives each rank its shard
+    args.mesh = _make_mesh_if(args.multiple_gpus, resolve_device(default_device()))
 
 
 def _build_trainer(model, args, image_size, label_dropout=0.0, batch_transform=None):
@@ -200,6 +218,7 @@ def _build_trainer(model, args, image_size, label_dropout=0.0, batch_transform=N
         checkpoint_backend=getattr(args, "checkpoint_backend", "msgpack"),
         steps_per_dispatch=getattr(args, "steps_per_dispatch", 1),
         seed=_train_seed(),
+        mesh=getattr(args, "mesh", None),
         device=resolve_device(default_device()),
     )
 
@@ -517,9 +536,10 @@ def launch_aggregation(args) -> None:
     from diffusionremotesensing_tpu_torch.ops.quant import attach, quantize_superres_tile
     from diffusionremotesensing_tpu_torch.utils import save_image
 
-    if getattr(args, "multiple_gpus", False):
-        _refuse_parallel("--multiple_gpus")
     device = resolve_device(args.device)
+    mesh = _make_mesh_if(getattr(args, "multiple_gpus", False), device)
+    if mesh is not None:
+        device = mesh.device
     s2d = getattr(args, "s2d", True)
     model = residual_attention_unet_superres(
         image_channels=args.inp_out_channels, out_dim=args.inp_out_channels,
@@ -551,7 +571,8 @@ def launch_aggregation(args) -> None:
         batch_size=getattr(args, "batch_size", 48), ddim_steps=getattr(args, "ddim_steps", None),
         ddim_eta=getattr(args, "ddim_eta", 0.0), ddim_spacing=getattr(args, "ddim_spacing", "linear"),
         ddim_clip_x0=getattr(args, "ddim_clip_x0", True),
-        fused_update=getattr(args, "fused_update", False), start_t=getattr(args, "start_t", None))
+        fused_update=getattr(args, "fused_update", False), start_t=getattr(args, "start_t", None),
+        mesh=mesh)
     for i, (path, dest) in enumerate(zip(paths, dest_names)):
         arr = load_lr_image(path)
         attach(proc.net, None)
@@ -563,6 +584,8 @@ def launch_aggregation(args) -> None:
             print(f"int8 quantized execution: {len(qmap)} conv-site scales calibrated "
                   f"on this tile (sites engage per execution branch)")
         out = sampler(arr, generator=aggregation_generator(device, i), device=device)
+        if not is_main_process():
+            continue
         save_image(out, dest)
         if img_dir:
             print(f"[{i + 1}/{len(paths)}] {path} -> {dest}")
@@ -585,9 +608,14 @@ def build_server(args):
     from diffusionremotesensing_tpu_torch.ops.quant import attach
     from diffusionremotesensing_tpu_torch.serving import InferenceServer
 
-    if getattr(args, "data_parallel", False):
-        _refuse_parallel("--data_parallel")
     device = resolve_device(args.device)
+    mesh = None
+    if getattr(args, "data_parallel", False):
+        from diffusionremotesensing_tpu_torch.parallel.sharding import local_devices, make_mesh
+
+        # the mesh over every device of the committed type (a --device cpu
+        # run does not mesh the cards it opted out of)
+        mesh = make_mesh(local_devices(device.type))
     s2d = getattr(args, "s2d", True)
     kw = dict(s2d=s2d,
               tap44=resolve_tap44(getattr(args, "tap44", "auto"), device) if s2d else False,
@@ -636,7 +664,7 @@ def build_server(args):
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         ddim_steps=getattr(args, "ddim_steps", None),
         ddim_clip_x0=getattr(args, "ddim_clip_x0", True), seed=seed, dtype=_model_dtype(args),
-        device=device, start_t=getattr(args, "start_t", None))
+        device=device, start_t=getattr(args, "start_t", None), mesh=mesh)
     if getattr(args, "quant", "none") == "int8":
         qmap = quantize_serving(args, server.process, image_size)
         attach(server.process.net, qmap)
@@ -835,7 +863,8 @@ def _aggregation_flags(p):
     _bool(p, "--fused_update", False,
           help="each DDPM step's update and noise as one ancestral_update kernel (another "
                "noise stream; DDPM only)")
-    _bool(p, "--multiple_gpus", False, help="not ported yet (raises)")
+    _bool(p, "--multiple_gpus", False,
+          help="split each chunk's patches over this process's cards, or over torchrun's ranks")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
                    help="W8A8 static-calibration int8 execution (ops/quant.py), calibrated on "
                         "each tile's patches; not fp-equivalent, default off")
@@ -876,7 +905,8 @@ def _serve_flags(p):
                    help="W8A8 static-calibration int8 execution (not fp-equivalent)")
     p.add_argument("--quant_calib_image", type=str, default=None,
                    help="representative input image for --quant int8's calibration")
-    _bool(p, "--data_parallel", False, help="not ported yet (raises)")
+    _bool(p, "--data_parallel", False,
+          help="split each micro-batch over every card of this process (--device's type)")
     p.add_argument("--seed", type=int, default=None,
                    help="sampler seed; default fresh entropy per process")
     _kernel_flags(p)

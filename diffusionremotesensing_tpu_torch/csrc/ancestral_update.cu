@@ -15,7 +15,10 @@
 // from device memory, so the sampler draws them without a host-device
 // synchronisation), counter = (quad index low, quad index high, step, 0),
 // the step passed by value. One call gives the four words (w0, w1, w2, w3)
-// of quad q, elements 4q .. 4q + 3. Each word pair is one Box-Muller draw
+// of quad q, elements 4q .. 4q + 3. The quad index counts from `quad0`, the
+// first quad of x within the whole state: a slice of the state (one
+// replica's share of a chunk split over devices) that starts at quad quad0
+// draws the noise the whole state draws there. Each word pair is one Box-Muller draw
 // by the reference's mantissa map (fused_update.py:_bits_to_normal, :53):
 // u1 = 2 - f(b1), u2 = f(b2) - 1, f(b) = the float32 whose bits are
 // 0x3F800000 | (b >> 9); r = sqrt(-2 log u1). Its two outputs are two
@@ -158,7 +161,7 @@ __global__ void __launch_bounds__(NTHREADS)
 ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
                         const uint32_t* __restrict__ bits, const long long* __restrict__ seed,
                         T* __restrict__ out, long long n, float ca, float cb, float cn,
-                        uint32_t step) {
+                        uint32_t step, long long quad0) {
   const long long nq = (n + 3) / 4;
   const uint32_t k0 = bits == nullptr ? (uint32_t)seed[0] : 0u;
   const uint32_t k1 = bits == nullptr ? (uint32_t)seed[1] : 0u;
@@ -180,7 +183,7 @@ ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
     float z[4];
     if (bits == nullptr) {
       uint32_t w[4];
-      quad_bits(w, q, step, k0, k1);
+      quad_bits(w, quad0 + q, step, k0, k1);
       box_muller(w[0], w[1], &z[0], &z[1]);
       box_muller(w[2], w[3], &z[2], &z[3]);
     } else {
@@ -201,16 +204,16 @@ ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
   }
 }
 
-// The generator's words of quads [0, nq) at `step`, one quad a thread:
-// out[4q + j] = word j of quad q. What ancestral_update_kernel draws, for
-// checking it.
+// The generator's words of quads [quad0, quad0 + nq) at `step`, one quad a
+// thread: out[4q + j] = word j of quad quad0 + q. What
+// ancestral_update_kernel draws, for checking it.
 __global__ void __launch_bounds__(NTHREADS)
 philox_bits_kernel(const long long* __restrict__ seed, uint32_t* __restrict__ out, long long nq,
-                   uint32_t step) {
+                   uint32_t step, long long quad0) {
   const long long q = (long long)blockIdx.x * NTHREADS + threadIdx.x;
   if (q >= nq) return;
   uint32_t w[4];
-  quad_bits(w, q, step, (uint32_t)seed[0], (uint32_t)seed[1]);
+  quad_bits(w, quad0 + q, step, (uint32_t)seed[0], (uint32_t)seed[1]);
 #pragma unroll
   for (int j = 0; j < 4; ++j) out[4 * q + j] = w[j];
 }
@@ -246,11 +249,12 @@ unsigned grid_for(long long nq, unsigned resident) {
 
 template <typename T, bool VEC>
 void launch(const void* x, const void* eps, const uint32_t* bits, const long long* seed, void* out,
-            long long n, float ca, float cb, float cn, unsigned step, cudaStream_t s) {
+            long long n, float ca, float cb, float cn, unsigned step, long long quad0,
+            cudaStream_t s) {
   static const unsigned resident = resident_blocks(ancestral_update_kernel<T, VEC>);
   ancestral_update_kernel<T, VEC><<<grid_for((n + 3) / 4, resident), NTHREADS, 0, s>>>(
           static_cast<const T*>(x), static_cast<const T*>(eps), bits, seed, static_cast<T*>(out),
-          n, ca, cb, cn, step);
+          n, ca, cb, cn, step, quad0);
 }
 
 }  // namespace
@@ -258,37 +262,40 @@ void launch(const void* x, const void* eps, const uint32_t* bits, const long lon
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
 // x, eps, out: n contiguous elements of one type, bfloat16 (is_bf16 != 0) or
 // float32, at any alignment of the type; bits: null or 2*n uint32; seed: 2
-// int64 words on the device (read when bits is null), each < 2**32.
+// int64 words on the device (read when bits is null), each < 2**32; quad0:
+// the generator's quad index of x's first element (0 for a whole state).
 extern "C" int ancestral_update_launch(const void* x, const void* eps, const void* bits,
                                        const void* seed, void* out, long long n, float ca,
-                                       float cb, float cn, unsigned step, int is_bf16,
-                                       void* stream) {
-  if (n < 1 || (bits == nullptr && seed == nullptr)) return (int)cudaErrorInvalidValue;
+                                       float cb, float cn, unsigned step, long long quad0,
+                                       int is_bf16, void* stream) {
+  if (n < 1 || quad0 < 0 || (bits == nullptr && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const uint32_t*>(bits);
   const auto* sd = static_cast<const long long*>(seed);
   const bool vec = quads_aligned(x, eps, out, is_bf16);
   if (is_bf16) {
     if (vec)
-      launch<bf16, true>(x, eps, b, sd, out, n, ca, cb, cn, step, s);
+      launch<bf16, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
     else
-      launch<bf16, false>(x, eps, b, sd, out, n, ca, cb, cn, step, s);
+      launch<bf16, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
   } else {
     if (vec)
-      launch<float, true>(x, eps, b, sd, out, n, ca, cb, cn, step, s);
+      launch<float, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
     else
-      launch<float, false>(x, eps, b, sd, out, n, ca, cb, cn, step, s);
+      launch<float, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
   }
   return (int)cudaGetLastError();
 }
 
-// out: 4 * ceil(n / 4) uint32, the words of quads 0, 1, ... in turn.
+// out: 4 * ceil(n / 4) uint32, the words of quads quad0, quad0 + 1, ... in
+// turn.
 extern "C" int philox_bits_launch(const void* seed, void* out, long long n, unsigned step,
-                                  void* stream) {
+                                  long long quad0, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const long long nq = (n + 3) / 4;
   philox_bits_kernel<<<(unsigned)((nq + NTHREADS - 1) / NTHREADS), NTHREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(seed), static_cast<uint32_t*>(out), nq, step);
+      static_cast<const long long*>(seed), static_cast<uint32_t*>(out), nq, step, quad0);
   return (int)cudaGetLastError();
 }

@@ -57,7 +57,8 @@
 // model, tests/torch_port_helpers.py), each primitive has its plain meaning
 // over the emulation's hooks: a per-warp and a per-warpgroup exchange area
 // and barrier (emu_warp_slots, emu_wg_slots, __syncwarp, emu_wg_sync), the
-// shared-memory array smem_raw, and atomics for an mbarrier's phase. wgmma's
+// shared-memory array smem_raw, atomics for an mbarrier's phase, and
+// emu_yield / emu_mbar_waited for its waits. wgmma's
 // host meaning rebuilds A from the 128 threads' fragments and reads B
 // through the descriptor as the layout above says, so a slip in either
 // layout shows on the CPU as well as it can be written down there; the card
@@ -449,16 +450,16 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
 // lanes past the one that issues) can fall two phases behind, where the
 // parity test would never pass again. So each thread counts the phases it
 // has waited through (from -1: a fresh barrier's parity-1 wait passes at
-// once) and waits for the first phase of `parity` at or after them to
-// complete: the same answer for a thread in step, and the right one for a
-// thread behind.
+// once; emu_mbar_waited is the calling CUDA thread's own table) and waits,
+// giving way to the others (emu_yield), for the first phase of `parity` at
+// or after them to complete: the same answer for a thread in step, and the
+// right one for a thread behind.
 inline void mbar_wait(uint64_t* bar, unsigned parity) {
-  thread_local std::unordered_map<const uint64_t*, long long> waited;
-  long long& seen = waited.try_emplace(bar, -1).first->second;
+  long long& seen = emu_mbar_waited().try_emplace(bar, -1).first->second;
   const long long phase = (seen & 1) == (long long)parity ? seen : seen + 1;
   std::atomic_ref<uint64_t> r(*bar);
   // phases completed minus (phase + 1), mod 2^16: not negative once it has
-  while ((((r.load() >> 32) - uint64_t(phase + 1)) & 0xffff) >= 0x8000) std::this_thread::yield();
+  while ((((r.load() >> 32) - uint64_t(phase + 1)) & 0xffff) >= 0x8000) emu_yield();
   seen = phase + 1;
 }
 // a tensor of 2-byte elements, up to 4-D: base, extents (innermost first;

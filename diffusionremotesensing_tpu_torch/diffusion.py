@@ -26,6 +26,16 @@ Noise comes from a ``torch.Generator`` (another stream than JAX's threefry;
 ``ops.fused_update.ancestral_update`` (a CUDA kernel on the card), whose
 in-kernel generator gives another noise stream again: opt-in, as in the
 reference.
+
+A sampler built with ``replicas`` (``DiffusionProcess.sampler(mesh=...)``,
+a ``parallel.Mesh``) splits the batch axis over the mesh: each replica,
+the model on one device, denoises its rows on that device's current
+stream, and the results are gathered (over the mesh's ranks too, by
+``all_gather``). The noise is the whole batch's: the unfused update's is
+drawn for every row from the one generator and each replica takes its
+rows; the fused update's kernel starts each replica's Philox quads where
+its rows start. So a split batch gives the rows one device would give,
+up to the model's own dependence on the batch size (a GEMM's blocking).
 """
 
 from __future__ import annotations
@@ -42,6 +52,11 @@ from diffusionremotesensing_tpu_torch.ops.fused_update import (
     update_coefs,
 )
 from diffusionremotesensing_tpu_torch.ops.s2d import depth_to_space, space_to_depth
+from diffusionremotesensing_tpu_torch.parallel.sharding import (
+    all_gather_rows,
+    global_replicated,
+    split_rows,
+)
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
 
 
@@ -115,6 +130,39 @@ def _eps_fn(apply_fn, encode_cond_fn, prepare_fn, cond, cfg_scale, n):
     return eps
 
 
+class _Shard:
+    """One replica's rows [lo, hi) of a sampler call on ``device``, with
+    the replica's eps function."""
+
+    def __init__(self, hooks: dict, device, lo: int, hi: int, cond, cfg_scale):
+        self.device, self.lo, self.hi = torch.device(device), lo, hi
+        self.eps = _eps_fn(hooks["apply_fn"], hooks.get("encode_cond_fn"),
+                           hooks.get("prepare_fn"), self.rows(cond), cfg_scale, hi - lo)
+
+    def rows(self, x):
+        return None if x is None else x[self.lo:self.hi].to(self.device)
+
+
+def _shards(replicas, own: dict, n: int, device, cond, cfg_scale):
+    """The sampler call's shards: one over every row without replicas;
+    else the rows of this process's replicas (``replicas`` is (mesh,
+    hooks of each local device)) among the mesh's equal slices."""
+    if replicas is None:
+        return [_Shard(own, device, 0, n, cond, cfg_scale)]
+    mesh, hooks = replicas
+    local = len(mesh.devices)
+    slices = split_rows(n, mesh.size)[mesh.rank * local:(mesh.rank + 1) * local]
+    return [_Shard(h, d, lo, hi, cond, cfg_scale)
+            for h, d, (lo, hi) in zip(hooks, mesh.devices, slices)]
+
+
+def _gather(parts, replicas, device):
+    """The shards' rows as one batch on ``device`` (every rank's, in rank
+    order, under a group)."""
+    x = torch.cat([p.to(device) for p in parts])
+    return x if replicas is None else all_gather_rows(x, replicas[0])
+
+
 def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                  cfg_scale: Optional[float] = None,
                  capture_frames: bool = False,
@@ -122,7 +170,8 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                  prepare_fn: Optional[Callable] = None,
                  state_codec: Optional[tuple] = None,
                  fused_update: bool = False,
-                 start_t: Optional[int] = None):
+                 start_t: Optional[int] = None,
+                 replicas: Optional[tuple] = None):
     """Ancestral sampler over t = start_t .. 1 (start_t = T-1 by default).
 
     ``apply_fn(x, t, cond, cond_features, aux, cond_mask=None) -> eps_hat``;
@@ -144,12 +193,16 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
     bits_fn=None) -> x0`` (``noise_fn`` for the unfused update only,
     ``bits_fn`` for the fused one), or ``(x0, frames)`` with
     ``capture_frames``: frames (start_t, B, H, W, C), the state after each
-    step."""
+    step. ``replicas=(mesh, hooks)`` splits the rows over the mesh (module
+    docstring): ``hooks`` holds the apply_fn, encode_cond_fn and prepare_fn
+    of each of the mesh's local devices; every rank passes the whole batch
+    and gets the whole result."""
     T = schedule.noise_steps
     t_start = _start(T, start_t)
     enc, dec = state_codec if state_codec is not None else (None, None)
     coefs = ([update_coefs(schedule, i) if i > 0 else None for i in range(t_start + 1)]
              if fused_update else None)
+    own = dict(apply_fn=apply_fn, encode_cond_fn=encode_cond_fn, prepare_fn=prepare_fn)
 
     @torch.inference_mode()
     def sample(x_T, cond=None, generator=None, noise_fn=None, bits_fn=None):
@@ -158,23 +211,35 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
         if not fused_update and bits_fn is not None:
             raise ValueError("bits_fn applies to the fused update (fused_update=True)")
         n = x_T.shape[0]
-        eps_fn = _eps_fn(apply_fn, encode_cond_fn, prepare_fn, cond, cfg_scale, n)
-        x = enc(x_T) if enc is not None else x_T
-        seed = draw_seed(generator, x.device) if fused_update and bits_fn is None else None
+        shards = _shards(replicas, own, n, x_T.device, cond, cfg_scale)
+        xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
+        state_shape = (n,) + tuple(xs[0].shape[1:])
+        per_row = xs[0][0].numel()
+        seed = draw_seed(generator, x_T.device) if fused_update and bits_fn is None else None
+        if fused_update and any(sh.lo * per_row % 4 for sh in shards):
+            raise ValueError(f"a replica's rows start inside a Philox quad ({per_row} elements "
+                             "a row): the fused update cannot split this state")
         frames = []
         for i in range(t_start, 0, -1):
-            eps_hat = eps_fn(x, torch.full((n,), float(i), device=x.device))
             if fused_update:
-                bits = bits_fn(i, tuple(x.shape)).to(x.device) if bits_fn is not None else None
-                x = ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i], seed, i, bits)
-            else:
-                if i > 1:
-                    z = _noise(noise_fn, generator, i, x_T.shape, x, enc)
+                bits = bits_fn(i, state_shape) if bits_fn is not None else None
+            elif i > 1:
+                z = _noise(noise_fn, generator, i, x_T.shape, x_T, enc)
+            for k, sh in enumerate(shards):
+                x = xs[k]
+                eps_hat = sh.eps(x, torch.full((sh.hi - sh.lo,), float(i), device=sh.device))
+                if fused_update:
+                    b = None if bits is None else bits[:, sh.lo:sh.hi].to(sh.device)
+                    xs[k] = ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i],
+                                             None if seed is None else seed.to(sh.device), i, b,
+                                             quad0=sh.lo * per_row // 4)
                 else:
-                    z = torch.zeros_like(x)
-                x = ddpm_step(schedule, x, eps_hat, i, z)
+                    zk = sh.rows(z) if i > 1 else torch.zeros_like(x)
+                    xs[k] = ddpm_step(schedule, x, eps_hat, i, zk)
             if capture_frames:
+                x = _gather(xs, replicas, x_T.device)
                 frames.append(dec(x) if dec is not None else x)
+        x = _gather(xs, replicas, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x
 
@@ -207,7 +272,8 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
                       prepare_fn: Optional[Callable] = None,
                       state_codec: Optional[tuple] = None,
                       start_t: Optional[int] = None,
-                      capture_frames: bool = False):
+                      capture_frames: bool = False,
+                      replicas: Optional[tuple] = None):
     """DDIM sampler with ``num_steps`` model evaluations over
     :func:`ddim_timesteps`; the last step lands on t_prev = 0, where
     alpha_hat is taken as 1 (so sigma is 0 there at any eta). ``eta > 0``
@@ -221,28 +287,35 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
     taus_prev = np.concatenate([taus[1:], [0]])
     enc, dec = state_codec if state_codec is not None else (None, None)
     one = torch.ones((), dtype=torch.float32)
+    own = dict(apply_fn=apply_fn, encode_cond_fn=encode_cond_fn, prepare_fn=prepare_fn)
 
     @torch.inference_mode()
     def sample(x_T, cond=None, generator=None, noise_fn=None):
         n = x_T.shape[0]
-        eps_fn = _eps_fn(apply_fn, encode_cond_fn, prepare_fn, cond, cfg_scale, n)
-        x = enc(x_T) if enc is not None else x_T
+        shards = _shards(replicas, own, n, x_T.device, cond, cfg_scale)
+        xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
         frames = []
         for t, t_prev in zip(taus.tolist(), taus_prev.tolist()):
-            eps_hat = eps_fn(x, torch.full((n,), float(t), device=x.device))
             ah = schedule.alpha_hat[t]
             ah_prev = schedule.alpha_hat[t_prev] if t_prev > 0 else one
-            x0_pred = (x - float(torch.sqrt(1.0 - ah)) * eps_hat) / float(torch.sqrt(ah))
-            if clip_x0:
-                x0_pred = x0_pred.clamp(0.0, 1.0)
-                eps_hat = (x - float(torch.sqrt(ah)) * x0_pred) / float(torch.sqrt(1.0 - ah))
             sigma = eta * torch.sqrt((1.0 - ah_prev) / (1.0 - ah)) * torch.sqrt(1.0 - ah / ah_prev)
-            dir_xt = float(torch.sqrt(torch.clamp(1.0 - ah_prev - sigma ** 2, min=0.0))) * eps_hat
-            x = float(torch.sqrt(ah_prev)) * x0_pred + dir_xt
+            for k, sh in enumerate(shards):
+                x = xs[k]
+                eps_hat = sh.eps(x, torch.full((sh.hi - sh.lo,), float(t), device=sh.device))
+                x0_pred = (x - float(torch.sqrt(1.0 - ah)) * eps_hat) / float(torch.sqrt(ah))
+                if clip_x0:
+                    x0_pred = x0_pred.clamp(0.0, 1.0)
+                    eps_hat = (x - float(torch.sqrt(ah)) * x0_pred) / float(torch.sqrt(1.0 - ah))
+                dir_xt = (float(torch.sqrt(torch.clamp(1.0 - ah_prev - sigma ** 2, min=0.0)))
+                          * eps_hat)
+                xs[k] = float(torch.sqrt(ah_prev)) * x0_pred + dir_xt
             if float(sigma) > 0.0:
-                x = x + float(sigma) * _noise(noise_fn, generator, t, x_T.shape, x, enc)
+                z = _noise(noise_fn, generator, t, x_T.shape, x_T, enc)
+                xs = [x + float(sigma) * sh.rows(z) for x, sh in zip(xs, shards)]
             if capture_frames:
+                x = _gather(xs, replicas, x_T.device)
                 frames.append(dec(x) if dec is not None else x)
+        x = _gather(xs, replicas, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x
 
@@ -319,35 +392,73 @@ class DiffusionProcess:
                     prepare_fn=self.prepare_fn if self.s2d else None,
                     state_codec=self.state_codec)
 
+    def replica(self, device, k: int = 0) -> "DiffusionProcess":
+        """This process's k-th replica on ``device``: itself for the first on
+        its own device, else a copy whose compute weights and prepared
+        kernels are this one's, moved (cached per device and k). The copy's
+        net shares this net's ``quant_sites``, so a quant map attached later
+        reaches it."""
+        device = _indexed(device)
+        if device == self.device and k == 0:
+            return self
+        reps = self.__dict__.setdefault("_replica_cache", {})
+        if (device, k) not in reps:
+            rep = copy.copy(self)
+            shared = getattr(self.net, "quant_sites", None)
+            rep.net = copy.deepcopy(self.net, {id(shared): shared}).to(device)
+            rep.kernels = _moved(self.kernels, device)
+            rep.device = device
+            rep._samplers, rep._replica_cache = {}, {}
+            reps[(device, k)] = rep
+        return reps[(device, k)]
+
+    def _replicas(self, mesh):
+        """(mesh, the hooks of its local replicas) for the samplers, or None:
+        a device that appears twice in the mesh holds two replicas."""
+        if mesh is None:
+            return None
+        devices = [_indexed(d) for d in mesh.devices]
+        hooks = []
+        for i, d in enumerate(devices):
+            rep = self.replica(d, devices[:i].count(d))
+            h = rep._hooks()
+            del h["state_codec"]
+            hooks.append(dict(apply_fn=rep.apply_fn, **h))
+        return mesh, hooks
+
     def sampler(self, cfg_scale: Optional[float] = None, capture_frames: bool = False,
-                fused_update: bool = False, start_t: Optional[int] = None):
+                fused_update: bool = False, start_t: Optional[int] = None, mesh=None):
         """The ancestral sampler (cached by its options), as
-        :func:`make_sampler`."""
-        key = ("ddpm", cfg_scale, capture_frames, fused_update, start_t)
+        :func:`make_sampler`; with ``mesh`` (a ``parallel.Mesh``) the batch
+        axis split over the mesh's replicas."""
+        key = ("ddpm", cfg_scale, capture_frames, fused_update, start_t) + ((mesh,) if mesh else ())
         if key not in self._samplers:
             self._samplers[key] = make_sampler(
                 self.apply_fn, self.schedule, cfg_scale=cfg_scale, capture_frames=capture_frames,
-                fused_update=fused_update, start_t=start_t, **self._hooks())
+                fused_update=fused_update, start_t=start_t, replicas=self._replicas(mesh),
+                **self._hooks())
         return self._samplers[key]
 
     def ddim_sampler(self, num_steps: int, eta: float = 0.0, cfg_scale: Optional[float] = None,
                      tau_spacing: str = "linear", clip_x0: bool = False,
-                     start_t: Optional[int] = None, capture_frames: bool = False):
+                     start_t: Optional[int] = None, capture_frames: bool = False, mesh=None):
         """The DDIM sampler with ``num_steps`` model evaluations (cached by
-        its options), as :func:`make_ddim_sampler`."""
-        key = ("ddim", num_steps, eta, cfg_scale, tau_spacing, clip_x0, start_t, capture_frames)
+        its options), as :func:`make_ddim_sampler`; ``mesh`` as in
+        :meth:`sampler`."""
+        key = (("ddim", num_steps, eta, cfg_scale, tau_spacing, clip_x0, start_t, capture_frames)
+               + ((mesh,) if mesh else ()))
         if key not in self._samplers:
             self._samplers[key] = make_ddim_sampler(
                 self.apply_fn, self.schedule, num_steps, eta=eta, cfg_scale=cfg_scale,
                 tau_spacing=tau_spacing, clip_x0=clip_x0, start_t=start_t,
-                capture_frames=capture_frames, **self._hooks())
+                capture_frames=capture_frames, replicas=self._replicas(mesh), **self._hooks())
         return self._samplers[key]
 
     def sample(self, n: int, cond=None, cfg_scale: Optional[float] = None,
                capture_frames: bool = False, ddim_steps: Optional[int] = None,
                ddim_eta: float = 0.0, ddim_spacing: str = "linear", ddim_clip_x0: bool = True,
                start_t: Optional[int] = None, init=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, mesh=None):
         """Generate n images, as the reference's ``Process.sample``.
 
         ``cond`` is one condition image (H, W, C) or one label, broadcast to
@@ -355,11 +466,16 @@ class DiffusionProcess:
         sampler with the ``ddim_*`` options; None, the ancestral chain.
         ``start_t`` with ``init`` (a cheap reconstruction, (H, W, C) or n of
         them) q-samples init to t = start_t and runs only the steps below it.
-        Noise comes from ``generator`` (a generator of the process's device)."""
+        Noise comes from ``generator`` (a generator of the process's device).
+        ``mesh``: a call every rank of the mesh's group makes at the same
+        point (the trainer's previews): the generator's state, x_T and cond
+        are rank 0's on every rank, so every rank samples the same images."""
         if (start_t is None) != (init is None):
             raise ValueError("start_t and init go together: truncated sampling needs a "
                              "warm-start image (init) and a truncation point (start_t)")
         dev = self.device
+        if generator is not None:
+            global_replicated(generator, mesh)
         if start_t is not None:
             init = torch.as_tensor(np.asarray(init, np.float32)).to(dev)
             if init.dim() == 3:
@@ -377,6 +493,9 @@ class DiffusionProcess:
                 cond = torch.as_tensor(np.asarray(cond, np.float32)).to(dev)
                 if cond.dim() == 3:
                     cond = cond[None].expand((n,) + tuple(cond.shape))
+        x_T = global_replicated(x_T, mesh)
+        if cond is not None:
+            cond = global_replicated(cond, mesh)
         if ddim_steps is not None:
             fn = self.ddim_sampler(ddim_steps, eta=ddim_eta, cfg_scale=cfg_scale,
                                    tau_spacing=ddim_spacing, clip_x0=ddim_clip_x0,
@@ -384,6 +503,26 @@ class DiffusionProcess:
         else:
             fn = self.sampler(cfg_scale, capture_frames, start_t=start_t)
         return fn(x_T, cond, generator=generator)
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with a CUDA device's index (the current card's if none)."""
+    device = torch.device(device)
+    if device.index is None and device.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _moved(obj, device):
+    """``obj`` (tensors in dicts, lists and tuples) with every tensor on
+    ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _moved(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_moved(v, device) for v in obj)
+    return obj
 
 
 def make_process(model, noise_schedule: str, noise_steps: int, image_size: int,

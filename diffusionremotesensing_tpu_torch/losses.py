@@ -5,7 +5,10 @@ The reference's selection by name ('MSE' | 'MAE' | 'Huber' |
 'MSE+Perceptual_noise'), the last 0.3 * MSE + 0.7 * the MSE of VGG19
 features of the predicted and true noise images. Every loss takes
 ``weights``, a (B,) mask (the loader's ``pad_mask``) that gives wrap-padded
-rows no weight, so a padded final batch has its unpadded loss.
+rows no weight, so a padded final batch has its unpadded loss, and
+``denom``, the weight total to divide by in place of ``weights.sum()``
+(``denom=1`` gives the weighted sum: the share of one rank's rows in a
+global batch's loss, which the trainer divides by the global total).
 
 :class:`VGG19Features` is torchvision's ``vgg19().features`` stack with its
 layer indices, so that stack's ``state_dict()`` (keys '0.weight', '2.weight',
@@ -28,30 +31,34 @@ __all__ = ["make_loss_fn", "VGG19Features", "vgg19_features_state", "vgg_percept
            "mse", "mae", "huber"]
 
 
-def _reduce(per_elem: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+def _reduce(per_elem: torch.Tensor, weights: Optional[torch.Tensor],
+            denom: Optional[float] = None) -> torch.Tensor:
     """The mean, or with ``weights`` (B,) the weighted mean of the
-    per-sample means."""
-    if weights is None:
+    per-sample means; with ``denom``, the weighted sum of the per-sample
+    means over ``denom`` (weights of 1 when none are given)."""
+    if weights is None and denom is None:
         return per_elem.mean()
     per_sample = per_elem.reshape(per_elem.shape[0], -1).mean(1)
-    return (per_sample * weights).sum() / weights.sum()
+    if weights is None:
+        return per_sample.sum() / denom
+    return (per_sample * weights).sum() / (weights.sum() if denom is None else denom)
 
 
-def mse(pred, target, weights=None):
-    return _reduce((pred - target) ** 2, weights)
+def mse(pred, target, weights=None, denom=None):
+    return _reduce((pred - target) ** 2, weights, denom)
 
 
-def mae(pred, target, weights=None):
-    return _reduce((pred - target).abs(), weights)
+def mae(pred, target, weights=None, denom=None):
+    return _reduce((pred - target).abs(), weights, denom)
 
 
-def huber(pred, target, delta: float = 1.0, weights=None):
+def huber(pred, target, delta: float = 1.0, weights=None, denom=None):
     """torch ``nn.HuberLoss(delta=1.0)`` semantics."""
     err = pred - target
     abs_err = err.abs()
     quad = 0.5 * err ** 2
     lin = delta * (abs_err - 0.5 * delta)
-    return _reduce(torch.where(abs_err <= delta, quad, lin), weights)
+    return _reduce(torch.where(abs_err <= delta, quad, lin), weights, denom)
 
 
 # torchvision's vgg19.features: (width, convs) per block, each block's convs
@@ -109,8 +116,8 @@ def vgg_perceptual_loss_fn(vgg: VGG19Features) -> Callable:
         std = torch.tensor(_IMAGENET_STD, device=img.device)
         return ((img - mean) / std).permute(0, 3, 1, 2)
 
-    def loss(pred, target, weights=None):
-        return _reduce((vgg(preprocess(pred)) - vgg(preprocess(target))) ** 2, weights)
+    def loss(pred, target, weights=None, denom=None):
+        return _reduce((vgg(preprocess(pred)) - vgg(preprocess(target))) ** 2, weights, denom)
 
     return loss
 
@@ -129,9 +136,10 @@ def make_loss_fn(name: str, vgg: Optional[VGG19Features] = None) -> Callable:
             raise ValueError("MSE+Perceptual_noise needs the VGG19 features (vgg=)")
         perceptual = vgg_perceptual_loss_fn(vgg)
 
-        def combined(pred, target, weights=None):
+        def combined(pred, target, weights=None, denom=None):
             # CombinedLoss(weight_first=0.3): 0.3 * MSE + 0.7 * perceptual
-            return 0.3 * mse(pred, target, weights) + 0.7 * perceptual(pred, target, weights)
+            return (0.3 * mse(pred, target, weights, denom)
+                    + 0.7 * perceptual(pred, target, weights, denom))
 
         return combined
     raise ValueError("The Loss must be either MSE or MAE or Huber or MSE+Perceptual_noise")

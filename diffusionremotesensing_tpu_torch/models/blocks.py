@@ -16,6 +16,8 @@ parameter count.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -80,14 +82,46 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tens
     bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
 
 
+_STATS_GROUP = None  # the process group train-mode statistics are reduced over
+
+
+@contextlib.contextmanager
+def global_batch_statistics(group):
+    """Within the block, train-mode BatchNorm (:func:`bn_train` and the s2d
+    path's, through :func:`batch_moments`) takes its statistics over the
+    global batch that ``group``'s ranks hold in equal shares, as the JAX
+    package's sharded step does (SyncBN); ``group=None`` keeps them local."""
+    global _STATS_GROUP
+    prev, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = prev
+
+
+def batch_moments(xf: torch.Tensor, dims):
+    """E[x] and E[x^2] of the float32 ``xf`` over ``dims``. Under
+    :func:`global_batch_statistics` the per-channel sums are all-reduced over
+    the group first, by the autograd-aware collective, so that the backward
+    carries each rank's share of the gradient through the global statistics
+    to every rank, as the global batch's gradient does."""
+    if _STATS_GROUP is None:
+        return xf.mean(dims), xf.square().mean(dims)
+    from torch.distributed.nn.functional import all_reduce
+
+    sums = torch.stack([xf.sum(dims), xf.square().sum(dims)])
+    n = xf.numel() // sums[0].numel() * torch.distributed.get_world_size(_STATS_GROUP)
+    sums = all_reduce(sums, group=_STATS_GROUP)
+    return sums[0] / n, sums[1] / n
+
+
 def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train-mode BatchNorm as flax computes it, NCHW: the batch mean and
     biased variance over (N, H, W) in float32 (E[x^2] - E[x]^2, clamped at
-    0), normalised by :func:`_bn_f32`; the running statistics move by
-    :func:`update_running_stats`."""
-    xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+    0; :func:`batch_moments`), normalised by :func:`_bn_f32`; the running
+    statistics move by :func:`update_running_stats`."""
+    mean, mean_sq = batch_moments(x.float(), (0, 2, 3))
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
     update_running_stats(bn, mean, var)
     return _bn_f32(x, mean, var, bn)
 

@@ -99,6 +99,7 @@ from diffusionremotesensing_tpu_torch.models.blocks import (
     ResConvBlock,
     TorchConv,
     UpConvBlock,
+    batch_moments,
     batch_norm,
     sinusoidal_time_embedding,
     update_running_stats,
@@ -525,8 +526,8 @@ class ResidualAttentionUNet(nn.Module):
         ``models.blocks.update_running_stats`` moves them."""
         dt, c = h.dtype, bn.num_features
         hr = h.float().reshape(-1, c)  # s2d channels are tap-major: (4, c) a pixel
-        mean = hr.mean(0)
-        var = hr.square().mean(0) - mean.square()
+        mean, mean_sq = batch_moments(hr, 0)
+        var = mean_sq - mean.square()
         update_running_stats(bn, mean, var)
         n = 4 if taps else 1
         return ((h - mean.repeat(n).to(dt)) * torch.rsqrt(var.repeat(n).to(dt) + bn.eps)

@@ -8,7 +8,9 @@ with z ~ N(0, 1) i.i.d. by Box-Muller on two uint32 words a draw, through
 the reference's mantissa map (``0x3F800000 | (b >> 9)`` read as float32 is
 uniform in [1, 2)). The words come from a Philox4x32-10 generator keyed by
 two seed words; its counter holds the quad index and the step, and one
-call gives the four words of four neighbouring elements: each word pair
+call gives the four words of four neighbouring elements (``quad0`` starts
+the quad index of a slice where the slice starts in the whole state, so
+that a chunk split over devices draws the whole chunk's noise): each word pair
 (w0, w1) and (w2, w3) gives both of its Box-Muller outputs, r cos and
 r sin (``csrc/ancestral_update.cu`` states the layout). Given ``bits`` (two
 planes shaped like x, uint32 viewed as int32) replace the generator, as
@@ -86,12 +88,12 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_bits_plain(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
+def philox_bits_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
     """The generator's words for elements [0, n) at ``step``, by quad:
     (ceil(n / 4), 4) int64 in [0, 2**32), row q the four words of elements
-    4q .. 4q + 3, from counter (q low, q high, step, 0). seed: (2,) int64
-    words."""
-    q = torch.arange((n + 3) // 4, dtype=torch.int64, device=seed.device)
+    4q .. 4q + 3, from counter (quad0 + q low, high, step, 0). seed: (2,)
+    int64 words."""
+    q = torch.arange(quad0, quad0 + (n + 3) // 4, dtype=torch.int64, device=seed.device)
     key = seed.to(torch.int64) & _MASK
     words = philox4x32_10(q & _MASK, q >> 32, torch.full_like(q, step & _MASK),
                           torch.zeros_like(q), key[0], key[1])
@@ -121,11 +123,12 @@ def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return box_muller(b1, b2)[0]
 
 
-def philox_normal_plain(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
+def philox_normal_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
     """The noise of elements [0, n) at ``step``, float32 (n,): quad q's
     words (w0, w1, w2, w3) give z[4q], z[4q + 1] as (w0, w1)'s cos and sin
-    outputs and z[4q + 2], z[4q + 3] as (w2, w3)'s."""
-    w = philox_bits_plain(seed, step, n)
+    outputs and z[4q + 2], z[4q + 3] as (w2, w3)'s; the quads counted from
+    ``quad0``."""
+    w = philox_bits_plain(seed, step, n, quad0)
     c01, s01 = box_muller(w[:, 0], w[:, 1])
     c23, s23 = box_muller(w[:, 2], w[:, 3])
     return torch.stack([c01, s01, c23, s23], dim=1).reshape(-1)[:n]
@@ -133,11 +136,12 @@ def philox_normal_plain(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
 
 def ancestral_update_plain(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
                            seed: Optional[torch.Tensor], step: int,
-                           bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           bits: Optional[torch.Tensor] = None,
+                           quad0: int = 0) -> torch.Tensor:
     """The update in ``torch`` ops, float32 math, output in x's dtype."""
     n = x.numel()
     if bits is None:
-        z = philox_normal_plain(seed, step, n)
+        z = philox_normal_plain(seed, step, n, quad0)
     else:
         b = bits.reshape(2, n).to(torch.int64) & _MASK
         z = bits_to_normal(b[0], b[1])
@@ -151,10 +155,10 @@ def _library():
     lib = cuda_build.load("ancestral_update")
     lib.ancestral_update_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_float] * 3
-        + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.ancestral_update_launch.restype = ctypes.c_int
     lib.philox_bits_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                       ctypes.c_uint, ctypes.c_void_p]
+                                       ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p]
     lib.philox_bits_launch.restype = ctypes.c_int
     return lib
 
@@ -189,15 +193,18 @@ def _stream(device):
 
 def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
                      seed: Optional[torch.Tensor], step: int,
-                     bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bits: Optional[torch.Tensor] = None, quad0: int = 0) -> torch.Tensor:
     """x' = ca*x - cb*eps + cn*z. CUDA tensors launch
     ``csrc/ancestral_update.cu`` (each launch adds one to
     ``ancestral_update.launches``); CPU tensors run
     :func:`ancestral_update_plain`. coefs from :func:`update_coefs`; seed
     from :func:`draw_seed` (unused when bits are given); step the sampler's
-    step index, which enters the generator's counter."""
+    step index, which enters the generator's counter; quad0 the quad index
+    of x's first element in the whole state (x a slice of it)."""
+    if quad0 < 0:
+        raise ValueError(f"ancestral_update: quad0 must be >= 0, got {quad0}")
     if x.device.type == "cpu":
-        return ancestral_update_plain(x, eps, coefs, seed, step, bits)
+        return ancestral_update_plain(x, eps, coefs, seed, step, bits, quad0)
     if x.device.type != "cuda":
         raise ValueError(f"ancestral_update runs on cuda or cpu tensors, got {x.device}")
     _check(x, eps, seed, bits)
@@ -207,7 +214,7 @@ def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
         rc = _library().ancestral_update_launch(
             x.data_ptr(), eps.data_ptr(), None if bits is None else bits.data_ptr(),
             None if seed is None else seed.data_ptr(), out.data_ptr(), x.numel(), ca, cb, cn,
-            step & 0xFFFFFFFF, int(x.dtype == torch.bfloat16), _stream(x.device))
+            step & 0xFFFFFFFF, int(quad0), int(x.dtype == torch.bfloat16), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"ancestral_update launch failed with CUDA error {rc}")
     with _COUNT_LOCK:
@@ -218,18 +225,19 @@ def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
 ancestral_update.launches = 0
 
 
-def philox_bits(seed: torch.Tensor, step: int, n: int) -> torch.Tensor:
+def philox_bits(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
     """The words :func:`ancestral_update` draws for elements [0, n) at
-    ``step``, by quad as (ceil(n / 4), 4) int64 in [0, 2**32): from the
-    kernel's own generator for a CUDA seed, from :func:`philox_bits_plain`
-    for a CPU one. For checking the generator; the sampler never calls it."""
+    ``step`` (the quads counted from ``quad0``), by quad as (ceil(n / 4), 4)
+    int64 in [0, 2**32): from the kernel's own generator for a CUDA seed,
+    from :func:`philox_bits_plain` for a CPU one. For checking the
+    generator; the sampler never calls it."""
     if seed.device.type == "cpu":
-        return philox_bits_plain(seed, step, n)
+        return philox_bits_plain(seed, step, n, quad0)
     _check_seed(seed, seed.device)
     out = torch.empty(((n + 3) // 4, 4), dtype=torch.int32, device=seed.device)
     with torch.cuda.device(seed.device):
         rc = _library().philox_bits_launch(seed.data_ptr(), out.data_ptr(), n,
-                                           step & 0xFFFFFFFF, _stream(seed.device))
+                                           step & 0xFFFFFFFF, int(quad0), _stream(seed.device))
     if rc != 0:
         raise RuntimeError(f"philox_bits launch failed with CUDA error {rc}")
     return out.to(torch.int64) & _MASK

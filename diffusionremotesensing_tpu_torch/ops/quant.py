@@ -69,24 +69,39 @@ class QuantSites:
     reference's ``"quant"`` variable collection and ``module_amax``):
     ``scales`` maps site names to calibrated activation amaxes (None: no
     quant map, every site exact); ``calib`` collects each site's max|x|
-    during a calibration pass (None outside one)."""
+    during a calibration pass (None outside one). A model's replicas on
+    other devices (``DiffusionProcess.replica``) share this object, so a
+    quant map attached to the model reaches them too: each device reads its
+    own copy of the scales, made on its first read after the map changed."""
 
     def __init__(self):
-        self.scales: Optional[Dict[str, torch.Tensor]] = None
+        self.scales = None
         self.calib: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def scales(self) -> Optional[Dict[str, torch.Tensor]]:
+        return self._scales
+
+    @scales.setter
+    def scales(self, qmap: Optional[Dict[str, torch.Tensor]]):
+        self._scales = qmap
+        self._on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
     def amax(self, name: str, x: torch.Tensor) -> Optional[torch.Tensor]:
         """During calibration record max|x| under ``name`` (merged by
         maximum) and return None, so the caller runs the exact conv; with
-        a quant map, the site's scale (None if it has none); else None."""
+        a quant map, the site's scale on ``x``'s device (None if it has
+        none); else None."""
         if self.calib is not None:
             a = abs_max(x)
             prev = self.calib.get(name)
-            self.calib[name] = a if prev is None else torch.maximum(prev, a)
+            self.calib[name] = a if prev is None else torch.maximum(prev, a.to(prev.device))
             return None
-        if self.scales is not None:
-            return self.scales.get(name)
-        return None
+        if self._scales is None:
+            return None
+        if x.device not in self._on_device:
+            self._on_device[x.device] = {k: v.to(x.device) for k, v in self._scales.items()}
+        return self._on_device[x.device].get(name)
 
 
 def weight_qparams(w: torch.Tensor):

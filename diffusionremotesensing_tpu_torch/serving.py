@@ -139,13 +139,17 @@ class InferenceServer:
     dtype). ``ddim_steps=None`` serves the reference's ancestral DDPM chain,
     with ``fused_update=True`` (a port option, as AggregationSampler's) each
     step's update one ``ancestral_update`` call. ``start_t`` (superres only)
-    truncates the chain to a warm start from the bicubic upsample."""
+    truncates the chain to a warm start from the bicubic upsample. ``mesh``
+    (``parallel.make_mesh``, the CLI's ``--data_parallel``) replicates the
+    model onto the mesh's devices and splits each micro-batch and each
+    tile's chunks over them, collective-free; ``max_batch`` divides over
+    the mesh size."""
 
     def __init__(self, model, noise_schedule: str, noise_steps: int, image_size: int,
                  task: str = "superres", max_batch: int = 8, max_wait_ms: float = 10.0,
                  ddim_steps: Optional[int] = None, ddim_clip_x0: bool = True, seed: int = 0,
                  dtype: Optional[torch.dtype] = None, device="cuda",
-                 start_t: Optional[int] = None, fused_update: bool = False):
+                 start_t: Optional[int] = None, fused_update: bool = False, mesh=None):
         if task not in TASKS:
             raise ValueError(f"task must be one of {tuple(TASKS)}, got {task!r}")
         if model.conditioning != TASKS[task]:
@@ -159,7 +163,11 @@ class InferenceServer:
         if fused_update and ddim_steps is not None:
             raise ValueError("fused_update applies only to DDPM ancestral sampling; "
                              "it has no effect under ddim_steps: drop one of the two")
-        self.device = resolve_device(device)
+        if mesh is not None and max_batch % mesh.size:
+            raise ValueError(f"max_batch ({max_batch}) must be divisible by the mesh size "
+                             f"({mesh.size}) so every device gets an equal micro-batch shard")
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.mesh = mesh
         self.task = task
         self.image_size = image_size
         self.model = model.to(self.device)
@@ -172,9 +180,11 @@ class InferenceServer:
         cfg = CFG_SCALE if task == "generation" else None
         if ddim_steps is not None:
             self._sampler = self.process.ddim_sampler(ddim_steps, cfg_scale=cfg,
-                                                      clip_x0=ddim_clip_x0, start_t=start_t)
+                                                      clip_x0=ddim_clip_x0, start_t=start_t,
+                                                      mesh=mesh)
         else:
-            self._sampler = self.process.sampler(cfg, start_t=start_t, fused_update=fused_update)
+            self._sampler = self.process.sampler(cfg, start_t=start_t, fused_update=fused_update,
+                                                 mesh=mesh)
         self._seeds = np.random.SeedSequence(seed)
         self._lock = threading.Lock()
         self._tile_lock = threading.Lock()
@@ -300,7 +310,7 @@ class InferenceServer:
                     self.process, patch_size=p, stride=p // 2,
                     magnification_factor=self.model.magnification_factor,
                     ddim_steps=self._ddim_steps, ddim_clip_x0=self._ddim_clip_x0,
-                    fused_update=self._fused_update, start_t=self._start_t)
+                    fused_update=self._fused_update, start_t=self._start_t, mesh=self.mesh)
             return self._agg.sample_tiles(imgs, generator=self._next_generator(),
                                           device=self.device)
 

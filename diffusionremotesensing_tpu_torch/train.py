@@ -29,9 +29,23 @@ DownBlur, ``data.device_degradation``).
 
 t and the noise come from a ``torch.Generator`` on the trainer's device
 seeded with ``seed`` (another stream than the reference's keys);
-``train_step`` takes them explicitly too. One process, one device: a mesh
-or a multi-process run (``parallel/``) and the Orbax checkpoint format wait
-for later ports and raise.
+``train_step`` takes them explicitly too.
+
+Data parallelism (``mesh=parallel.make_mesh()``, one process per device,
+started by torchrun; ``parallel.sharding``): every rank starts from rank
+0's weights, loads its shard and steps on its slice of the global batch.
+Each rank draws t and the noise for the whole global batch from the
+generator every rank seeds alike and takes its rows, BatchNorm takes the
+global batch's statistics, and each rank's gradient of its rows' weighted
+loss sum is summed over the group with the loss sum and the valid count
+(``pad_mask``'s) and divided by that count: the step of the global batch
+in one process, which the JAX package's sharded step computes. Adam and
+the EMA then run alike on every rank. Only rank 0 writes snapshots and
+metrics; a stop requested on any rank stops every rank after the same
+epoch (an all-reduce of the flags at one point of each epoch); previews
+sample alike on every rank from rank 0's noise. A (data, model) mesh
+(``parallel.tensor``) trains over its data axis. The Orbax checkpoint
+format waits for its port and raises.
 """
 
 from __future__ import annotations
@@ -45,11 +59,15 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffusionremotesensing_tpu_torch.diffusion import make_process, q_sample, sample_timesteps
 from diffusionremotesensing_tpu_torch.ema import EMA_BETA, EMA_WARMUP_STEPS, ema_update
 from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot
 from diffusionremotesensing_tpu_torch.losses import VGG19Features, make_loss_fn
+from diffusionremotesensing_tpu_torch.models.blocks import global_batch_statistics
+from diffusionremotesensing_tpu_torch.parallel.sharding import is_main_process, replicated_sharding
+from diffusionremotesensing_tpu_torch.parallel.tensor import sum_split_grads
 from diffusionremotesensing_tpu_torch.profiling import MetricsLogger
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
 from diffusionremotesensing_tpu_torch.utils import resolve_device
@@ -76,7 +94,10 @@ class Trainer:
 
     ``model`` is a ``ResidualAttentionUNet``; it trains in its compute dtype
     (``compute_dtype``) with ``s2d_train`` as it says, on ``device``
-    (``cuda`` unless the caller asks for the CPU). Batches are dicts of
+    (``cuda`` unless the caller asks for the CPU), or with ``mesh`` (a
+    ``parallel.Mesh`` of this process's one device, or a (data, model)
+    mesh of ``parallel.tensor``) on the mesh's device, data-parallel over
+    its group. Batches are dicts of
     NHWC arrays: 'x' the clean target, optionally 'cond' (image or labels),
     'cond_mask' and 'pad_mask', or 'hr_u8' for ``batch_transform``.
     ``vgg`` is the perceptual loss's ``losses.VGG19Features`` (its weights
@@ -105,12 +126,13 @@ class Trainer:
         steps_per_dispatch: int = 1,
         device="cuda",
     ):
-        if mesh is not None or (torch.distributed.is_available()
-                                and torch.distributed.is_initialized()
-                                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "a mesh or multi-process run needs the port of parallel/ (ROADMAP, Queue 1); "
-                "this trainer runs one process on one device")
+        self.mesh = getattr(mesh, "data", mesh)  # a (data, model) mesh: its data axis
+        if self.mesh is not None and len(self.mesh.devices) != 1:
+            raise ValueError(
+                f"a trainer runs one process per device, got a mesh of {len(self.mesh.devices)} "
+                "devices in this process: start one process a device (torchrun "
+                "--nproc_per_node=N) and give each make_mesh(), its own device")
+        self._group = None if self.mesh is None else self.mesh.group
         if checkpoint_backend == "orbax":
             raise NotImplementedError(
                 "checkpoint_backend='orbax' is a JAX format the port does not write (ROADMAP, "
@@ -119,7 +141,7 @@ class Trainer:
             raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r}")
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(self.mesh.device if self.mesh is not None else device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.noise_schedule, self.beta_start, self.beta_end = noise_schedule, beta_start, beta_end
         self.noise_steps = noise_steps
@@ -154,7 +176,7 @@ class Trainer:
                   "pretrained features.")
             vgg = VGG19Features(seed)
         self.loss_fn = make_loss_fn(loss, None if vgg is None else vgg.to(self.device))
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if is_main_process() else None)
         self._stop_requested = False
 
     # ------------------------------------------------------------------ state
@@ -174,7 +196,18 @@ class Trainer:
         the parameters."""
         if variables is not None:
             self.model.load_state_dict(variables, strict=True)
+        self._broadcast_weights(self.model)
         return TrainState(self.model, self._optimizer(self.model), self._ema_copy(self.model))
+
+    def _broadcast_weights(self, model) -> None:
+        """Under a group: every rank takes rank 0's parameters and BatchNorm
+        statistics."""
+        if self._group is None:
+            return
+        group, src = replicated_sharding(self.mesh)
+        with torch.no_grad():
+            for v in model.state_dict().values():
+                dist.broadcast(v, src=src, group=group)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
         """Resume from the snapshot when it exists: its weights and BatchNorm
@@ -183,10 +216,12 @@ class Trainer:
         if self.snapshot_path and os.path.exists(self.snapshot_path):
             variables, epochs_run = load_snapshot(self.snapshot_path)
             state.model.load_state_dict(variables, strict=True)
+            self._broadcast_weights(state.model)
             state.optimizer = self._optimizer(state.model)
             state.ema_params = self._ema_copy(state.model)
             self.epochs_run = epochs_run
-            print(f"Resuming training from snapshot at Epoch {epochs_run}")
+            if is_main_process():
+                print(f"Resuming training from snapshot at Epoch {epochs_run}")
         return state
 
     def ema_model(self, state: TrainState) -> torch.nn.Module:
@@ -202,35 +237,74 @@ class Trainer:
 
     def save_snapshot(self, state: TrainState, epoch: int) -> None:
         """The EMA parameters (the online ones without EMA) with the online
-        BatchNorm statistics, in the reference package's msgpack format."""
-        if not self.snapshot_path:
+        BatchNorm statistics, in the reference package's msgpack format,
+        written by rank 0 alone."""
+        if not self.snapshot_path or not is_main_process():
             return
         save_snapshot(self.snapshot_path, self.ema_model(state), epoch)
         print(f"Epoch {epoch} | Training snapshot saved at {self.snapshot_path}")
 
     # ------------------------------------------------------------------ steps
 
+    def _draw(self, x0: torch.Tensor, t: Optional[torch.Tensor],
+              noise: Optional[torch.Tensor]):
+        """t and the noise of the batch x0 where not given: drawn for the
+        global batch (the ranks' equal shares in rank order) and this rank's
+        rows taken, so that every rank's generator stays in step."""
+        b = x0.shape[0]
+        n, lo = (b * self.mesh.world, b * self.mesh.rank) if self._group is not None else (b, 0)
+        if t is None:
+            t = sample_timesteps(self.generator, n, self.noise_steps, self.device)[lo:lo + b]
+        if noise is None:
+            noise = torch.randn((n,) + tuple(x0.shape[1:]), generator=self.generator,
+                                device=self.device)[lo:lo + b]
+        return t, noise
+
+    def _reduce_share(self, share: torch.Tensor, weights: Optional[torch.Tensor], rows: int,
+                      grads: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """Under a group: the global batch's loss from this rank's ``share``
+        (its rows' weighted loss sum) over the summed valid count, and with
+        ``grads`` (this rank's gradients of its share) the global gradient
+        in place, in one all-reduce."""
+        count = (weights.sum() if weights is not None
+                 else torch.tensor(float(rows), device=share.device))
+        parts = [g.reshape(-1) for g in grads or []]
+        flat = torch.cat(parts + [share.detach().reshape(1).float(), count.reshape(1).float()])
+        dist.all_reduce(flat, group=self._group)
+        total = flat[-1]
+        if grads:
+            torch._foreach_copy_(grads, [g.view_as(p) for g, p in zip(
+                torch.split(flat[:-2] / total, [g.numel() for g in grads]), grads)])
+        return flat[-2] / total
+
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One optimizer step on a device batch; t and the noise drawn from
-        the trainer's generator unless given. Returns the loss (a device
-        scalar; reading it waits for the step)."""
+        """One optimizer step on a device batch (this rank's rows of the
+        global batch under a group); t and the noise drawn from the
+        trainer's generator unless given (then this rank's rows). Returns the
+        loss (of the global batch; a device scalar, reading it waits for the
+        step)."""
         model = state.model
         x0 = batch["x"]
-        if t is None:
-            t = sample_timesteps(self.generator, x0.shape[0], self.noise_steps, self.device)
-        if noise is None:
-            noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        t, noise = self._draw(x0, t, noise)
         x_t = q_sample(self.schedule, x0, t, noise)
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(x_t, t, batch.get("cond"), batch.get("cond_mask"), train=True)
-        loss = self.loss_fn(out, noise, weights=batch.get("pad_mask"))
-        loss.backward()
+        with global_batch_statistics(self._group):
+            out = model(x_t, t, batch.get("cond"), batch.get("cond_mask"), train=True)
         params = list(model.parameters())
+        weights = batch.get("pad_mask")
+        # under a group: this rank's weighted loss sum, divided by the global
+        # count once the gradients are summed
+        loss = self.loss_fn(out, noise, weights=weights,
+                            **({} if self._group is None else {"denom": 1.0}))
+        loss.backward()
         for p in params:
             if p.grad is None:  # a skip conv the forward does not use
                 p.grad = torch.zeros_like(p)
+        sum_split_grads(model)
+        if self._group is not None:
+            loss = self._reduce_share(loss, weights, x0.shape[0], [p.grad for p in params])
         state.optimizer.step()
         if state.ema_params is not None:
             ema_update(state.ema_params, params, state.step, EMA_BETA, EMA_WARMUP_STEPS)
@@ -241,16 +315,18 @@ class Trainer:
     def val_step(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor],
                  t: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The loss of ``model`` (``ema_model(state)``) on a device batch,
-        BatchNorms on their running statistics."""
+        """The loss of ``model`` (``ema_model(state)``) on a device batch (of
+        the global batch under a group), BatchNorms on their running
+        statistics."""
         x0 = batch["x"]
-        if t is None:
-            t = sample_timesteps(self.generator, x0.shape[0], self.noise_steps, self.device)
-        if noise is None:
-            noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        t, noise = self._draw(x0, t, noise)
         out = model(q_sample(self.schedule, x0, t, noise), t, batch.get("cond"),
                     batch.get("cond_mask"), train=False)
-        return self.loss_fn(out, noise, weights=batch.get("pad_mask"))
+        weights = batch.get("pad_mask")
+        if self._group is None:
+            return self.loss_fn(out, noise, weights=weights)
+        return self._reduce_share(self.loss_fn(out, noise, weights=weights, denom=1.0), weights,
+                                  x0.shape[0])
 
     def _prep_batch(self, batch: Dict[str, np.ndarray], train: bool = True,
                     device: bool = True) -> Dict:
@@ -279,15 +355,30 @@ class Trainer:
               check_preds_epoch: int = 20, patience: int = 10, verbose: bool = True,
               on_preview: Optional[Callable[[TrainState, int], None]] = None) -> TrainState:
         """The reference's epoch loop (module docstring). On SIGTERM or
-        SIGINT it finishes the batch in hand, snapshots and returns."""
+        SIGINT it finishes the batch in hand (under a group: the epoch, as
+        every step is a collective every rank enters), snapshots and
+        returns."""
         self._stop_requested = False
+        multiproc = self._group is not None
+        main = is_main_process()
 
         def _on_signal(signum, frame):
             self._stop_requested = True
             # os.write, not print: the handler may interrupt a print that
             # holds stdout's lock
-            os.write(2, f"signal {signum}: will snapshot and stop at the next batch "
-                        "boundary\n".encode())
+            os.write(2, f"signal {signum}: will snapshot and stop at the next "
+                        f"{'epoch' if multiproc else 'batch'} boundary\n".encode())
+
+        def _stop_agreed() -> bool:
+            # under a group every rank reaches this point once an epoch and
+            # takes the MAX of the flags: one rank's stop stops them all
+            # after the same epoch (its local flag alone would send it into
+            # the snapshot while the others enter the next step)
+            if not multiproc:
+                return self._stop_requested
+            flag = torch.tensor([float(self._stop_requested)], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+            return bool(flag.item())
 
         old_handlers = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -324,7 +415,7 @@ class Trainer:
                     pend.clear()
 
                 for batch in train_loader:
-                    if self._stop_requested:
+                    if self._stop_requested and not multiproc:
                         interrupted = epoch_cut_short = True
                         break
                     if spd > 1:
@@ -341,7 +432,7 @@ class Trainer:
                 _flush()
                 running = float(torch.stack(losses).mean()) if losses else 0.0
                 sps = len(losses) / max(time.time() - t0, 1e-9)
-                if verbose:
+                if verbose and main:
                     tag = " [partial epoch]" if epoch_cut_short else ""
                     print(f"Epoch {epoch}: Running Train ({self.loss_name}) {running:.6f}  "
                           f"[{sps:.2f} steps/s]{tag}")
@@ -349,14 +440,16 @@ class Trainer:
                 self.metrics.log(epoch=epoch, train_loss=running, steps_per_sec=sps,
                                  step=state.step, **extra)
 
-                if self._stop_requested:
+                if _stop_agreed():
                     interrupted = True
                     self.save_snapshot(state, epoch)
-                    if verbose:
+                    if verbose and main:
                         print(f"Epoch {epoch}: interrupted — snapshot saved, stopping")
                     break
 
                 if epoch % check_preds_epoch == 0:
+                    # every rank: a preview samples on every rank alike
+                    # (its writes are the caller's, rank-0-gated)
                     if val_loader is None:
                         self.save_snapshot(state, epoch)
                     if on_preview is not None:
@@ -367,7 +460,7 @@ class Trainer:
                     val_losses = [self.val_step(model, self._prep_batch(b, train=False))
                                   for b in val_loader]
                     running_val = float(torch.stack(val_losses).mean()) if val_losses else 0.0
-                    if verbose:
+                    if verbose and main:
                         print(f"Epoch {epoch}: Running Val loss ({self.loss_name}) "
                               f"{running_val:.6f}")
                     self.metrics.log(epoch=epoch, val_loss=running_val)
@@ -378,15 +471,16 @@ class Trainer:
                     else:
                         epochs_without_improving += 1
                     if epochs_without_improving >= patience:
-                        print("Early stopping! Training stopped")
+                        if main:
+                            print("Early stopping! Training stopped")
                         break
-                if verbose:
+                if verbose and main:
                     print("Epochs without improving: ", epochs_without_improving)
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
             self._stop_requested = False
-        if interrupted and verbose:
+        if interrupted and verbose and main:
             print("Training stopped by signal; snapshot is durable — rerun to resume")
         return state
 
@@ -403,10 +497,11 @@ class Trainer:
         """Sample n images with the EMA weights (the online ones without EMA)
         through the ancestral chain (``DiffusionProcess.sample``; ``kwargs``
         such as ``ddim_steps`` go to it), in the model's compute dtype;
-        noise from ``generator``, else the trainer's."""
+        noise from ``generator``, else the trainer's. Under a group every
+        rank calls it at the same point and gets rank 0's images."""
         process = make_process(self.ema_model(state), self.noise_schedule, self.noise_steps,
                                self.image_size, beta_start=self.beta_start,
                                beta_end=self.beta_end)
         return process.sample(n, cond, cfg_scale=cfg_scale, capture_frames=capture_frames,
                               generator=generator if generator is not None else self.generator,
-                              **kwargs)
+                              mesh=self.mesh, **kwargs)

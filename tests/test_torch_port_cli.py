@@ -4,7 +4,8 @@ defaults are its reference script's (read from the scripts' source with
 ast, never imported); aggregation on a small PNG equals AggregationSampler,
 directory mode too; serve answers over HTTP what infer_batch answers; the
 three trainers run an epoch, write a snapshot and resume; and what is not
-ported, or not present, raises."""
+ported, or not present, raises. The parallel flags (--multiple_gpus,
+--data_parallel) are held in tests/test_torch_port_parallel_split.py."""
 
 import ast
 import base64
@@ -223,13 +224,7 @@ def test_what_is_not_ported_or_present_raises(snapshot_dir, monkeypatch):
                       "--img_lr_path", "x.png", "--destination_path", "y.png"])
         with pytest.raises(RuntimeError, match="cuda"):
             cli.build_server(cli.parse_args(["serve", "--snapshot_path", snap]))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(["aggregation", *AGG, "--multiple_gpus", "--img_lr_path", "x.png"])
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.build_server(cli.parse_args([*SERVE, "--snapshot_path", snap, "--data_parallel"]))
     monkeypatch.setenv("DRS_FORCE_CPU", "1")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(["superres", "--model_name", "m", "--multiple_gpus", "true"])
     with pytest.raises(NotImplementedError, match="Orbax"):
         cli.main(["sar_to_ndvi", "--model_name", "m", "--checkpoint_backend", "orbax"])
 

@@ -225,10 +225,11 @@ def test_fused_update_with_ddim_is_refused():
 
 _LAUNCHER = r"""
 #define EMU_RUN(T, V) emu_run(g, NTHREADS, [=] { ancestral_update_kernel<T, V>((const T*)x, \
-    (const T*)eps, (const uint32_t*)bits, (const long long*)seed, (T*)out, n, ca, cb, cn, step); })
+    (const T*)eps, (const uint32_t*)bits, (const long long*)seed, (T*)out, n, ca, cb, cn, step, \
+    quad0); })
 extern "C" int emu_update(const void* x, const void* eps, const void* bits, const void* seed,
                           void* out, long long n, float ca, float cb, float cn, unsigned step,
-                          int is_bf16, unsigned blocks) {
+                          int is_bf16, unsigned blocks, long long quad0) {
   const dim3 g = {blocks, 1, 1};
   typedef __nv_bfloat16 H;
   const bool vec = quads_aligned(x, eps, out, is_bf16);
@@ -242,7 +243,7 @@ extern "C" int emu_update(const void* x, const void* eps, const void* bits, cons
 extern "C" void emu_bits(const void* seed, void* out, long long n, unsigned step) {
   const unsigned blocks = (unsigned)(((n + 3) / 4 + NTHREADS - 1) / NTHREADS);
   emu_run({blocks, 1, 1}, NTHREADS,
-          [=] { philox_bits_kernel((const long long*)seed, (uint32_t*)out, (n + 3) / 4, step); });
+          [=] { philox_bits_kernel((const long long*)seed, (uint32_t*)out, (n + 3) / 4, step, 0); });
 }
 """
 
@@ -253,7 +254,7 @@ def emulated(tmp_path_factory):
 
     lib = compile_emulated("ancestral_update", _LAUNCHER, tmp_path_factory.mktemp("update_emu"))
     lib.emu_update.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_float] * 3
-                               + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint])
+                               + [ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong])
     lib.emu_update.restype = ctypes.c_int
     lib.emu_bits.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint]
     return lib
@@ -265,13 +266,13 @@ def _blocks(n, most=2):
     return min(most, -(-n // 1024))
 
 
-def _emu_update(lib, x, eps, coefs, seed, step, bits=None, out=None, blocks=None):
+def _emu_update(lib, x, eps, coefs, seed, step, bits=None, out=None, blocks=None, quad0=0):
     """Run the emulated kernel into `out` (default a new tensor like x);
     returns (out, whether the wide accesses were taken)."""
     out = torch.empty_like(x) if out is None else out
     vec = lib.emu_update(x.data_ptr(), eps.data_ptr(), None if bits is None else bits.data_ptr(),
                          seed.data_ptr(), out.data_ptr(), x.numel(), *coefs, step,
-                         int(x.dtype == torch.bfloat16), blocks or _blocks(x.numel()))
+                         int(x.dtype == torch.bfloat16), blocks or _blocks(x.numel()), quad0)
     return out, bool(vec)
 
 
@@ -356,3 +357,36 @@ def test_cuda_source_emulated_last_step_is_exact(emulated):
     seed = torch.tensor([3, 4], dtype=torch.int64)
     out, _ = _emu_update(emulated, x, eps, (ca, cb, cn), seed, 1)
     assert torch.equal(out, ca * x - cb * eps)
+
+
+@pytest.mark.parametrize("split", [1, 2, 5])
+def test_a_slice_at_its_quad_offset_draws_the_whole_states_noise(split):
+    """A chunk split into rows [0, k) and [k, B) (one replica's share each)
+    and updated slice by slice, each at its first quad, equals the whole
+    chunk's update bit for bit (float32, the plain version)."""
+    x, eps = (torch.from_numpy(a) for a in _state(21, (6, 8, 8, 12)))
+    seed = torch.tensor([0x1234, 0xABCDEF], dtype=torch.int64)
+    coefs = update_coefs(make_schedule("cosine", 1500), 700)
+    whole = ancestral_update(x, eps, coefs, seed, 700)
+    per_item = x[0].numel() // 4
+    parts = [ancestral_update(x[a:b], eps[a:b], coefs, seed, 700, quad0=a * per_item)
+             for a, b in ((0, split), (split, 6))]
+    assert torch.equal(torch.cat(parts), whole)
+    assert not torch.equal(ancestral_update(x[split:], eps[split:], coefs, seed, 700),
+                           whole[split:])
+    with pytest.raises(ValueError, match="quad0"):
+        ancestral_update(x, eps, coefs, seed, 700, quad0=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_source_emulated_quad_offset_matches_plain(emulated, dtype):
+    """The kernel at a quad offset past 2**32 quads (the counter's high
+    word) and at a small one, against the plain version at the same
+    offsets."""
+    x, eps = (torch.from_numpy(a).to(dtype) for a in _state(22, (2, 8, 8, 12)))
+    seed = torch.tensor([0xC0FFEE, 0x5EED], dtype=torch.int64)
+    coefs = update_coefs(make_schedule("cosine", 1500), 900)
+    for quad0 in (192, (1 << 32) + 5):
+        out, _ = _emu_update(emulated, x, eps, coefs, seed, 900, quad0=quad0)
+        _assert_close(out, ancestral_update_plain(x, eps, coefs, seed, 900, quad0=quad0), dtype)
+        assert not torch.equal(out, _emu_update(emulated, x, eps, coefs, seed, 900)[0])

@@ -476,3 +476,18 @@ def test_chip_smoke_per_forward_counts_the_new_paths(name, tap_block, gates, pac
     assert (want["tap_block"], want["fused_attention_gate"], want["packed_head"]) == (
         tap_block, gates, packed)
     assert want["packed_conv"] == 0
+
+
+def test_the_fifteenth_slice_modules_are_guarded():
+    """The data- and tensor-parallel modules are among what the import
+    guards above check, and importing them loads none of the forbidden
+    packages."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("parallel/__init__.py", "parallel/sharding.py", "parallel/tensor.py"):
+        assert mod.replace("/", os.sep) in checked
+    code = ("import sys\nimport diffusionremotesensing_tpu_torch.parallel.tensor\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -63,7 +63,7 @@ extern "C" void ring_lagging(const void* X, int rounds, float* out) {
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     lib = compile_emulated("sm90.cuh", "#include <chrono>\n" + _LAUNCHER,
-                           tmp_path_factory.mktemp("lag_emu"))
+                           tmp_path_factory.mktemp("lag_emu"), os_threads=True)
     lib.ring_lagging.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 

@@ -4,8 +4,8 @@ tests/test_tap_stem.py runs it; float32, atol 2e-5), the wrapper's CPU path
 and checks, the structure of W1's shortcut columns the kernels rely on,
 and the CUDA source itself: its im2col table (csrc/tap_block_sm90.cuh)
 against the Python one, and the source compiled with g++ under a small
-emulation of the CUDA thread model (one std::thread per CUDA thread, a
-std::barrier for __syncthreads), held against the plain version. The card
+emulation of the CUDA thread model (one fiber per CUDA thread, a barrier
+for __syncthreads), held against the plain version. The card
 runs the real kernel in chip_smoke.py."""
 
 import ctypes

@@ -27,6 +27,7 @@ from diffusionremotesensing_tpu_torch.models.unet import (
     residual_attention_unet_superres,
 )
 from diffusionremotesensing_tpu_torch.profiling import MetricsLogger, StepTimer
+from diffusionremotesensing_tpu_torch.parallel.sharding import make_mesh
 from diffusionremotesensing_tpu_torch.train import Trainer
 from tests.torch_port_helpers import GEN_CLASSES, random_jax_variables
 
@@ -211,8 +212,8 @@ def test_sample_with_the_ema_weights(tmp_path):
 def test_refusals(tmp_path):
     model = residual_attention_unet_generation(num_classes=GEN_CLASSES)
     args = (model, "linear", 20, HR)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(*args, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one process per device"):
+        Trainer(*args, mesh=make_mesh(["cpu", "cpu"]), device="cpu")
     with pytest.raises(NotImplementedError, match="orbax"):
         Trainer(*args, checkpoint_backend="orbax", device="cpu")
     with pytest.raises(ValueError, match="checkpoint_backend"):

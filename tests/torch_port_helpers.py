@@ -15,6 +15,7 @@ import subprocess
 import jax
 import numpy as np
 import pytest
+import torch
 
 from diffusionremotesensing_tpu.models.unet import (
     init_unet_params,
@@ -29,6 +30,13 @@ from diffusionremotesensing_tpu_torch.models.unet import (
     residual_attention_unet_sar_to_ndvi as torch_sar,
     residual_attention_unet_superres as torch_superres,
 )
+
+# One intra-op thread for the port's tests: the tier-1 command runs six
+# workers on a machine of few cores, and torch's parallel regions over the
+# small tensors of these tests then wait on threads the other workers hold
+# (a 0.4 s DDIM tile took 85 s there with torch's default threads). Every
+# xdist worker imports this module when it collects the port's tests.
+torch.set_num_threads(1)
 
 GEN_CLASSES = 4  # the class-conditional model of these tests (the repo's gate has 4)
 # each variant's reference model and the port's, built with the same flags
@@ -89,8 +97,9 @@ def model_inputs(seed: int = 0, batch: int = 2, hr: int = 32):
     return x, t, cond
 
 
-# The CUDA names the port's kernels use, for g++: one std::thread per CUDA
-# thread (threadIdx thread-local), a std::barrier for __syncthreads, bf16 as
+# The CUDA names the port's kernels use, for g++: one fiber per CUDA thread
+# (threadIdx the running fiber's; a std::thread each under EMU_OS_THREADS),
+# a barrier for __syncthreads, bf16 as
 # its 16 bits with round-to-nearest-even, and WMMA with every thread of a
 # warp holding the whole 16x16 tile (the API keeps fragment contents
 # opaque, so this is its meaning; lane 0 stores). For csrc/sm90.cuh's host
@@ -99,7 +108,8 @@ def model_inputs(seed: int = 0, batch: int = 2, hr: int = 32):
 # lanes of a warp (emu_warp_slots: one 64-bit slot a lane) and the threads of
 # a warpgroup (emu_wg_slots: one A fragment a thread) see each other's
 # registers, and shared memory aligned as the swizzle atoms want (1024
-# bytes). emu_run runs a grid.
+# bytes), emu_yield and emu_mbar_waited for the mbarrier waits. emu_run
+# runs a grid.
 EMULATION_PRELUDE = r"""
 #include <algorithm>
 #include <atomic>
@@ -109,15 +119,43 @@ EMULATION_PRELUDE = r"""
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
 #include <thread>
 #include <unordered_map>
 #include <vector>
+#include <sys/mman.h>
+#include <ucontext.h>
 using std::min;
 struct dim3 { unsigned x, y, z; };
 struct uint3e { unsigned x, y, z; };
-static thread_local uint3e threadIdx;
 static uint3e blockIdx;
-static std::barrier<>* g_bar;
+using EmuWaited = std::unordered_map<const uint64_t*, long long>;
+#if defined(EMU_OS_THREADS)
+static thread_local uint3e threadIdx;
+using EmuBarrier = std::barrier<>;
+inline void emu_yield() { std::this_thread::yield(); }
+inline EmuWaited& emu_mbar_waited() { thread_local EmuWaited w; return w; }
+#else
+static uint3e threadIdx;  // the running fiber's, set by emu_run's scheduler
+struct EmuFiber { ucontext_t ctx; uint3e idx; bool done; EmuWaited waited; void* stack; };
+static std::vector<EmuFiber> g_fibers;
+static EmuFiber* g_fiber;
+static ucontext_t g_sched;
+inline void emu_yield() { swapcontext(&g_fiber->ctx, &g_sched); }
+inline EmuWaited& emu_mbar_waited() { return g_fiber->waited; }
+// a barrier of `count` fibers: the last to arrive opens it, the others give
+// way until it has
+struct EmuBarrier {
+  unsigned count, arrived = 0, gen = 0;
+  explicit EmuBarrier(unsigned c) : count(c) {}
+  void arrive_and_wait() {
+    const unsigned g = gen;
+    if (++arrived == count) { arrived = 0; ++gen; return; }
+    while (gen == g) emu_yield();
+  }
+};
+#endif
+static EmuBarrier* g_bar;
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -127,9 +165,9 @@ static std::barrier<>* g_bar;
 #define __align__(n)
 #define __grid_constant__
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
-static std::vector<std::barrier<>*>* g_warp_bars;  // one per warp of the running block
+static std::vector<EmuBarrier*>* g_warp_bars;  // one per warp of the running block
 inline void __syncwarp() { (*g_warp_bars)[threadIdx.x / 32]->arrive_and_wait(); }
-static std::vector<std::barrier<>*>* g_wg_bars;    // one per warpgroup of the running block
+static std::vector<EmuBarrier*>* g_wg_bars;    // one per warpgroup of the running block
 inline void emu_wg_sync() { (*g_wg_bars)[threadIdx.x / 128]->arrive_and_wait(); }
 static uint64_t g_warp_slots[32][32];
 static uint32_t g_wg_slots[8][128][4];
@@ -186,28 +224,49 @@ inline void store_matrix_sync(float* p, const F& f, unsigned ldm, layout_t) {
     for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.v[r * 16 + c]; }
 }}
 
-// Run `kernel` over `grid` one block at a time, one std::thread per CUDA
-// thread, a std::barrier for __syncthreads, one per warp for __syncwarp and
-// one per warpgroup; shared memory starts as garbage.
+// Run `kernel` over `grid` one block at a time, a barrier for
+// __syncthreads, one per warp for __syncwarp and one per warpgroup; shared
+// memory starts as garbage. Each CUDA thread of the block is a fiber of the
+// calling thread (its own stack, switched by swapcontext), run in turn
+// until it waits at a barrier or an mbarrier and gives way: one OS thread,
+// so a loaded machine slows the emulation by its share of a core and no
+// more, and the interleaving is the same on every run. The turns go up the
+// thread index and down it on alternate passes, odd blocks starting down:
+// a thread reading what another wrote with no barrier between them reads
+// it too early in one of the two directions, so a missing __syncthreads
+// shows in every grid of two or more blocks. With EMU_OS_THREADS
+// defined each CUDA thread is a std::thread instead (a lane the OS holds
+// back, test_torch_port_mbarrier_lag.py).
 template <typename K>
 static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
   gridDim = grid;
   blockDim = {nthreads, 1, 1};
   std::memset(smem_raw, 0xff, sizeof(smem_raw));
+#if !defined(EMU_OS_THREADS)
+  static std::function<void()> body;
+  body = kernel;
+  constexpr size_t kStack = 1 << 20;  // reserved, touched as used
+  while (g_fibers.size() < nthreads) {
+    g_fibers.emplace_back();
+    g_fibers.back().stack = mmap(nullptr, kStack, PROT_READ | PROT_WRITE,
+                                 MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  }
+#endif
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         blockIdx = {x, y, z};
-        std::barrier<> bar(nthreads);
+        EmuBarrier bar(nthreads);
         g_bar = &bar;
-        std::vector<std::barrier<>*> warps;
+        std::vector<EmuBarrier*> warps;
         for (unsigned w = 0; w * 32 < nthreads; ++w)
-          warps.push_back(new std::barrier<>(std::min(32u, nthreads - 32 * w)));
+          warps.push_back(new EmuBarrier(std::min(32u, nthreads - 32 * w)));
         g_warp_bars = &warps;
-        std::vector<std::barrier<>*> groups;
+        std::vector<EmuBarrier*> groups;
         for (unsigned w = 0; w * 128 < nthreads; ++w)
-          groups.push_back(new std::barrier<>(std::min(128u, nthreads - 128 * w)));
+          groups.push_back(new EmuBarrier(std::min(128u, nthreads - 128 * w)));
         g_wg_bars = &groups;
+#if defined(EMU_OS_THREADS)
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nthreads; ++t)
           ts.emplace_back([=] {
@@ -215,6 +274,30 @@ static void emu_run(dim3 grid, unsigned nthreads, K kernel) {
             kernel();
           });
         for (auto& th : ts) th.join();
+#else
+        for (unsigned t = 0; t < nthreads; ++t) {
+          EmuFiber& f = g_fibers[t];
+          f.idx = {t, 0, 0};
+          f.done = false;
+          f.waited.clear();
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack;
+          f.ctx.uc_stack.ss_size = kStack;
+          f.ctx.uc_link = &g_sched;
+          makecontext(&f.ctx, +[] { body(); g_fiber->done = true; }, 0);
+        }
+        const unsigned odd = ((z * grid.y + y) * grid.x + x) & 1;
+        for (unsigned live = nthreads, pass = 0; live > 0; ++pass)
+          for (unsigned i = 0; i < nthreads; ++i) {
+            const unsigned t = ((pass + odd) & 1) ? nthreads - 1 - i : i;
+            EmuFiber& f = g_fibers[t];
+            if (f.done) continue;
+            g_fiber = &f;
+            threadIdx = f.idx;
+            swapcontext(&g_sched, &f.ctx);
+            live -= f.done;
+          }
+#endif
         for (auto* w : warps) delete w;
         for (auto* w : groups) delete w;
       }
@@ -256,11 +339,13 @@ static void emu_tc(const void* const* p, void* out, int B, int H2, int W2, int b
 """
 
 
-def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
+def compile_emulated(name: str, launcher: str, out_dir, os_threads: bool = False) -> ctypes.CDLL:
     """``csrc/<name>.cu``'s device code (everything above its host
     launchers, local headers inlined) plus ``launcher``, compiled for the
     CPU under EMULATION_PRELUDE; a ``name`` ending in ``.cuh`` takes that
-    header alone. Skips the test when there is no g++."""
+    header alone. The CUDA threads are fibers of the calling thread, or
+    with ``os_threads`` a std::thread each. Skips the test when there is
+    no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the CUDA source cannot be emulated here")
@@ -283,7 +368,8 @@ def compile_emulated(name: str, launcher: str, out_dir) -> ctypes.CDLL:
     cpp = os.path.join(out_dir, f"{stem}_emu.cpp")
     lib = os.path.join(out_dir, f"lib{stem}_emu.so")
     with open(cpp, "w") as f:
-        f.write(EMULATION_PRELUDE + device_code + launcher)
+        f.write(("#define EMU_OS_THREADS\n" if os_threads else "") + EMULATION_PRELUDE
+                + device_code + launcher)
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", lib, cpp],
                    check=True, timeout=300)
     return ctypes.CDLL(lib)

@@ -217,7 +217,28 @@ Phases, each printing one line with its name, seconds and result:
              (loss, statistics, gradient in L2, parameters), and the
              DDIM-100 tile split over the ranks against (b)'s one-device
              tile.
-12. profile - only with --profile: where one sampler step's time goes, for
+12. spatial - spatial partitioning (parallel.sharding.spatial_sharding,
+             parallel.halo): one whole x2 image (LR 256 -> HR 512, B = 1, one
+             512-px image of learning_check's kind) through the x2 snapshot
+             in the 'stem' configuration (tap_stem_block, the gates,
+             att_head_block and dec_block), its height split into bands on
+             the one card, each band a replica with its halos exchanged by
+             hand: (a) float32 DDIM-100 on one device and over
+             make_mesh([cuda:0] * k), k = 2 and 4, each split within
+             TILE_TOL of one device, the seam rows' difference read on its
+             own; (b) each split's launches k times one device's, exactly
+             (each band launches what one device does); (c) the fused
+             ancestral_update chain warm-started at start_t=250 (250
+             launches a band) split in 2 against one device, and the
+             update's band layout on the card: two bands of a B = 2 state
+             bitwise the whole state's rows, the whole image as its band
+             bitwise today's stream, a band's words bitwise the plain
+             Philox's; (d) bfloat16 DDIM-100 split in 2: finite, its
+             distance from one device printed; (e) two processes on the card
+             in a gloo group over CUDA tensors, one band a rank, halos by
+             batch_isend_irecv: the DDIM-100 image against (a)'s one-device
+             image within TILE_TOL. The seconds of each run.
+13. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -228,7 +249,7 @@ Phases, each printing one line with its name, seconds and result:
 
 Then a JSON line with each kernel's numbers (its launches summed over the
 serve phase's paths, the quality phase's passes, the cli phase's runs and
-the parallel phase's split tiles,
+the parallel phase's split tiles and the spatial phase's runs,
 packed_conv's the
 kernel phase's; its times at B=48 in
 its main path's dtype), a row of its own for each shape of SHAPE_ROWS
@@ -333,6 +354,7 @@ from diffusionremotesensing_tpu_torch.parallel.sharding import (  # noqa: E402
     make_mesh,
     process_device,
     shard_batch,
+    spatial_sharding,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import (  # noqa: E402
     tap_conv,
@@ -2064,6 +2086,238 @@ def parallel_phase(dev, card):
                        "card": card}), launches
 
 
+# ------------------------------------------------------------- spatial phase
+
+SPATIAL_HR = 512       # one whole x2 image: LR 256 -> HR 512, B = 1
+SPATIAL_BANDS = (2, 4)  # bands of the float32 DDIM-100 split, all on the one card
+SPATIAL_START_T = 250   # the fused chain's warm start: 250 ancestral_update launches a band
+SPATIAL_SEAM = 3        # rows each side of a seam whose difference is read on its own
+
+
+def _sp_inputs(dev):
+    """One 512-px image of learning_check's kind (draw_image, default_rng(SEED +
+    7)), its LR as the eval tiles' (Pillow's bicubic and blur, bit-equal
+    without PIL), and x_T from a seeded generator on the card."""
+    hr = draw_image(np.random.default_rng(SEED + 7), SPATIAL_HR)
+    lr = torch.from_numpy(pil_downblur_u8(hr, 2, EVAL_BLUR).astype(np.float32) / 255.0)[None]
+    x_T = torch.randn((1, SPATIAL_HR, SPATIAL_HR, 3),
+                      generator=torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
+    return x_T, lr.to(dev)
+
+
+def _sp_process(dev, dtype=torch.float32):
+    """The quality phase's x2 snapshot in the 'stem' configuration at HR 512
+    (tap_stem_block, the gates, att_head_block, dec_block), computing in
+    `dtype`."""
+    sd, _ = load_snapshot(QUALITY_SNAPSHOT)
+    m = FACTORIES["superres"](**CONFIGS["stem"])
+    m.load_state_dict(sd, strict=True)
+    return make_process(m.to(dev).eval(), "cosine", T_STEPS, SPATIAL_HR, dtype=dtype)
+
+
+def _sp_seam_rows(k):
+    rows = set()
+    for j in range(1, k):
+        b = j * SPATIAL_HR // k
+        rows.update(range(b - SPATIAL_SEAM, b + SPATIAL_SEAM))
+    return sorted(rows)
+
+
+def _sp_run(fn, *args, **kw):
+    """fn(*args, **kw) with every launch count 0 just before: (output on the
+    host, seconds, launches)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out.float().cpu().numpy(), time.perf_counter() - t0, read_counts()
+
+
+def _sp_update_bands(dev):
+    """The band layout of ancestral_update on the card: a (2, 256, 256, 12)
+    float32 state (the x2 image's s2d state at B = 2) updated in two bands of
+    rows, each at its quads, bitwise the whole state's update; the whole
+    image as its own band bitwise today's stream; a band's generator words
+    bitwise the plain Philox's."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = (2, SPATIAL_HR // 2, SPATIAL_HR // 2, 12)
+    x = torch.randn(shape, generator=g, device=dev)
+    eps = torch.randn(shape, generator=g, device=dev)
+    seed, step = draw_seed(g, dev), 700
+    coefs = update_coefs(make_schedule("cosine", T_STEPS), step)
+    row, item = shape[2] * shape[3] // 4, shape[1] * shape[2] * shape[3] // 4
+    whole = ancestral_update(x, eps, coefs, seed, step)
+    cut = 3 * shape[1] // 8  # a band boundary off the middle
+    parts = [ancestral_update(x[:, a:b].contiguous(), eps[:, a:b].contiguous(), coefs, seed, step,
+                              quad0=a * row, item_quads=item) for a, b in ((0, cut), (cut, shape[1]))]
+    as_band = ancestral_update(x, eps, coefs, seed, step, item_quads=item)
+    n = 2 * (shape[1] - cut) * shape[2] * shape[3]
+    words = philox_bits(seed, step, n, cut * row, item, (shape[1] - cut) * row)
+    plain = philox_bits_plain(seed.cpu(), step, n, cut * row, item, (shape[1] - cut) * row)
+    check(torch.equal(torch.cat(parts, 1), whole), "spatial: ancestral_update's two bands differ "
+                                                    "from the whole state's rows")
+    check(torch.equal(as_band, whole), "spatial: ancestral_update with the whole image as its "
+                                       "band is not today's stream")
+    check(torch.equal(words.cpu(), plain), "spatial: a band's generator words are not the plain "
+                                           "Philox's")
+    err = float((parts[1] - ancestral_update_plain(
+        x[:, cut:].contiguous(), eps[:, cut:].contiguous(), coefs, seed, step, quad0=cut * row,
+        item_quads=item)).abs().max())
+    check(err <= UPDATE_TOL[torch.float32] * max(1.0, float(whole.abs().max())),
+          f"spatial: a band's update differs from the plain version's by {err}")
+    return {"bands_bitwise_whole": True, "whole_as_band_bitwise": True,
+            "band_words_bitwise_plain": True, "band_vs_plain_max_abs": err}
+
+
+def _sp_rank(rank, port, path, dev):
+    """(e) Rank `rank` of a 2-process gloo group on the one card: the DDIM-100
+    image with its height split over the ranks (one band a rank, halos by
+    batch_isend_irecv through host copies); rank 0 saves it."""
+    dev = process_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        inputs = torch.load(path, weights_only=False)
+        spatial = spatial_sharding(make_mesh([dev]))
+        proc = _sp_process(dev)
+        out = proc.ddim_sampler(DDIM_STEPS, clip_x0=True, spatial=spatial)(
+            inputs["x_T"].to(dev), inputs["lr"].to(dev))
+        if rank == 0:
+            torch.save({"image": out.cpu(), "bands": spatial.bands,
+                        "local": spatial.local_bands()}, path + ".rank0")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_group(dev, x_T, lr, one):
+    """(e) Two processes on the card in a gloo group over CUDA tensors: the
+    DDIM-100 image split over the ranks against (a)'s one-device image."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "inputs.pt")
+        torch.save({"x_T": x_T.cpu(), "lr": lr.cpu()}, path)
+        port = _free_port()
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_sp_rank, args=(r, port, path, dev.type)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=PAR_RANK_TIMEOUT)
+        secs = time.perf_counter() - t0
+        hung = [p.is_alive() for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(not any(hung) and all(p.exitcode == 0 for p in procs),
+              f"spatial (e): ranks hung {hung}, exit codes {[p.exitcode for p in procs]}")
+        got = torch.load(path + ".rank0", weights_only=False)
+    image = got["image"].numpy()
+    err = float(np.abs(image - one).max())
+    seam = float(np.abs(image[:, _sp_seam_rows(2)] - one[:, _sp_seam_rows(2)]).max())
+    check(got["bands"] == 2 and got["local"] == [0] and np.isfinite(image).all()
+          and err <= TILE_TOL,
+          f"spatial (e): the 2-rank image differs from one device's by {err} (seams {seam})")
+    return {"ranks": 2, "backend": "gloo", "seconds_with_startup": secs, "max_abs_diff": err,
+            "seam_max_abs_diff": seam}
+
+
+def spatial_phase(dev, card):
+    """The spatial phase: one whole x2 image (LR 256 -> HR 512, B = 1, the x2
+    snapshot, 'stem', float32) with its height split into bands over
+    [cuda:0] * k: (a) DDIM-100 split in 2 and 4 against one device within
+    TILE_TOL, the seam rows read on their own; (b) the launches of every
+    split k times one device's, exactly (each band launches what one device
+    does); (c) the fused ancestral_update chain warm-started at
+    SPATIAL_START_T split in 2 against one device; the update's band layout
+    on the card, bitwise; (d) bfloat16 DDIM-100 split in 2: finite, its
+    distance from one device's; (e) two processes, gloo. One JSON line (with
+    `card`); returns it and the phase's launches."""
+    x_T, lr = _sp_inputs(dev)
+    proc = _sp_process(dev)
+    res, launches = {"hr": SPATIAL_HR, "batch": 1, "config": "stem"}, dict.fromkeys(KERNELS, 0)
+
+    def tally(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) + (b): float32 DDIM-100, one device and split
+    one, s_one, c_one = _sp_run(proc.ddim_sampler(DDIM_STEPS, clip_x0=True), x_T, lr)
+    want = {k: n * DDIM_STEPS for k, n in per_forward("stem").items()}
+    check(c_one == want, f"spatial (b): one device launched {c_one}, expected {want}")
+    tally(c_one)
+    res["ddim100_float32"] = {"one_device": {"seconds": s_one, "launches": _nonzero(c_one)}}
+    for k in SPATIAL_BANDS:
+        spatial = spatial_sharding(make_mesh([process_device(dev.type)] * k))
+        out, secs, counts = _sp_run(proc.ddim_sampler(DDIM_STEPS, clip_x0=True, spatial=spatial),
+                                    x_T, lr)
+        err = float(np.abs(out - one).max())
+        seam = float(np.abs(out[:, _sp_seam_rows(k)] - one[:, _sp_seam_rows(k)]).max())
+        check(out.shape == one.shape and np.isfinite(out).all() and err <= TILE_TOL,
+              f"spatial (a) {k} bands: differs from one device by {err} (seams {seam})")
+        check(counts == {name: k * v for name, v in c_one.items()},
+              f"spatial (b) {k} bands: launches {counts}, one device {c_one}")
+        tally(counts)
+        res["ddim100_float32"][f"bands_{k}"] = {
+            "seconds": secs, "max_abs_diff": err, "seam_max_abs_diff": seam,
+            "launches": _nonzero(counts), "launches_per_band_equal_one_device": True}
+    # (c) the fused update's chain from the warm start, one device and 2 bands
+    ah = float(proc.schedule.alpha_hat[SPATIAL_START_T])
+    init = upsample_bicubic(lr, 2)
+    x_w = (ah ** 0.5) * init + ((1.0 - ah) ** 0.5) * x_T
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 10)  # noqa: E731
+    f_one, fs_one, fc_one = _sp_run(
+        proc.sampler(fused_update=True, start_t=SPATIAL_START_T), x_w, lr, generator=gen())
+    spatial2 = spatial_sharding(make_mesh([process_device(dev.type)] * 2))
+    f_two, fs_two, fc_two = _sp_run(
+        proc.sampler(fused_update=True, start_t=SPATIAL_START_T, spatial=spatial2), x_w, lr,
+        generator=gen())
+    err = float(np.abs(f_two - f_one).max())
+    check(np.isfinite(f_two).all() and err <= TILE_TOL,
+          f"spatial (c): the fused chain split in 2 differs from one device by {err}")
+    check(fc_one["ancestral_update"] == SPATIAL_START_T
+          and fc_two == {name: 2 * v for name, v in fc_one.items()},
+          f"spatial (c): launches {fc_two} split, {fc_one} on one device")
+    tally(fc_one)
+    tally(fc_two)
+    res["fused_update_start_t250"] = {
+        "seconds_one_device": fs_one, "seconds_bands_2": fs_two, "max_abs_diff": err,
+        "seam_max_abs_diff": float(np.abs(f_two[:, _sp_seam_rows(2)]
+                                          - f_one[:, _sp_seam_rows(2)]).max()),
+        "launches_bands_2": _nonzero(fc_two), "band_layout": _sp_update_bands(dev)}
+    # (d) bfloat16: the split finite, its distance from one device's
+    proc16 = _sp_process(dev, torch.bfloat16)
+    b_one, bs_one, bc_one = _sp_run(proc16.ddim_sampler(DDIM_STEPS, clip_x0=True), x_T, lr)
+    b_two, bs_two, bc_two = _sp_run(
+        proc16.ddim_sampler(DDIM_STEPS, clip_x0=True, spatial=spatial2), x_T, lr)
+    check(np.isfinite(b_two).all() and bc_two == {name: 2 * v for name, v in bc_one.items()},
+          f"spatial (d): bf16 split finite {np.isfinite(b_two).all()}, launches {bc_two}, "
+          f"one device {bc_one}")
+    tally(bc_one)
+    tally(bc_two)
+    res["ddim100_bfloat16_bands_2"] = {
+        "seconds_one_device": bs_one, "seconds_split": bs_two,
+        "max_abs_diff": float(np.abs(b_two - b_one).max()),
+        "seam_max_abs_diff": float(np.abs(b_two[:, _sp_seam_rows(2)]
+                                          - b_one[:, _sp_seam_rows(2)]).max())}
+    del proc16
+    torch.cuda.empty_cache()
+    # (e) two processes
+    res["group_two_ranks"] = _sp_group(dev, x_T, lr, one)
+    res["card"] = card
+    return json.dumps(res), launches
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2904,6 +3158,14 @@ def main():
         return line
 
     phase("parallel", parallel)
+
+    def spatial():
+        line, launches = spatial_phase(dev, state["smi"])
+        for k, n in launches.items():
+            state["launches"][row_of(k, "superres")] += n
+        return line
+
+    phase("spatial", spatial)
     if args.profile:
         phase("profile", profile)
 

@@ -18,7 +18,13 @@
 // of quad q, elements 4q .. 4q + 3. The quad index counts from `quad0`, the
 // first quad of x within the whole state: a slice of the state (one
 // replica's share of a chunk split over devices) that starts at quad quad0
-// draws the noise the whole state draws there. Each word pair is one Box-Muller draw
+// draws the noise the whole state draws there. A band of rows of B items
+// (one band of an image split over devices by height) is not contiguous in
+// the whole state: x holds `band_quads` quads of each item, and quad q of x
+// is quad quad0 + (q / band_quads) * item_quads + q % band_quads of the
+// whole state, item_quads the quads of a whole item and quad0 those before
+// the band's first row. band_quads = 0 (or item_quads) is the contiguous
+// slice above, the same stream bit for bit. Each word pair is one Box-Muller draw
 // by the reference's mantissa map (fused_update.py:_bits_to_normal, :53):
 // u1 = 2 - f(b1), u2 = f(b2) - 1, f(b) = the float32 whose bits are
 // 0x3F800000 | (b >> 9); r = sqrt(-2 log u1). Its two outputs are two
@@ -47,7 +53,8 @@
 // past n's last multiple of 4, or any quad when a base pointer is not
 // aligned to a quad's bytes, takes the same noise through scalar loads and
 // stores: nothing raises, and the noise of an element does not depend on
-// the path. No shared memory, no tensor cores, no TMA: a pass over
+// the path. A band of rows (band_quads != item_quads) costs one 64-bit
+// division a quad; a contiguous call takes the uniform branch past it. No shared memory, no tensor cores, no TMA: a pass over
 // contiguous data needs only coalesced wide accesses and enough of them in
 // flight (2048 threads an SM x 32 bytes, far above the ~15 KB an SM needs
 // to cover HBM's latency).
@@ -149,6 +156,16 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2, float* c, f
   *s = r * sn;
 }
 
+// The whole state's quad index of quad q of x: x a contiguous slice from
+// quad0 (band_quads = 0, or equal to item_quads), or a band of band_quads
+// quads of each item, items item_quads quads apart, the first band at quad0.
+__device__ __forceinline__ long long state_quad(long long q, long long quad0, long long item_quads,
+                                                long long band_quads) {
+  if (band_quads > 0 && band_quads != item_quads)
+    return quad0 + (q / band_quads) * item_quads + q % band_quads;
+  return quad0 + q;
+}
+
 __device__ __forceinline__ float update(float ca, float x, float cb, float e, float cn, float z) {
   return __fadd_rn(__fsub_rn(__fmul_rn(ca, x), __fmul_rn(cb, e)), __fmul_rn(cn, z));
 }
@@ -161,7 +178,8 @@ __global__ void __launch_bounds__(NTHREADS)
 ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
                         const uint32_t* __restrict__ bits, const long long* __restrict__ seed,
                         T* __restrict__ out, long long n, float ca, float cb, float cn,
-                        uint32_t step, long long quad0) {
+                        uint32_t step, long long quad0, long long item_quads = 0,
+                        long long band_quads = 0) {
   const long long nq = (n + 3) / 4;
   const uint32_t k0 = bits == nullptr ? (uint32_t)seed[0] : 0u;
   const uint32_t k1 = bits == nullptr ? (uint32_t)seed[1] : 0u;
@@ -183,7 +201,7 @@ ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
     float z[4];
     if (bits == nullptr) {
       uint32_t w[4];
-      quad_bits(w, quad0 + q, step, k0, k1);
+      quad_bits(w, state_quad(q, quad0, item_quads, band_quads), step, k0, k1);
       box_muller(w[0], w[1], &z[0], &z[1]);
       box_muller(w[2], w[3], &z[2], &z[3]);
     } else {
@@ -204,16 +222,19 @@ ancestral_update_kernel(const T* __restrict__ x, const T* __restrict__ eps,
   }
 }
 
-// The generator's words of quads [quad0, quad0 + nq) at `step`, one quad a
-// thread: out[4q + j] = word j of quad quad0 + q. What
+// The generator's words of the nq quads of x at `step` (x laid out as
+// ancestral_update_kernel's quad0, item_quads and band_quads say), one quad
+// a thread: out[4q + j] = word j of quad q of x. What
 // ancestral_update_kernel draws, for checking it.
 __global__ void __launch_bounds__(NTHREADS)
 philox_bits_kernel(const long long* __restrict__ seed, uint32_t* __restrict__ out, long long nq,
-                   uint32_t step, long long quad0) {
+                   uint32_t step, long long quad0, long long item_quads = 0,
+                   long long band_quads = 0) {
   const long long q = (long long)blockIdx.x * NTHREADS + threadIdx.x;
   if (q >= nq) return;
   uint32_t w[4];
-  quad_bits(w, quad0 + q, step, (uint32_t)seed[0], (uint32_t)seed[1]);
+  quad_bits(w, state_quad(q, quad0, item_quads, band_quads), step, (uint32_t)seed[0],
+            (uint32_t)seed[1]);
 #pragma unroll
   for (int j = 0; j < 4; ++j) out[4 * q + j] = w[j];
 }
@@ -250,11 +271,11 @@ unsigned grid_for(long long nq, unsigned resident) {
 template <typename T, bool VEC>
 void launch(const void* x, const void* eps, const uint32_t* bits, const long long* seed, void* out,
             long long n, float ca, float cb, float cn, unsigned step, long long quad0,
-            cudaStream_t s) {
+            long long item_quads, long long band_quads, cudaStream_t s) {
   static const unsigned resident = resident_blocks(ancestral_update_kernel<T, VEC>);
   ancestral_update_kernel<T, VEC><<<grid_for((n + 3) / 4, resident), NTHREADS, 0, s>>>(
           static_cast<const T*>(x), static_cast<const T*>(eps), bits, seed, static_cast<T*>(out),
-          n, ca, cb, cn, step, quad0);
+          n, ca, cb, cn, step, quad0, item_quads, band_quads);
 }
 
 }  // namespace
@@ -263,12 +284,16 @@ void launch(const void* x, const void* eps, const uint32_t* bits, const long lon
 // x, eps, out: n contiguous elements of one type, bfloat16 (is_bf16 != 0) or
 // float32, at any alignment of the type; bits: null or 2*n uint32; seed: 2
 // int64 words on the device (read when bits is null), each < 2**32; quad0:
-// the generator's quad index of x's first element (0 for a whole state).
+// the generator's quad index of x's first element (0 for a whole state);
+// item_quads, band_quads: 0, or x a band of band_quads quads of each item
+// of item_quads quads (n a multiple of 4 * band_quads).
 extern "C" int ancestral_update_launch(const void* x, const void* eps, const void* bits,
                                        const void* seed, void* out, long long n, float ca,
                                        float cb, float cn, unsigned step, long long quad0,
-                                       int is_bf16, void* stream) {
-  if (n < 1 || quad0 < 0 || (bits == nullptr && seed == nullptr))
+                                       long long item_quads, long long band_quads, int is_bf16,
+                                       void* stream) {
+  if (n < 1 || quad0 < 0 || (bits == nullptr && seed == nullptr) || band_quads < 0 ||
+      (band_quads > 0 && (n % (4 * band_quads) || item_quads < band_quads)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const uint32_t*>(bits);
@@ -276,26 +301,34 @@ extern "C" int ancestral_update_launch(const void* x, const void* eps, const voi
   const bool vec = quads_aligned(x, eps, out, is_bf16);
   if (is_bf16) {
     if (vec)
-      launch<bf16, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
+      launch<bf16, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, item_quads,
+                         band_quads, s);
     else
-      launch<bf16, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
+      launch<bf16, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, item_quads,
+                          band_quads, s);
   } else {
     if (vec)
-      launch<float, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
+      launch<float, true>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, item_quads,
+                          band_quads, s);
     else
-      launch<float, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, s);
+      launch<float, false>(x, eps, b, sd, out, n, ca, cb, cn, step, quad0, item_quads,
+                           band_quads, s);
   }
   return (int)cudaGetLastError();
 }
 
-// out: 4 * ceil(n / 4) uint32, the words of quads quad0, quad0 + 1, ... in
-// turn.
+// out: 4 * ceil(n / 4) uint32, the words of x's quads in turn (quad0,
+// item_quads and band_quads as ancestral_update_launch takes them).
 extern "C" int philox_bits_launch(const void* seed, void* out, long long n, unsigned step,
-                                  long long quad0, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                  long long quad0, long long item_quads, long long band_quads,
+                                  void* stream) {
+  if (n < 1 || band_quads < 0 ||
+      (band_quads > 0 && (n % (4 * band_quads) || item_quads < band_quads)))
+    return (int)cudaErrorInvalidValue;
   const long long nq = (n + 3) / 4;
   philox_bits_kernel<<<(unsigned)((nq + NTHREADS - 1) / NTHREADS), NTHREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(seed), static_cast<uint32_t*>(out), nq, step, quad0);
+      static_cast<const long long*>(seed), static_cast<uint32_t*>(out), nq, step, quad0,
+      item_quads, band_quads);
   return (int)cudaGetLastError();
 }

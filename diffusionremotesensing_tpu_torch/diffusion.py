@@ -36,6 +36,17 @@ drawn for every row from the one generator and each replica takes its
 rows; the fused update's kernel starts each replica's Philox quads where
 its rows start. So a split batch gives the rows one device would give,
 up to the model's own dependence on the batch size (a GEMM's blocking).
+
+A sampler built with ``bands`` (``DiffusionProcess.sampler(spatial=...)``,
+a ``parallel.sharding.spatial_sharding``) splits the image HEIGHT instead:
+each band (the model on one device, on one thread in one process or one a
+rank) holds its rows of x_T, of the condition image and of the state for
+the whole chain, runs the model on them with its halos exchanged
+(``parallel.halo``), and only the final image is gathered. The noise is
+the whole image's, drawn once a step and sliced; the fused update's kernel
+draws a band's quads where they sit in the whole state (``item_quads``).
+So a split image gives the image one device would give, up to float32
+rounding.
 """
 
 from __future__ import annotations
@@ -52,7 +63,9 @@ from diffusionremotesensing_tpu_torch.ops.fused_update import (
     update_coefs,
 )
 from diffusionremotesensing_tpu_torch.ops.s2d import depth_to_space, space_to_depth
+from diffusionremotesensing_tpu_torch.parallel.halo import Band, gather_bands, make_link
 from diffusionremotesensing_tpu_torch.parallel.sharding import (
+    SpatialSharding,
     all_gather_rows,
     global_replicated,
     split_rows,
@@ -107,58 +120,99 @@ def _noise(noise_fn, generator, i, shape, like, enc):
     return enc(z) if enc is not None else z
 
 
-def _eps_fn(apply_fn, encode_cond_fn, prepare_fn, cond, cfg_scale, n):
+def _eps_fn(apply_fn, encode_cond_fn, prepare_fn, cond, cfg_scale, n, band=None):
     """eps_hat(x, t) for one sampler call: the condition stem and
     ``prepare_fn`` hoisted out of the loop; under ``cfg_scale`` the batched
     guidance of the reference (the conditioned half masked 1, the
-    unconditioned half 0, in one model call at 2n)."""
+    unconditioned half 0, in one model call at 2n). ``band``: a band of a
+    spatial split, passed to the condition stem and the model."""
     if cfg_scale is not None and cond is None:
         raise ValueError("cfg_scale requires cond (labels): classifier-free guidance lerps the "
                          "conditioned and unconditioned predictions; pass cond or sample with "
                          "cfg_scale=None")
+    kw = {} if band is None else {"band": band}
     aux = prepare_fn() if prepare_fn is not None else None
     if cfg_scale is None:
-        feats = encode_cond_fn(cond) if encode_cond_fn is not None and cond is not None else None
-        return lambda x, t: apply_fn(x, t, cond, feats, aux)
+        feats = (encode_cond_fn(cond, **kw) if encode_cond_fn is not None and cond is not None
+                 else None)
+        return lambda x, t: apply_fn(x, t, cond, feats, aux, **kw)
     cond2 = torch.cat([cond, cond])
     mask = torch.cat([torch.ones(n), torch.zeros(n)]).to(cond.device)
 
     def eps(x, t):
-        eps2 = apply_fn(torch.cat([x, x]), torch.cat([t, t]), cond2, None, aux, cond_mask=mask)
+        eps2 = apply_fn(torch.cat([x, x]), torch.cat([t, t]), cond2, None, aux, cond_mask=mask,
+                        **kw)
         eps_c, eps_u = eps2[:n], eps2[n:]
         return eps_u + cfg_scale * (eps_c - eps_u)
     return eps
 
 
 class _Shard:
-    """One replica's rows [lo, hi) of a sampler call on ``device``, with
-    the replica's eps function."""
+    """One replica's rows [lo, hi) of a sampler call on ``device``; with
+    ``band`` (a ``parallel.halo.Band``) only its image rows [r0, r1) of
+    ``height`` too. :meth:`prepare` makes the replica's eps function."""
 
-    def __init__(self, hooks: dict, device, lo: int, hi: int, cond, cfg_scale):
-        self.device, self.lo, self.hi = torch.device(device), lo, hi
-        self.eps = _eps_fn(hooks["apply_fn"], hooks.get("encode_cond_fn"),
-                           hooks.get("prepare_fn"), self.rows(cond), cfg_scale, hi - lo)
+    def __init__(self, hooks: dict, device, lo: int, hi: int, band=None, r0=0, r1=0, height=1):
+        self.hooks, self.device, self.lo, self.hi = hooks, torch.device(device), lo, hi
+        self.band, self.r0, self.r1, self.height = band, r0, r1, height
 
-    def rows(self, x):
-        return None if x is None else x[self.lo:self.hi].to(self.device)
+    def prepare(self, cond, cfg_scale):
+        h = self.hooks
+        self.eps = _eps_fn(h["apply_fn"], h.get("encode_cond_fn"), h.get("prepare_fn"),
+                           self.rows(cond), cfg_scale, self.hi - self.lo, self.band)
+
+    def rows(self, x, axis: int = 0):
+        """This shard's part of ``x`` (its batch axis ``axis``) on its device:
+        its batch rows and, on a band, the band's rows of an image-like x
+        (the axis after the batch, in x's own rows: H, H/2 in s2d, H/mag)."""
+        if x is None:
+            return None
+        x = x.narrow(axis, self.lo, self.hi - self.lo)
+        if self.band is not None and x.dim() >= axis + 4:
+            h = x.shape[axis + 1]
+            lo, hi = self.r0 * h // self.height, self.r1 * h // self.height
+            x = x.narrow(axis + 1, lo, hi - lo)
+        return x.to(self.device)
 
 
-def _shards(replicas, own: dict, n: int, device, cond, cfg_scale):
-    """The sampler call's shards: one over every row without replicas;
-    else the rows of this process's replicas (``replicas`` is (mesh,
-    hooks of each local device)) among the mesh's equal slices."""
-    if replicas is None:
-        return [_Shard(own, device, 0, n, cond, cfg_scale)]
-    mesh, hooks = replicas
-    local = len(mesh.devices)
-    slices = split_rows(n, mesh.size)[mesh.rank * local:(mesh.rank + 1) * local]
-    return [_Shard(h, d, lo, hi, cond, cfg_scale)
-            for h, d, (lo, hi) in zip(hooks, mesh.devices, slices)]
+def _shards(replicas, bands, own: dict, x_T, cond, cfg_scale):
+    """The sampler call's shards, each with its eps function: one over
+    every row without replicas or bands; else the rows of this process's
+    replicas (``replicas`` is (mesh, hooks of each local device)) among the
+    mesh's equal slices, or the image rows of this process's bands
+    (``bands`` is (spatial_sharding, hooks of each local device))."""
+    n = x_T.shape[0]
+    if bands is not None:
+        spatial, hooks = bands
+        height = x_T.shape[1]
+        rows, local = spatial.band_rows(height), spatial.local_bands()
+        link = make_link(spatial, local)
+        shards = [_Shard(h, d, 0, n, Band(i, spatial.bands, link), *rows[i], height)
+                  for h, d, i in zip(hooks, spatial.mesh.devices, local)]
+    elif replicas is None:
+        shards = [_Shard(own, x_T.device, 0, n)]
+    else:
+        mesh, hooks = replicas
+        local = len(mesh.devices)
+        slices = split_rows(n, mesh.size)[mesh.rank * local:(mesh.rank + 1) * local]
+        shards = [_Shard(h, d, lo, hi) for h, d, (lo, hi) in zip(hooks, mesh.devices, slices)]
+    _each(shards, lambda k, sh: sh.prepare(cond, cfg_scale))
+    return shards
 
 
-def _gather(parts, replicas, device):
+def _each(shards, fn):
+    """``[fn(k, shard) for each shard]``: in turn, or at once on the bands
+    of a spatial split (their halo exchanges wait for each other)."""
+    if shards[0].band is None:
+        return [fn(k, sh) for k, sh in enumerate(shards)]
+    return shards[0].band.link.run([lambda k=k, sh=sh: fn(k, sh) for k, sh in enumerate(shards)])
+
+
+def _gather(parts, replicas, bands, device):
     """The shards' rows as one batch on ``device`` (every rank's, in rank
-    order, under a group)."""
+    order, under a group); the bands' image rows joined along the height."""
+    if bands is not None:
+        return gather_bands(parts, bands[0], device)
     x = torch.cat([p.to(device) for p in parts])
     return x if replicas is None else all_gather_rows(x, replicas[0])
 
@@ -171,7 +225,8 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                  state_codec: Optional[tuple] = None,
                  fused_update: bool = False,
                  start_t: Optional[int] = None,
-                 replicas: Optional[tuple] = None):
+                 replicas: Optional[tuple] = None,
+                 bands: Optional[tuple] = None):
     """Ancestral sampler over t = start_t .. 1 (start_t = T-1 by default).
 
     ``apply_fn(x, t, cond, cond_features, aux, cond_mask=None) -> eps_hat``;
@@ -196,7 +251,10 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
     step. ``replicas=(mesh, hooks)`` splits the rows over the mesh (module
     docstring): ``hooks`` holds the apply_fn, encode_cond_fn and prepare_fn
     of each of the mesh's local devices; every rank passes the whole batch
-    and gets the whole result."""
+    and gets the whole result. ``bands=(spatial_sharding, hooks)`` splits
+    the image height over its mesh instead (module docstring)."""
+    if replicas is not None and bands is not None:
+        raise ValueError("a sampler splits the batch (mesh=) or the height (spatial=), not both")
     T = schedule.noise_steps
     t_start = _start(T, start_t)
     enc, dec = state_codec if state_codec is not None else (None, None)
@@ -211,35 +269,50 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
         if not fused_update and bits_fn is not None:
             raise ValueError("bits_fn applies to the fused update (fused_update=True)")
         n = x_T.shape[0]
-        shards = _shards(replicas, own, n, x_T.device, cond, cfg_scale)
+        shards = _shards(replicas, bands, own, x_T, cond, cfg_scale)
         xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
-        state_shape = (n,) + tuple(xs[0].shape[1:])
+        if bands is None:
+            state_shape = (n,) + tuple(xs[0].shape[1:])
+        else:  # the whole image's state: the bands' rows summed
+            state_shape = (n, xs[0].shape[1] * bands[0].bands) + tuple(xs[0].shape[2:])
         per_row = xs[0][0].numel()
         seed = draw_seed(generator, x_T.device) if fused_update and bits_fn is None else None
-        if fused_update and any(sh.lo * per_row % 4 for sh in shards):
+        if fused_update and bands is None and any(sh.lo * per_row % 4 for sh in shards):
             raise ValueError(f"a replica's rows start inside a Philox quad ({per_row} elements "
                              "a row): the fused update cannot split this state")
+        if fused_update and bands is not None and (state_shape[2] * state_shape[3]) % 4:
+            raise ValueError(f"a band's rows start inside a Philox quad ({state_shape[2:]} a "
+                             "state row): the fused update cannot split this state")
         frames = []
         for i in range(t_start, 0, -1):
             if fused_update:
                 bits = bits_fn(i, state_shape) if bits_fn is not None else None
             elif i > 1:
                 z = _noise(noise_fn, generator, i, x_T.shape, x_T, enc)
-            for k, sh in enumerate(shards):
+
+            def step(k, sh, i=i):
                 x = xs[k]
                 eps_hat = sh.eps(x, torch.full((sh.hi - sh.lo,), float(i), device=sh.device))
                 if fused_update:
-                    b = None if bits is None else bits[:, sh.lo:sh.hi].to(sh.device)
-                    xs[k] = ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i],
-                                             None if seed is None else seed.to(sh.device), i, b,
-                                             quad0=sh.lo * per_row // 4)
-                else:
-                    zk = sh.rows(z) if i > 1 else torch.zeros_like(x)
-                    xs[k] = ddpm_step(schedule, x, eps_hat, i, zk)
+                    b = None if bits is None else sh.rows(bits, axis=1)
+                    s_ = None if seed is None else seed.to(sh.device)
+                    if sh.band is None:
+                        return ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i], s_,
+                                                i, b, quad0=sh.lo * per_row // 4)
+                    # the band's quads where they sit in the whole state
+                    row = state_shape[2] * state_shape[3]
+                    r0 = sh.r0 * state_shape[1] // sh.height
+                    return ancestral_update(x.contiguous(), eps_hat.contiguous(), coefs[i], s_, i,
+                                            b, quad0=r0 * row // 4,
+                                            item_quads=state_shape[1] * row // 4)
+                zk = sh.rows(z) if i > 1 else torch.zeros_like(x)
+                return ddpm_step(schedule, x, eps_hat, i, zk)
+
+            xs = _each(shards, step)
             if capture_frames:
-                x = _gather(xs, replicas, x_T.device)
+                x = _gather(xs, replicas, bands, x_T.device)
                 frames.append(dec(x) if dec is not None else x)
-        x = _gather(xs, replicas, x_T.device)
+        x = _gather(xs, replicas, bands, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x
 
@@ -273,7 +346,8 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
                       state_codec: Optional[tuple] = None,
                       start_t: Optional[int] = None,
                       capture_frames: bool = False,
-                      replicas: Optional[tuple] = None):
+                      replicas: Optional[tuple] = None,
+                      bands: Optional[tuple] = None):
     """DDIM sampler with ``num_steps`` model evaluations over
     :func:`ddim_timesteps`; the last step lands on t_prev = 0, where
     alpha_hat is taken as 1 (so sigma is 0 there at any eta). ``eta > 0``
@@ -289,17 +363,20 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
     one = torch.ones((), dtype=torch.float32)
     own = dict(apply_fn=apply_fn, encode_cond_fn=encode_cond_fn, prepare_fn=prepare_fn)
 
+    if replicas is not None and bands is not None:
+        raise ValueError("a sampler splits the batch (mesh=) or the height (spatial=), not both")
+
     @torch.inference_mode()
     def sample(x_T, cond=None, generator=None, noise_fn=None):
-        n = x_T.shape[0]
-        shards = _shards(replicas, own, n, x_T.device, cond, cfg_scale)
+        shards = _shards(replicas, bands, own, x_T, cond, cfg_scale)
         xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
         frames = []
         for t, t_prev in zip(taus.tolist(), taus_prev.tolist()):
             ah = schedule.alpha_hat[t]
             ah_prev = schedule.alpha_hat[t_prev] if t_prev > 0 else one
             sigma = eta * torch.sqrt((1.0 - ah_prev) / (1.0 - ah)) * torch.sqrt(1.0 - ah / ah_prev)
-            for k, sh in enumerate(shards):
+
+            def step(k, sh, t=t, ah=ah, ah_prev=ah_prev, sigma=sigma):
                 x = xs[k]
                 eps_hat = sh.eps(x, torch.full((sh.hi - sh.lo,), float(t), device=sh.device))
                 x0_pred = (x - float(torch.sqrt(1.0 - ah)) * eps_hat) / float(torch.sqrt(ah))
@@ -308,14 +385,16 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
                     eps_hat = (x - float(torch.sqrt(ah)) * x0_pred) / float(torch.sqrt(1.0 - ah))
                 dir_xt = (float(torch.sqrt(torch.clamp(1.0 - ah_prev - sigma ** 2, min=0.0)))
                           * eps_hat)
-                xs[k] = float(torch.sqrt(ah_prev)) * x0_pred + dir_xt
+                return float(torch.sqrt(ah_prev)) * x0_pred + dir_xt
+
+            xs = _each(shards, step)
             if float(sigma) > 0.0:
                 z = _noise(noise_fn, generator, t, x_T.shape, x_T, enc)
                 xs = [x + float(sigma) * sh.rows(z) for x, sh in zip(xs, shards)]
             if capture_frames:
-                x = _gather(xs, replicas, x_T.device)
+                x = _gather(xs, replicas, bands, x_T.device)
                 frames.append(dec(x) if dec is not None else x)
-        x = _gather(xs, replicas, x_T.device)
+        x = _gather(xs, replicas, bands, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x
 
@@ -376,12 +455,13 @@ class DiffusionProcess:
         noise = torch.randn(x0.shape, generator=generator, device=x0.device)
         return q_sample(self.schedule, x0, t, noise), noise
 
-    def apply_fn(self, x, t, cond, cond_features=None, aux=None, cond_mask=None):
+    def apply_fn(self, x, t, cond, cond_features=None, aux=None, cond_mask=None, band=None):
         return self.net(x, t, cond, cond_mask, cond_features=cond_features, s2d_kernels=aux,
-                        s2d_io=self.s2d)
+                        s2d_io=self.s2d, band=band)
 
-    def encode_cond_fn(self, cond):
-        return self.net.encode_cond_s2d(cond) if self.s2d else self.net.encode_cond(cond)
+    def encode_cond_fn(self, cond, band=None):
+        return (self.net.encode_cond_s2d(cond, band) if self.s2d
+                else self.net.encode_cond(cond, band))
 
     def prepare_fn(self):
         return self.kernels
@@ -417,6 +497,8 @@ class DiffusionProcess:
         a device that appears twice in the mesh holds two replicas."""
         if mesh is None:
             return None
+        if isinstance(mesh, SpatialSharding):
+            raise TypeError("a spatial_sharding goes in spatial=, a Mesh in mesh=")
         devices = [_indexed(d) for d in mesh.devices]
         hooks = []
         for i, d in enumerate(devices):
@@ -426,39 +508,58 @@ class DiffusionProcess:
             hooks.append(dict(apply_fn=rep.apply_fn, **h))
         return mesh, hooks
 
+    def _bands(self, spatial):
+        """(spatial, the hooks of its local bands' replicas) for the
+        samplers, or None; raises for a configuration the split does not run
+        (``ResidualAttentionUNet.check_spatial``)."""
+        if spatial is None:
+            return None
+        if not isinstance(spatial, SpatialSharding):
+            raise TypeError(f"spatial= takes parallel.sharding.spatial_sharding(mesh), got "
+                            f"{type(spatial).__name__}")
+        self.net.check_spatial()
+        spatial.local_bands()
+        return spatial, self._replicas(spatial.mesh)[1]
+
     def sampler(self, cfg_scale: Optional[float] = None, capture_frames: bool = False,
-                fused_update: bool = False, start_t: Optional[int] = None, mesh=None):
+                fused_update: bool = False, start_t: Optional[int] = None, mesh=None,
+                spatial=None):
         """The ancestral sampler (cached by its options), as
         :func:`make_sampler`; with ``mesh`` (a ``parallel.Mesh``) the batch
-        axis split over the mesh's replicas."""
-        key = ("ddpm", cfg_scale, capture_frames, fused_update, start_t) + ((mesh,) if mesh else ())
+        axis split over the mesh's replicas; with ``spatial``
+        (``parallel.sharding.spatial_sharding(mesh)``) the image height
+        split into bands over its mesh."""
+        key = (("ddpm", cfg_scale, capture_frames, fused_update, start_t)
+               + ((mesh,) if mesh else ()) + (("spatial", spatial) if spatial else ()))
         if key not in self._samplers:
             self._samplers[key] = make_sampler(
                 self.apply_fn, self.schedule, cfg_scale=cfg_scale, capture_frames=capture_frames,
                 fused_update=fused_update, start_t=start_t, replicas=self._replicas(mesh),
-                **self._hooks())
+                bands=self._bands(spatial), **self._hooks())
         return self._samplers[key]
 
     def ddim_sampler(self, num_steps: int, eta: float = 0.0, cfg_scale: Optional[float] = None,
                      tau_spacing: str = "linear", clip_x0: bool = False,
-                     start_t: Optional[int] = None, capture_frames: bool = False, mesh=None):
+                     start_t: Optional[int] = None, capture_frames: bool = False, mesh=None,
+                     spatial=None):
         """The DDIM sampler with ``num_steps`` model evaluations (cached by
-        its options), as :func:`make_ddim_sampler`; ``mesh`` as in
-        :meth:`sampler`."""
+        its options), as :func:`make_ddim_sampler`; ``mesh`` and ``spatial``
+        as in :meth:`sampler`."""
         key = (("ddim", num_steps, eta, cfg_scale, tau_spacing, clip_x0, start_t, capture_frames)
-               + ((mesh,) if mesh else ()))
+               + ((mesh,) if mesh else ()) + (("spatial", spatial) if spatial else ()))
         if key not in self._samplers:
             self._samplers[key] = make_ddim_sampler(
                 self.apply_fn, self.schedule, num_steps, eta=eta, cfg_scale=cfg_scale,
                 tau_spacing=tau_spacing, clip_x0=clip_x0, start_t=start_t,
-                capture_frames=capture_frames, replicas=self._replicas(mesh), **self._hooks())
+                capture_frames=capture_frames, replicas=self._replicas(mesh),
+                bands=self._bands(spatial), **self._hooks())
         return self._samplers[key]
 
     def sample(self, n: int, cond=None, cfg_scale: Optional[float] = None,
                capture_frames: bool = False, ddim_steps: Optional[int] = None,
                ddim_eta: float = 0.0, ddim_spacing: str = "linear", ddim_clip_x0: bool = True,
                start_t: Optional[int] = None, init=None,
-               generator: Optional[torch.Generator] = None, mesh=None):
+               generator: Optional[torch.Generator] = None, mesh=None, spatial=None):
         """Generate n images, as the reference's ``Process.sample``.
 
         ``cond`` is one condition image (H, W, C) or one label, broadcast to
@@ -469,11 +570,19 @@ class DiffusionProcess:
         Noise comes from ``generator`` (a generator of the process's device).
         ``mesh``: a call every rank of the mesh's group makes at the same
         point (the trainer's previews): the generator's state, x_T and cond
-        are rank 0's on every rank, so every rank samples the same images."""
+        are rank 0's on every rank, so every rank samples the same images.
+        ``spatial`` (``parallel.sharding.spatial_sharding(mesh)``): each
+        image's height split into bands over its mesh (the samplers'
+        ``spatial``); x_T and cond as under ``mesh``, replicated over the
+        mesh's group when it has one."""
         if (start_t is None) != (init is None):
             raise ValueError("start_t and init go together: truncated sampling needs a "
                              "warm-start image (init) and a truncation point (start_t)")
+        if mesh is not None and spatial is not None:
+            raise ValueError("sample splits nothing over mesh= and the height over spatial=: "
+                             "pass one")
         dev = self.device
+        mesh = mesh if spatial is None else spatial.mesh  # whose group x_T and cond come from
         if generator is not None:
             global_replicated(generator, mesh)
         if start_t is not None:
@@ -499,9 +608,9 @@ class DiffusionProcess:
         if ddim_steps is not None:
             fn = self.ddim_sampler(ddim_steps, eta=ddim_eta, cfg_scale=cfg_scale,
                                    tau_spacing=ddim_spacing, clip_x0=ddim_clip_x0,
-                                   start_t=start_t, capture_frames=capture_frames)
+                                   start_t=start_t, capture_frames=capture_frames, spatial=spatial)
         else:
-            fn = self.sampler(cfg_scale, capture_frames, start_t=start_t)
+            fn = self.sampler(cfg_scale, capture_frames, start_t=start_t, spatial=spatial)
         return fn(x_T, cond, generator=generator)
 
 

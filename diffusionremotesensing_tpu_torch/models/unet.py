@@ -130,6 +130,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
     tap_stem_block,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import tap_conv, tap_conv_pair, tap_weight
+from diffusionremotesensing_tpu_torch.parallel.halo import site
 
 TAP44_LEVELS = (False, "conv2", True, "block", "stem", "l1")
 CONDITIONINGS = ("superres", "sar", "class", "none")
@@ -272,20 +273,25 @@ class ResidualAttentionUNet(nn.Module):
 
     # ------------------------------------------------------------ condition
 
-    def encode_cond(self, cond: torch.Tensor) -> torch.Tensor:
+    def encode_cond(self, cond: torch.Tensor, band=None) -> torch.Tensor:
         """Condition stem, NHWC in and out: RRDB encode, bicubic upsample
         (superres only), 3x3 conv. Loop-invariant during sampling: samplers
-        call it once."""
+        call it once. ``band``: a band of a spatial split
+        (``parallel.halo``), cond its rows."""
         if not self.image_conditioned:
             raise ValueError("encode_cond applies to the image-conditioned variants")
-        c = getattr(self, self._enc_name)(cond.to(self.dtype).permute(0, 3, 1, 2))
+        enc, conv = getattr(self, self._enc_name), getattr(self, self._cond_conv_name)
+        c = site(band, "encoder", enc, cond.to(self.dtype).permute(0, 3, 1, 2), dims=2)
         if self.conditioning == "superres":
-            c = upsample_bicubic(c.permute(0, 2, 3, 1), self.magnification_factor).permute(0, 3, 1, 2)
-        return getattr(self, self._cond_conv_name)(c).permute(0, 2, 3, 1)
+            def up(c):
+                c = upsample_bicubic(c.permute(0, 2, 3, 1), self.magnification_factor)
+                return conv(c.permute(0, 3, 1, 2))
+            return site(band, "cond_up", up, c, dims=2).permute(0, 2, 3, 1)
+        return site(band, "cond_conv", conv, c, dims=2).permute(0, 2, 3, 1)
 
-    def encode_cond_s2d(self, cond: torch.Tensor) -> torch.Tensor:
+    def encode_cond_s2d(self, cond: torch.Tensor, band=None) -> torch.Tensor:
         """:meth:`encode_cond` in space-to-depth layout (the s2d path's input)."""
-        return space_to_depth(self.encode_cond(cond))
+        return space_to_depth(self.encode_cond(cond, band))
 
     # ------------------------------------------------------------- forward
 
@@ -300,8 +306,26 @@ class ResidualAttentionUNet(nn.Module):
             t_emb = t_emb + lab
         return t_emb.to(self.dtype)
 
+    def check_spatial(self, train: bool = False) -> None:
+        """Raise NotImplementedError for a configuration a spatial split
+        (``parallel.halo``) does not run: the tap44 levels True, 'conv2' and
+        'l1', packed_head, a W8A8 quant map, training."""
+        quant = self.quant_sites.scales is not None or self.quant_sites.calib is not None
+        for what, refused in (("training", train), ("tap44=True", self.tap44 is True),
+                              (f"tap44={self.tap44!r}", self.tap44 in ("conv2", "l1")),
+                              ("packed_head", self._packed_tail), ("--quant int8", quant)):
+            if refused:
+                raise NotImplementedError(
+                    f"spatial sharding does not run {what} (ROADMAP Queue 1: tap_conv/"
+                    "tap_conv_pair, 'l1', packed_head and int8 under bands)")
+
     def forward(self, x, t, cond=None, cond_mask=None, cond_features=None, s2d_kernels=None,
-                s2d_io: bool = False, train: bool = False):
+                s2d_io: bool = False, train: bool = False, band=None):
+        """eps_hat of x (module docstring). ``band``: x (and cond or
+        cond_features) are one band's rows of a spatial split
+        (``parallel.halo.Band``); the result is that band's rows."""
+        if band is not None:
+            self.check_spatial(train)
         s2d = self.s2d_train if train else self.s2d
         if s2d and s2d_kernels is None:
             s2d_kernels = (self._s2d_kernels(self.dtype, train=True) if train
@@ -312,29 +336,40 @@ class ResidualAttentionUNet(nn.Module):
             return torch.func.functional_call(
                 self, self._compute_params(), (x, t, cond, cond_mask),
                 dict(cond_features=cond_features, s2d_kernels=s2d_kernels, s2d_io=s2d_io,
-                     train=train))
+                     train=train, band=band))
         t_emb = self.time_embedding(t, cond, cond_mask)
         if self.image_conditioned and cond_features is None:
             if cond is None:
                 raise ValueError(f"conditioning={self.conditioning!r} requires a condition image")
-            cond_features = self.encode_cond_s2d(cond) if s2d else self.encode_cond(cond)
+            cond_features = (self.encode_cond_s2d(cond, band) if s2d
+                             else self.encode_cond(cond, band))
         if s2d:
-            return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io, train)
+            return self._forward_s2d(x, t_emb, cond_features, s2d_kernels, s2d_io, train, band)
 
-        h = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
-        if cond_features is not None:
-            h = h + cond_features.to(self.dtype).permute(0, 3, 1, 2)
-        x_skip = h
-        residuals = []
-        for i, (block, down) in enumerate(zip(self.conv_blocks, self.downs)):
-            h = block(h, t_emb, x_skip if i == 0 else None, train)
-            residuals.append(h)
-            h = down(h)
-        h = self.bottle_neck(h, t_emb, train=train)
+        def stem(x, c):
+            h = self.conv0(x)
+            if c is not None:
+                h = h + c
+            return self.conv_blocks[0](h, t_emb, h, train)
+
+        # each spatial site through parallel.halo.site: a plain call without
+        # a band; its halo table gives each site's rows
+        c = None if cond_features is None else cond_features.to(self.dtype).permute(0, 3, 1, 2)
+        h = site(band, "stem", stem, x.to(self.dtype).permute(0, 3, 1, 2), c, dims=2)
+        residuals = [h]
+        for i, down in enumerate(self.downs):
+            h = site(band, "down", down, h, dims=2)
+            if i + 1 < len(self.conv_blocks):
+                block = self.conv_blocks[i + 1]
+                h = site(band, "block", lambda h, b=block: b(h, t_emb, None, train), h, dims=2)
+                residuals.append(h)
+        h = site(band, "block", lambda h: self.bottle_neck(h, t_emb, train=train), h, dims=2)
         for i in range(len(self.ups)):
             g = self.gating_signals[i](h, train)
             attn = self.attention_blocks[i](residuals[-(i + 1)], g, train=train)
-            h = self.up_convs[i](torch.cat([self.ups[i](h, t_emb, train), attn], dim=1))
+            up = site(band, "up", lambda h, u=self.ups[i]: u(h, t_emb, train), h, dims=2)
+            h = site(band, "up_conv", lambda u, a, c=self.up_convs[i]: c(torch.cat([u, a], dim=1)),
+                     up, attn, dims=2)
         return self.output(h).float().permute(0, 2, 3, 1)
 
     # ------------------------------------------------------- s2d execution
@@ -533,25 +568,28 @@ class ResidualAttentionUNet(nn.Module):
         return ((h - mean.repeat(n).to(dt)) * torch.rsqrt(var.repeat(n).to(dt) + bn.eps)
                 * bn.weight.repeat(n).to(dt) + bn.bias.repeat(n).to(dt))
 
-    def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io, train: bool = False):
+    def _forward_s2d(self, x, t_emb, cond_s2d, kern, s2d_io, train: bool = False, band=None):
         dt = self.dtype
         level = False if train else self.tap44
         xs = x.to(dt) if s2d_io else space_to_depth(x.to(dt))
         blk = self.conv_blocks[0]
         te4 = blk.time_bias(t_emb).repeat(1, 4)
+        cond_in = None if cond_s2d is None else cond_s2d.to(dt)
         if level == "stem":
             # conv0 + bias + cond and the whole block in one call; without a
             # condition image the kernel adds the bias alone
-            cond_in = None if cond_s2d is None else cond_s2d.to(dt).contiguous()
-            res0_s = tap_stem_block(xs.contiguous(), cond_in, te4.contiguous(), kern["conv0_b"],
-                                    kern["tap_stem"])
-            return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io)
-        h_s = self._qconv("s2d.conv0", xs, kern["conv0"], kern["conv0_b"], padding=1)
-        if cond_s2d is not None:
-            h_s = h_s + cond_s2d.to(dt)
-        if level in ("block", "l1"):
-            res0_s = tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
-        else:
+            def stem(xs, c):
+                return tap_stem_block(xs.contiguous(), None if c is None else c.contiguous(),
+                                      te4.contiguous(), kern["conv0_b"], kern["tap_stem"])
+            res0_s = site(band, "stem_s2d", stem, xs, cond_in)
+            return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io, band=band)
+
+        def stem(xs, c):
+            h_s = self._qconv("s2d.conv0", xs, kern["conv0"], kern["conv0_b"], padding=1)
+            if c is not None:
+                h_s = h_s + c
+            if level in ("block", "l1"):
+                return tap_block(h_s.contiguous(), te4.contiguous(), kern["tap_block"])
             if train:
                 def norm(h, bn, key):
                     return self._bn_s2d_train(h, bn)
@@ -573,8 +611,10 @@ class ResidualAttentionUNet(nn.Module):
                 h = self._qconv("s2d.blk_conv2", h, kern["blk_conv2"], kern["blk_b2"], padding=1)
             h = norm(h, blk.batch_norm2, "bn1")
             s = self._qconv("s2d.blk_short", h_s, kern["blk_short"], kern["blk_bsh"])
-            res0_s = torch.relu(norm(s, blk.shortcut_batch_norm, "bn2") + h)
-        return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io, train)
+            return torch.relu(norm(s, blk.shortcut_batch_norm, "bn2") + h)
+
+        res0_s = site(band, "stem_s2d", stem, xs, cond_in)
+        return self._forward_s2d_tail(res0_s, t_emb, kern, s2d_io, train, band)
 
     def _gate_s2d_kernels(self, gate: int) -> dict:
         """The s2d kernels of attention gate ``gate`` (2, or 1 under 'l1'),
@@ -618,12 +658,12 @@ class ResidualAttentionUNet(nn.Module):
         hh = up.conv(h + up.time_bias(t_emb)[:, :, None, None]).permute(0, 2, 3, 1)
         return torch.relu(self._bn_s2d_train(hh, up.batch_norm, taps=False))
 
-    def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io, train: bool = False):
+    def _forward_s2d_tail(self, res0_s, t_emb, kern, s2d_io, train: bool = False, band=None):
         """Everything after ResConvBlock-0: down0 out of s2d, levels 1+
         through the ordinary modules (level 1 in s2d under 'l1'), up stage 2
         and the composed head (through the fused kernels where
         ``dec_block`` / ``fused_att`` / ``packed_head`` ask, never in
-        training)."""
+        training). ``band``: each spatial site through ``parallel.halo``."""
         l1 = self.tap44 == "l1" and not train
         dec, fused_att = self.dec_block and not train, self.fused_att and not train
         packed = self._packed_tail and not train
@@ -638,61 +678,75 @@ class ResidualAttentionUNet(nn.Module):
                             padding=((1, 0), (1, 0)))
             h = h.permute(0, 3, 1, 2)
         else:
-            h = self._qconv("s2d.down0", res0_s, kern["down0"], kern["down0_b"],
-                            padding=((1, 0), (1, 0)))
+            h = site(band, "down0_s2d",
+                     lambda r: self._qconv("s2d.down0", r, kern["down0"], kern["down0_b"],
+                                           padding=((1, 0), (1, 0))), res0_s)
             h = h.permute(0, 3, 1, 2)
-            res1 = h = self.conv_blocks[1](h, t_emb, train=train)
-            h = self.downs[1](h)
-        res2 = h = self.conv_blocks[2](h, t_emb, train=train)
-        h = self.downs[2](h)
-        h = self.bottle_neck(h, t_emb, train=train)
+            res1 = h = site(band, "block", lambda h: self.conv_blocks[1](h, t_emb, train=train),
+                            h, dims=2)
+            h = site(band, "down", self.downs[1], h, dims=2)
+        res2 = h = site(band, "block", lambda h: self.conv_blocks[2](h, t_emb, train=train), h,
+                        dims=2)
+        h = site(band, "down", self.downs[2], h, dims=2)
+        h = site(band, "block", lambda h: self.bottle_neck(h, t_emb, train=train), h, dims=2)
         g = self.gating_signals[0](h, train)
         attn = self.attention_blocks[0](res2, g, kern.get("gate0"), train)
-        h = self.up_convs[0](torch.cat([self.ups[0](h, t_emb, train), attn], dim=1))
+        up = site(band, "up", lambda h: self.ups[0](h, t_emb, train), h, dims=2)
+        h = site(band, "up_conv", lambda u, a: self.up_convs[0](torch.cat([u, a], dim=1)), up,
+                 attn, dims=2)
         if l1:
             g = self.gating_signals[1](h).permute(0, 2, 3, 1)
             attn = depth_to_space(self._attention_s2d(res1_s, g, kern, gate=1)).permute(0, 3, 1, 2)
         else:
             g = self.gating_signals[1](h, train)
             attn = self.attention_blocks[1](res1, g, kern.get("gate1"), train)
-        hup = self.ups[1](h, t_emb, train)
-        if dec:
-            # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one call;
-            # h comes back NHWC for the gating branch, hh only as its strips
-            h, hh_row0, hh_col0, out_s = dec_block_kernel(
-                hup.permute(0, 2, 3, 1).contiguous(), attn.permute(0, 2, 3, 1).contiguous(),
-                self.ups[2].time_bias(t_emb).contiguous(), kern["dec"])
-            h = h.permute(0, 3, 1, 2)
-        else:
-            h = self.up_convs[1](torch.cat([hup, attn], dim=1))
-            hh = self._up2_body_train(h, t_emb) if train else self._up2_body(h, t_emb)
-            if not packed:
-                out_s = self._qconv("s2d.head_up4", hh, kern["head_up4"], padding=((1, 2), (1, 2)))
-            hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
+        hup = site(band, "up", lambda h: self.ups[1](h, t_emb, train), h, dims=2)
 
-        if fused_att:
-            # gating2 + attention gate 2 + head_at in one call: attn_s never
-            # exists outside the kernel
-            out_s = out_s + att_head_block(res0_s.contiguous(),
-                                           h.permute(0, 2, 3, 1).contiguous(), kern["att_fused"])
-        else:
-            g = self.gating_signals[2](h, train).permute(0, 2, 3, 1)
-            attn_s = self._attention_s2d(res0_s, g, kern, train=train)
-            if packed:
-                # head_up4 on hh + head_at on attn_s in one call
-                kp = kern["packed_head"]
-                out_s = packed_head_kernel(hh.contiguous(), attn_s.contiguous(), kp["up4"],
-                                           kp["at"])
+        def head(hup, attn, res0_s):
+            if dec:
+                # stage-1 concat conv + UpConvBlock-2 body + head_up4 in one
+                # call; h comes back NHWC for the gating branch, hh only as
+                # its strips
+                h, hh_row0, hh_col0, out_s = dec_block_kernel(
+                    hup.permute(0, 2, 3, 1).contiguous(), attn.permute(0, 2, 3, 1).contiguous(),
+                    self.ups[2].time_bias(t_emb).contiguous(), kern["dec"])
+                h = h.permute(0, 3, 1, 2)
             else:
-                out_s = out_s + self._qconv("s2d.head_at", attn_s, kern["head_at"], padding=1)
-        # boundary corrections: the composed conv sees hh's padding through
-        # intermediate row/column -1, which the uncomposed head zeroed
-        out_s[:, :1] -= self._qconv("s2d.head_fix_x", hh_row0, kern["head_fix_x"],
-                                    padding=((0, 0), (1, 2)))
-        out_s[:, :, :1] -= self._qconv("s2d.head_fix_y", hh_col0, kern["head_fix_y"],
-                                       padding=((1, 2), (0, 0)))
-        out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]
-        out_s = out_s.float() + self._bias_frame(kern, out_s.shape[1], out_s.shape[2])
+                h = self.up_convs[1](torch.cat([hup, attn], dim=1))
+                hh = self._up2_body_train(h, t_emb) if train else self._up2_body(h, t_emb)
+                if not packed:
+                    out_s = self._qconv("s2d.head_up4", hh, kern["head_up4"],
+                                        padding=((1, 2), (1, 2)))
+                hh_row0, hh_col0 = hh[:, :1], hh[:, :, :1]
+
+            if fused_att:
+                # gating2 + attention gate 2 + head_at in one call: attn_s
+                # never exists outside the kernel
+                out_s = out_s + att_head_block(res0_s.contiguous(),
+                                               h.permute(0, 2, 3, 1).contiguous(),
+                                               kern["att_fused"])
+            else:
+                g = self.gating_signals[2](h, train).permute(0, 2, 3, 1)
+                attn_s = self._attention_s2d(res0_s, g, kern, train=train)
+                if packed:
+                    # head_up4 on hh + head_at on attn_s in one call
+                    kp = kern["packed_head"]
+                    out_s = packed_head_kernel(hh.contiguous(), attn_s.contiguous(), kp["up4"],
+                                               kp["at"])
+                else:
+                    out_s = out_s + self._qconv("s2d.head_at", attn_s, kern["head_at"], padding=1)
+            # boundary corrections: the composed conv sees hh's padding
+            # through intermediate row/column -1, which the uncomposed head
+            # zeroed (on a band's halo rows when the band is not the
+            # image's top: cropped)
+            out_s[:, :1] -= self._qconv("s2d.head_fix_x", hh_row0, kern["head_fix_x"],
+                                        padding=((0, 0), (1, 2)))
+            out_s[:, :, :1] -= self._qconv("s2d.head_fix_y", hh_col0, kern["head_fix_y"],
+                                           padding=((1, 2), (0, 0)))
+            out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]
+            return out_s.float() + self._bias_frame(kern, out_s.shape[1], out_s.shape[2])
+
+        out_s = site(band, "head", head, hup, attn, res0_s, dims=(2, 2, 1), out_dims=1)
         return out_s if s2d_io else depth_to_space(out_s)
 
 

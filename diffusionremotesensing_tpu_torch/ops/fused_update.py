@@ -10,7 +10,11 @@ uniform in [1, 2)). The words come from a Philox4x32-10 generator keyed by
 two seed words; its counter holds the quad index and the step, and one
 call gives the four words of four neighbouring elements (``quad0`` starts
 the quad index of a slice where the slice starts in the whole state, so
-that a chunk split over devices draws the whole chunk's noise): each word pair
+that a chunk split over devices draws the whole chunk's noise; with
+``item_quads`` x is a band of rows of each of its items, an image split over
+devices by height, and quad q of x is quad ``quad0 + (q // band) *
+item_quads + q % band`` of the whole state, band the quads of one item in
+x): each word pair
 (w0, w1) and (w2, w3) gives both of its Box-Muller outputs, r cos and
 r sin (``csrc/ancestral_update.cu`` states the layout). Given ``bits`` (two
 planes shaped like x, uint32 viewed as int32) replace the generator, as
@@ -88,12 +92,27 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_bits_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
+def state_quads(nq: int, quad0: int = 0, item_quads: Optional[int] = None,
+                band_quads: Optional[int] = None, device=None) -> torch.Tensor:
+    """The whole state's quad index of each of x's nq quads (int64): quad0 +
+    q for a contiguous slice; for a band of ``band_quads`` quads of each item
+    of ``item_quads`` quads, quad0 + (q // band_quads) * item_quads + q %
+    band_quads."""
+    q = torch.arange(nq, dtype=torch.int64, device=device)
+    if item_quads is not None and band_quads != item_quads:
+        q = q // band_quads * item_quads + q % band_quads
+    return q + quad0
+
+
+def philox_bits_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0,
+                      item_quads: Optional[int] = None,
+                      band_quads: Optional[int] = None) -> torch.Tensor:
     """The generator's words for elements [0, n) at ``step``, by quad:
     (ceil(n / 4), 4) int64 in [0, 2**32), row q the four words of elements
-    4q .. 4q + 3, from counter (quad0 + q low, high, step, 0). seed: (2,)
-    int64 words."""
-    q = torch.arange(quad0, quad0 + (n + 3) // 4, dtype=torch.int64, device=seed.device)
+    4q .. 4q + 3, from counter (Q low, Q high, step, 0), Q the whole state's
+    index of quad q (:func:`state_quads`: quad0 + q, or the band layout of
+    ``item_quads`` and ``band_quads``). seed: (2,) int64 words."""
+    q = state_quads((n + 3) // 4, quad0, item_quads, band_quads, seed.device)
     key = seed.to(torch.int64) & _MASK
     words = philox4x32_10(q & _MASK, q >> 32, torch.full_like(q, step & _MASK),
                           torch.zeros_like(q), key[0], key[1])
@@ -123,25 +142,40 @@ def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return box_muller(b1, b2)[0]
 
 
-def philox_normal_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
+def philox_normal_plain(seed: torch.Tensor, step: int, n: int, quad0: int = 0,
+                        item_quads: Optional[int] = None,
+                        band_quads: Optional[int] = None) -> torch.Tensor:
     """The noise of elements [0, n) at ``step``, float32 (n,): quad q's
     words (w0, w1, w2, w3) give z[4q], z[4q + 1] as (w0, w1)'s cos and sin
-    outputs and z[4q + 2], z[4q + 3] as (w2, w3)'s; the quads counted from
-    ``quad0``."""
-    w = philox_bits_plain(seed, step, n, quad0)
+    outputs and z[4q + 2], z[4q + 3] as (w2, w3)'s; the quads laid out as
+    :func:`philox_bits_plain` takes them."""
+    w = philox_bits_plain(seed, step, n, quad0, item_quads, band_quads)
     c01, s01 = box_muller(w[:, 0], w[:, 1])
     c23, s23 = box_muller(w[:, 2], w[:, 3])
     return torch.stack([c01, s01, c23, s23], dim=1).reshape(-1)[:n]
 
 
+def _band_quads(x: torch.Tensor, item_quads: Optional[int]) -> Optional[int]:
+    """The quads of one item in x, a band of rows of its items when
+    ``item_quads`` is given (None otherwise); raises unless each item's band
+    is whole quads and no more than an item."""
+    if item_quads is None:
+        return None
+    per_item = x[0].numel() if x.dim() else 0
+    if x.dim() < 2 or per_item % 4 or not 0 < per_item // 4 <= item_quads:
+        raise ValueError(f"ancestral_update: a band of {tuple(x.shape)} needs whole quads of "
+                         f"each item ({per_item} elements) and at most item_quads={item_quads}")
+    return per_item // 4
+
+
 def ancestral_update_plain(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
                            seed: Optional[torch.Tensor], step: int,
                            bits: Optional[torch.Tensor] = None,
-                           quad0: int = 0) -> torch.Tensor:
+                           quad0: int = 0, item_quads: Optional[int] = None) -> torch.Tensor:
     """The update in ``torch`` ops, float32 math, output in x's dtype."""
     n = x.numel()
     if bits is None:
-        z = philox_normal_plain(seed, step, n, quad0)
+        z = philox_normal_plain(seed, step, n, quad0, item_quads, _band_quads(x, item_quads))
     else:
         b = bits.reshape(2, n).to(torch.int64) & _MASK
         z = bits_to_normal(b[0], b[1])
@@ -155,10 +189,10 @@ def _library():
     lib = cuda_build.load("ancestral_update")
     lib.ancestral_update_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_float] * 3
-        + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_uint] + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
     lib.ancestral_update_launch.restype = ctypes.c_int
     lib.philox_bits_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                       ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p]
+                                       ctypes.c_uint] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     lib.philox_bits_launch.restype = ctypes.c_int
     return lib
 
@@ -193,18 +227,23 @@ def _stream(device):
 
 def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
                      seed: Optional[torch.Tensor], step: int,
-                     bits: Optional[torch.Tensor] = None, quad0: int = 0) -> torch.Tensor:
+                     bits: Optional[torch.Tensor] = None, quad0: int = 0,
+                     item_quads: Optional[int] = None) -> torch.Tensor:
     """x' = ca*x - cb*eps + cn*z. CUDA tensors launch
     ``csrc/ancestral_update.cu`` (each launch adds one to
     ``ancestral_update.launches``); CPU tensors run
     :func:`ancestral_update_plain`. coefs from :func:`update_coefs`; seed
     from :func:`draw_seed` (unused when bits are given); step the sampler's
     step index, which enters the generator's counter; quad0 the quad index
-    of x's first element in the whole state (x a slice of it)."""
+    of x's first element in the whole state (x a slice of it). With
+    ``item_quads`` (the quads of one whole item of the state) x is a band of
+    rows of each of its items and quad0 the quads before the band's first
+    row (module docstring)."""
     if quad0 < 0:
         raise ValueError(f"ancestral_update: quad0 must be >= 0, got {quad0}")
+    band_quads = _band_quads(x, item_quads)
     if x.device.type == "cpu":
-        return ancestral_update_plain(x, eps, coefs, seed, step, bits, quad0)
+        return ancestral_update_plain(x, eps, coefs, seed, step, bits, quad0, item_quads)
     if x.device.type != "cuda":
         raise ValueError(f"ancestral_update runs on cuda or cpu tensors, got {x.device}")
     _check(x, eps, seed, bits)
@@ -214,7 +253,8 @@ def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
         rc = _library().ancestral_update_launch(
             x.data_ptr(), eps.data_ptr(), None if bits is None else bits.data_ptr(),
             None if seed is None else seed.data_ptr(), out.data_ptr(), x.numel(), ca, cb, cn,
-            step & 0xFFFFFFFF, int(quad0), int(x.dtype == torch.bfloat16), _stream(x.device))
+            step & 0xFFFFFFFF, int(quad0), int(item_quads or 0), int(band_quads or 0),
+            int(x.dtype == torch.bfloat16), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"ancestral_update launch failed with CUDA error {rc}")
     with _COUNT_LOCK:
@@ -225,19 +265,22 @@ def ancestral_update(x: torch.Tensor, eps: torch.Tensor, coefs: Sequence[float],
 ancestral_update.launches = 0
 
 
-def philox_bits(seed: torch.Tensor, step: int, n: int, quad0: int = 0) -> torch.Tensor:
+def philox_bits(seed: torch.Tensor, step: int, n: int, quad0: int = 0,
+                item_quads: Optional[int] = None,
+                band_quads: Optional[int] = None) -> torch.Tensor:
     """The words :func:`ancestral_update` draws for elements [0, n) at
-    ``step`` (the quads counted from ``quad0``), by quad as (ceil(n / 4), 4)
-    int64 in [0, 2**32): from the kernel's own generator for a CUDA seed,
-    from :func:`philox_bits_plain` for a CPU one. For checking the
-    generator; the sampler never calls it."""
+    ``step`` (the quads laid out as :func:`philox_bits_plain` takes them), by
+    quad as (ceil(n / 4), 4) int64 in [0, 2**32): from the kernel's own
+    generator for a CUDA seed, from :func:`philox_bits_plain` for a CPU one.
+    For checking the generator; the sampler never calls it."""
     if seed.device.type == "cpu":
-        return philox_bits_plain(seed, step, n, quad0)
+        return philox_bits_plain(seed, step, n, quad0, item_quads, band_quads)
     _check_seed(seed, seed.device)
     out = torch.empty(((n + 3) // 4, 4), dtype=torch.int32, device=seed.device)
     with torch.cuda.device(seed.device):
         rc = _library().philox_bits_launch(seed.data_ptr(), out.data_ptr(), n,
-                                           step & 0xFFFFFFFF, int(quad0), _stream(seed.device))
+                                           step & 0xFFFFFFFF, int(quad0), int(item_quads or 0),
+                                           int(band_quads or 0), _stream(seed.device))
     if rc != 0:
         raise RuntimeError(f"philox_bits launch failed with CUDA error {rc}")
     return out.to(torch.int64) & _MASK

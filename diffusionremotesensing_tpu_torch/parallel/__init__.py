@@ -9,4 +9,5 @@ from diffusionremotesensing_tpu_torch.parallel.sharding import (  # noqa: F401
     make_mesh,
     replicated_sharding,
     shard_batch,
+    spatial_sharding,
 )

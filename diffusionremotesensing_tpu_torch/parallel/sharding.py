@@ -25,6 +25,12 @@ two mechanisms here, both named by one :class:`Mesh`:
 ``Mesh.size`` counts the replicas of the whole mesh, ranks times local
 devices, as ``mesh.devices.size`` does in the JAX package.
 :func:`is_main_process` is the reference's rank-0 guard for writes.
+
+:func:`spatial_sharding` names the other placement of the JAX package's
+mesh: one image's height split into equal bands over the mesh's devices
+(local devices in one process, or one device a rank of a process group),
+each band a replica of the model that exchanges halo rows with its
+neighbours (``parallel.halo``). The samplers take it beside ``mesh=``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "initialize_distributed", "process_device", "local_devices", "make_mesh",
            "batch_sharding", "shard_batch", "split_rows", "replicated_sharding",
-           "global_replicated", "all_gather_rows", "is_main_process"]
+           "global_replicated", "all_gather_rows", "is_main_process", "SpatialSharding",
+           "spatial_sharding"]
 
 # the backend of each device type; there is no other choice and no fallback
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -136,6 +143,52 @@ def split_rows(n: int, parts: int) -> List[Tuple[int, int]]:
                          f"multiple of the mesh size")
     k = n // parts
     return [(i * k, (i + 1) * k) for i in range(parts)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialSharding:
+    """One image's height split over ``mesh``: band i of ``mesh.size`` holds
+    rows :meth:`band_rows` ``(H)[i]`` of every image-like tensor of a
+    sampler call (x_T, the condition image, the state, the noise); band i
+    lives on rank i // len(devices), local device i % len(devices)."""
+
+    mesh: Mesh
+
+    @property
+    def bands(self) -> int:
+        return self.mesh.size
+
+    def band_rows(self, height: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of each band's rows of an image of ``height`` rows; raises
+        unless the height is a multiple of 8 x the mesh size (the UNet's
+        three stride-2 stages: every band starts on an even row at each of
+        levels 0-2 and holds whole rows at 1/8)."""
+        n = self.bands
+        if height % (8 * n):
+            raise ValueError(f"spatial sharding: the image height {height} must be a multiple of "
+                             f"8 x the mesh size ({8 * n}): the UNet downsamples by 8 and every "
+                             "band must start on an even row of each level")
+        return split_rows(height, n)
+
+    def local_bands(self) -> List[int]:
+        """The bands this process holds, one a local device."""
+        m = self.mesh
+        if m.world > 1 and len(m.devices) > 1:
+            raise NotImplementedError("spatial sharding over a process group takes one device a "
+                                      "rank (ROADMAP Queue 1: spatial partitioning, what stays "
+                                      "out)")
+        local = len(m.devices)
+        return list(range(m.rank * local, (m.rank + 1) * local))
+
+
+def spatial_sharding(mesh: Mesh) -> SpatialSharding:
+    """Split the image HEIGHT of a sampler call over ``mesh``: the JAX
+    package's ``spatial_sharding`` (its ``P(None, axis)`` on NHWC tensors),
+    where XLA writes the convolutions' halo exchanges; here each band runs
+    the model on its rows and ``parallel.halo`` exchanges the halos. Pass it
+    as ``spatial=`` to ``DiffusionProcess.sampler``, ``ddim_sampler`` or
+    ``sample``. The height must be a multiple of 8 x ``mesh.size``."""
+    return SpatialSharding(mesh)
 
 
 def batch_sharding(mesh: Optional[Mesh]) -> Tuple[int, int]:

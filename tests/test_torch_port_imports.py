@@ -173,6 +173,23 @@ def test_the_fused_path_modules_are_guarded():
         assert mod.replace("/", os.sep) in checked
 
 
+def test_the_spatial_modules_are_guarded():
+    """The import guards walk parallel/halo.py (the halo exchanges) and
+    parallel/sharding.py (spatial_sharding); importing the halo module in a
+    fresh interpreter loads nothing forbidden."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("parallel/halo.py", "parallel/sharding.py"):
+        assert mod.replace("/", os.sep) in checked
+    code = ("import sys\n"
+            "from diffusionremotesensing_tpu_torch.parallel.halo import HALOS, Band, site\n"
+            "from diffusionremotesensing_tpu_torch.parallel.sharding import spatial_sharding\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_checks_every_cuda_source():
     """chip_smoke.py builds, checks and counts a kernel for every CUDA
     source of the port."""

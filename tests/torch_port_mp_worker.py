@@ -20,6 +20,10 @@ temporary directory. Each runs every scenario once and saves what it saw to
 * ``tile``: an aggregation tile split over the ranks (an all-gather
   assembles each chunk) and the same tile in the rank alone.
 
+:func:`run_spatial` is the rank of tests/test_torch_port_spatial.py's
+2-process group: one image's height split over the ranks
+(``spatial_sharding``), saved to ``spatial<r>.pt``.
+
 Imports only torch, numpy and the port (no JAX), so that a spawned rank
 starts quickly.
 """
@@ -219,4 +223,37 @@ def run(rank, world, workdir):
     out.update(_tensor(rank, inputs))
     out.update(_tile(rank, mesh))
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_spatial(rank, world, workdir):
+    """Rank ``rank`` of ``world`` for tests/test_torch_port_spatial.py: join
+    the group, sample the image of ``spatial_inputs.pt`` (the weights, x_T,
+    cond, the model's flags and the generator's seed) with its height
+    split over the ranks (``spatial_sharding``: one band a rank, halos by
+    ``batch_isend_irecv`` under gloo), DDPM and DDIM, and save what this
+    rank got to ``spatial<r>.pt``."""
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    import torch
+
+    torch.set_num_threads(1)
+    from diffusionremotesensing_tpu_torch.diffusion import make_process
+    from diffusionremotesensing_tpu_torch.parallel.sharding import (
+        initialize_distributed,
+        make_mesh,
+        spatial_sharding,
+    )
+
+    assert initialize_distributed("cpu", init_method="file://" + os.path.join(workdir, "store"))
+    inputs = torch.load(os.path.join(workdir, "spatial_inputs.pt"), weights_only=False)
+    model = _model(inputs["flags"])
+    model.load_state_dict(inputs["state"])
+    proc = make_process(model.eval(), "linear", inputs["steps"], inputs["x_T"].shape[1])
+    spatial = spatial_sharding(make_mesh(["cpu"]))
+    gen = lambda: torch.Generator().manual_seed(inputs["seed"])  # noqa: E731
+    out = {"ddpm": proc.sampler(spatial=spatial)(inputs["x_T"], inputs["cond"], generator=gen()),
+           "ddim": proc.ddim_sampler(3, spatial=spatial)(inputs["x_T"], inputs["cond"],
+                                                         generator=gen()),
+           "bands": spatial.bands, "local": spatial.local_bands()}
+    torch.save(out, os.path.join(workdir, f"spatial{rank}.pt"))
     torch.distributed.destroy_process_group()

@@ -237,7 +237,24 @@ Phases, each printing one line with its name, seconds and result:
              distance from one device printed; (e) two processes on the card
              in a gloo group over CUDA tensors, one band a rank, halos by
              batch_isend_irecv: the DDIM-100 image against (a)'s one-device
-             image within TILE_TOL. The seconds of each run.
+             image within TILE_TOL; and the configurations whose kernels
+             run inside a chain on an extended band, the same snapshot:
+             (f) tap44=True (tap_conv_pair, tap_conv), 'conv2' (tap_conv),
+             'l1' (tap_block twice a forward) and 'block' with packed_head,
+             float32 DDIM-SPATIAL_LEVEL_STEPS on one device and split in 2
+             and 4, each within TILE_TOL (seams on their own) with launches
+             exactly k times one device's; (g) 'l1' in bfloat16 split in 2:
+             finite, its distance printed; (h) int8 on 'l1':
+             quantize_for_sampling on the image split in 2 against one
+             device's, every scale within INT8_SCALE_RTOL, the quantized
+             DDIM-SPATIAL_INT8_STEPS sampler split in 2 against one
+             device's (distance printed), and one site's int32
+             accumulators on band 1's quantized input bitwise the plain
+             int32 product's; (i) tap_conv, tap_conv_pair, tap_block at
+             level 1 and packed_head against their plain versions at the
+             row counts the bands give at HR 512 (first, inner and last
+             band, k = 2 and 4, parallel.halo.HALOS), float32 and bfloat16.
+             The seconds of each run.
 13. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
@@ -350,6 +367,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (  # noqa: E402
     tap_stem_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic  # noqa: E402
+from diffusionremotesensing_tpu_torch.parallel.halo import band_row_counts  # noqa: E402
 from diffusionremotesensing_tpu_torch.parallel.sharding import (  # noqa: E402
     make_mesh,
     process_device,
@@ -1614,8 +1632,8 @@ def _int8_accumulators(proc, lr, dev):
     captured, current = {}, {}
     sites, real_acc = proc.net.quant_sites, quant.conv_int8_acc
 
-    def amax(name, x):
-        a = type(sites).amax(sites, name, x)
+    def amax(name, x, rows, top=False):
+        a = type(sites).amax(sites, name, x, rows, top)
         current["name"] = name if a is not None else None
         return a
 
@@ -2092,6 +2110,17 @@ SPATIAL_HR = 512       # one whole x2 image: LR 256 -> HR 512, B = 1
 SPATIAL_BANDS = (2, 4)  # bands of the float32 DDIM-100 split, all on the one card
 SPATIAL_START_T = 250   # the fused chain's warm start: 250 ancestral_update launches a band
 SPATIAL_SEAM = 3        # rows each side of a seam whose difference is read on its own
+# (f): the configurations whose kernels run inside a chain on an extended
+# band, at half (a)'s DDIM steps to keep the phase's time (4 configurations x
+# 1 + 2 + 4 bands)
+SPATIAL_LEVELS = ("tap", "conv2", "l1", "packed")
+SPATIAL_LEVEL_STEPS = 50
+SPATIAL_INT8_STEPS = 20  # (h): the quantized sampler's DDIM steps
+# (h): each scale of the split calibration against one device's, relative:
+# the max |x| of one activation computed by cuDNN at the bands' shapes and
+# the whole image's (TF32 off), a few float32 ulps apart
+INT8_SCALE_RTOL = 1e-5
+INT8_BAND_SITE = "s2d.down0s"  # (h): the site whose accumulators band 1 gives
 
 
 def _sp_inputs(dev):
@@ -2105,12 +2134,12 @@ def _sp_inputs(dev):
     return x_T, lr.to(dev)
 
 
-def _sp_process(dev, dtype=torch.float32):
-    """The quality phase's x2 snapshot in the 'stem' configuration at HR 512
-    (tap_stem_block, the gates, att_head_block, dec_block), computing in
-    `dtype`."""
+def _sp_process(dev, dtype=torch.float32, config="stem"):
+    """The quality phase's x2 snapshot at HR 512 in configuration `config`
+    (CONFIGS; 'stem': tap_stem_block, the gates, att_head_block,
+    dec_block), computing in `dtype`."""
     sd, _ = load_snapshot(QUALITY_SNAPSHOT)
-    m = FACTORIES["superres"](**CONFIGS["stem"])
+    m = FACTORIES["superres"](**CONFIGS[config])
     m.load_state_dict(sd, strict=True)
     return make_process(m.to(dev).eval(), "cosine", T_STEPS, SPATIAL_HR, dtype=dtype)
 
@@ -2228,6 +2257,195 @@ def _sp_group(dev, x_T, lr, one):
             "seam_max_abs_diff": seam}
 
 
+def _sp_splits(proc, name, steps, x_T, lr, dev, bands, tally, what):
+    """float32 DDIM-`steps` of `proc` (configuration `name`) on one device
+    and split in k bands over [cuda:0] * k for each k of `bands`: each split
+    within TILE_TOL of one device, the seam rows read on their own; one
+    device's launches per_forward(name) x steps, each split's exactly k
+    times them. Returns (the record, one device's image)."""
+    one, s_one, c_one = _sp_run(proc.ddim_sampler(steps, clip_x0=True), x_T, lr)
+    want = {k: n * steps for k, n in per_forward(name).items()}
+    check(c_one == want, f"spatial {what} {name}: one device launched {c_one}, expected {want}")
+    tally(c_one)
+    rec = {"ddim_steps": steps, "one_device": {"seconds": s_one, "launches": _nonzero(c_one)}}
+    for k in bands:
+        spatial = spatial_sharding(make_mesh([process_device(dev.type)] * k))
+        out, secs, counts = _sp_run(proc.ddim_sampler(steps, clip_x0=True, spatial=spatial),
+                                    x_T, lr)
+        err = float(np.abs(out - one).max())
+        seam = float(np.abs(out[:, _sp_seam_rows(k)] - one[:, _sp_seam_rows(k)]).max())
+        check(out.shape == one.shape and np.isfinite(out).all() and err <= TILE_TOL,
+              f"spatial {what} {name}, {k} bands: differs from one device by {err} (seams {seam})")
+        check(counts == {n: k * v for n, v in c_one.items()},
+              f"spatial {what} {name}, {k} bands: launches {counts}, one device {c_one}")
+        tally(counts)
+        rec[f"bands_{k}"] = {
+            "seconds": secs, "max_abs_diff": err, "seam_max_abs_diff": seam,
+            "launches": _nonzero(counts), "launches_per_band_equal_one_device": True}
+    return rec, one
+
+
+def _sp_bf16(dev, config, steps, x_T, lr, tally, what):
+    """bfloat16 DDIM-`steps` of the snapshot in `config`, one device and
+    split in 2: the split finite with launches 2 x one device's; its
+    distance from one device's image."""
+    proc16 = _sp_process(dev, torch.bfloat16, config)
+    spatial2 = spatial_sharding(make_mesh([process_device(dev.type)] * 2))
+    b_one, bs_one, bc_one = _sp_run(proc16.ddim_sampler(steps, clip_x0=True), x_T, lr)
+    b_two, bs_two, bc_two = _sp_run(
+        proc16.ddim_sampler(steps, clip_x0=True, spatial=spatial2), x_T, lr)
+    check(np.isfinite(b_two).all() and bc_two == {name: 2 * v for name, v in bc_one.items()},
+          f"spatial {what}: bf16 {config} split finite {np.isfinite(b_two).all()}, launches "
+          f"{bc_two}, one device {bc_one}")
+    tally(bc_one)
+    tally(bc_two)
+    del proc16
+    torch.cuda.empty_cache()
+    return {"config": config, "ddim_steps": steps, "seconds_one_device": bs_one,
+            "seconds_split": bs_two, "max_abs_diff": float(np.abs(b_two - b_one).max()),
+            "seam_max_abs_diff": float(np.abs(b_two[:, _sp_seam_rows(2)]
+                                              - b_one[:, _sp_seam_rows(2)]).max()),
+            "launches_split": _nonzero(bc_two)}
+
+
+def _sp_band_accumulators(proc, x_T, lr, spatial):
+    """(h) One quantized forward split over `spatial` (a DDIM-1 call):
+    INT8_BAND_SITE's int32 accumulators on band 1's quantized input (its
+    extended rows) as the card computed them (torch._int_mm), against the
+    exact plain product of the same int8 operands: equal bitwise."""
+    sites, real_acc = proc.net.quant_sites, quant.conv_int8_acc
+    current, captured = threading.local(), {}
+
+    def amax(name, x, rows, top=False):
+        current.name = name
+        return type(sites).amax(sites, name, x, rows, top)
+
+    def acc(xq, wq, stride=1, padding=0, lhs_dilation=1, matmul=quant.int8_matmul):
+        out = real_acc(xq, wq, stride, padding, lhs_dilation, matmul)
+        if (getattr(current, "name", None) == INT8_BAND_SITE
+                and threading.current_thread().name == "band-1"):
+            captured.setdefault("band1", (xq, wq, stride, padding, lhs_dilation, out))
+        return out
+
+    sites.amax, quant.conv_int8_acc = amax, acc
+    try:
+        proc.ddim_sampler(1, clip_x0=True, spatial=spatial)(x_T, lr)
+        torch.cuda.synchronize()
+    finally:
+        del sites.amax
+        quant.conv_int8_acc = real_acc
+    check("band1" in captured, f"spatial (h): band 1 never reached {INT8_BAND_SITE}")
+    xq, wq, stride, padding, dil, got = captured["band1"]
+    plain = real_acc(xq.cpu(), wq.cpu(), stride, padding, dil, quant.int8_matmul_plain)
+    check(got.dtype == torch.int32 and torch.equal(got.cpu(), plain),
+          f"spatial (h): {INT8_BAND_SITE}'s accumulators on band 1 differ from the exact product")
+    return {"site": INT8_BAND_SITE, "band": 1, "input_rows": int(xq.shape[1]),
+            "M": int(got.numel() // got.shape[-1]), "K": int(wq[0].numel()),
+            "N": int(wq.shape[0]), "bitwise_equal": True}
+
+
+def _sp_int8(proc, x_T, lr, dev, tally):
+    """(h) W8A8 on `proc` ('l1', float32): quantize_for_sampling on the image
+    one device and split in 2 (CALIB_PROBES probes, the tap44 level and the
+    dense branch), every scale within INT8_SCALE_RTOL and the calibration's
+    launches 2 x; the quantized DDIM-SPATIAL_INT8_STEPS sampler split in 2
+    against one device's (finite, launches 2 x, distance recorded); one
+    site's accumulators on a band bitwise. The quant map is detached
+    after."""
+    spatial2 = spatial_sharding(make_mesh([process_device(dev.type)] * 2))
+    x0 = upsample_bicubic(lr, 2)
+    maps, secs, calib_counts = [], [], []
+    for sp in (None, spatial2):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        maps.append(quant.quantize_for_sampling(
+            proc.net, proc.schedule.alpha_hat, x0, lr,
+            torch.Generator(device=dev).manual_seed(SEED + 11), spatial=sp))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        calib_counts.append(read_counts())
+    check(set(maps[0]) == set(maps[1]) and INT8_BAND_SITE in maps[0],
+          f"spatial (h): the split calibrated {sorted(set(maps[1]) ^ set(maps[0]))} apart")
+    rel = {k: abs(float(maps[1][k]) - float(v)) / float(v) for k, v in maps[0].items()}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= INT8_SCALE_RTOL,
+          f"spatial (h): scale {worst} split {float(maps[1][worst])}, one device "
+          f"{float(maps[0][worst])}")
+    check(calib_counts[1] == {n: 2 * v for n, v in calib_counts[0].items()},
+          f"spatial (h): calibration launches {calib_counts[1]} split, {calib_counts[0]} one")
+    tally(calib_counts[0])
+    tally(calib_counts[1])
+    quant.attach(proc.net, maps[0])
+    try:
+        one, s_one, c_one = _sp_run(proc.ddim_sampler(SPATIAL_INT8_STEPS, clip_x0=True), x_T, lr)
+        two, s_two, c_two = _sp_run(
+            proc.ddim_sampler(SPATIAL_INT8_STEPS, clip_x0=True, spatial=spatial2), x_T, lr)
+        check(np.isfinite(two).all() and c_two == {n: 2 * v for n, v in c_one.items()},
+              f"spatial (h): int8 split finite {np.isfinite(two).all()}, launches {c_two}, one "
+              f"device {c_one}")
+        tally(c_one)
+        tally(c_two)
+        accumulators = _sp_band_accumulators(proc, x_T, lr, spatial2)
+    finally:
+        quant.attach(proc.net, None)
+    d = np.abs(two - one)
+    return {"config": "l1", "sites": len(maps[0]), "scale_max_rel_diff": rel[worst],
+            "scale_worst_site": worst, "calibration_seconds_one_device": secs[0],
+            "calibration_seconds_split": secs[1], "ddim_steps": SPATIAL_INT8_STEPS,
+            "seconds_one_device": s_one, "seconds_split": s_two,
+            "max_abs_diff": float(d.max()),
+            "seam_max_abs_diff": float(d[:, _sp_seam_rows(2)].max()),
+            "share_beyond_1e-6": float((d > 1e-6).mean()),
+            "launches_split": _nonzero(c_two), "accumulators": accumulators}
+
+
+def _sp_band_kernels(dev):
+    """(i) tap_conv, tap_conv_pair, tap_block at level 1 and packed_head
+    against their plain versions at the shapes the bands of the 512-px
+    image give them (k = 2 and 4: the stem chain's rows of the 256-row s2d
+    grid, the level-1 chain's of the 128-row one, the head's), B = 1, in
+    float32 and bfloat16, KERNEL_TOL."""
+    shapes = {site: sorted(set().union(*(band_row_counts(site, rows, k) for k in SPATIAL_BANDS)))
+              for site, rows in (("stem_s2d", SPATIAL_HR // 2), ("block_s2d", SPATIAL_HR // 4),
+                                 ("head", SPATIAL_HR // 2))}
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    out = {"rows": shapes}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        kt = model_with("tap", dev).prepare_s2d_kernels(dt)
+        kp = model_with("packed", dev).prepare_s2d_kernels(dt)["packed_head"]
+        kl1 = model_with("l1", dev).prepare_s2d_kernels(dt)["tap_block1"]
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        errs = {k: {} for k in ("tap_conv", "tap_conv_pair", "tap_block_l1", "packed_head")}
+        w = SPATIAL_HR // 2
+        for r in shapes["stem_s2d"]:
+            h, x = randn(1, r, w, 128), randn(1, r, w, 64)
+            errs["tap_conv"][r] = max_err([tap_conv(h, kt["blk_conv2_44"])],
+                                          [tap_conv_plain(h, kt["blk_conv2_44"])], dt,
+                                          f"spatial (i) tap_conv {r} rows {dt}")
+            errs["tap_conv_pair"][r] = max_err(
+                list(tap_conv_pair(x, kt["blk_conv1_44"], kt["blk_skip_44"])),
+                list(tap_conv_pair_plain(x, kt["blk_conv1_44"], kt["blk_skip_44"])), dt,
+                f"spatial (i) tap_conv_pair {r} rows {dt}")
+        for r in shapes["block_s2d"]:
+            x1, te1 = randn(1, r, w // 2, 128), torch.relu(randn(1, 256))
+            errs["tap_block_l1"][r] = max_err([tap_block(x1, te1, kl1)],
+                                              [tap_block_plain(x1, te1, kl1)], dt,
+                                              f"spatial (i) tap_block level 1 {r} rows {dt}")
+        for r in shapes["head"]:
+            hh, at = randn(1, r, w, 64), randn(1, r, w, 128)
+            errs["packed_head"][r] = max_err([packed_head(hh, at, kp["up4"], kp["at"])],
+                                             [packed_head_plain(hh, at, kp["up4"], kp["at"])], dt,
+                                             f"spatial (i) packed_head {r} rows {dt}")
+        torch.cuda.synchronize()
+        out[name] = errs
+    return out
+
+
 def spatial_phase(dev, card):
     """The spatial phase: one whole x2 image (LR 256 -> HR 512, B = 1, the x2
     snapshot, 'stem', float32) with its height split into bands over
@@ -2237,8 +2455,11 @@ def spatial_phase(dev, card):
     does); (c) the fused ancestral_update chain warm-started at
     SPATIAL_START_T split in 2 against one device; the update's band layout
     on the card, bitwise; (d) bfloat16 DDIM-100 split in 2: finite, its
-    distance from one device's; (e) two processes, gloo. One JSON line (with
-    `card`); returns it and the phase's launches."""
+    distance from one device's; (f) the SPATIAL_LEVELS configurations as (a)
+    and (b) at SPATIAL_LEVEL_STEPS; (g) 'l1' in bfloat16 as (d); (h) int8 on
+    'l1' (_sp_int8); (i) the four kernels of (f) at the bands' shapes; (e)
+    two processes, gloo. One JSON line (with `card`); returns it and the
+    phase's launches."""
     x_T, lr = _sp_inputs(dev)
     proc = _sp_process(dev)
     res, launches = {"hr": SPATIAL_HR, "batch": 1, "config": "stem"}, dict.fromkeys(KERNELS, 0)
@@ -2248,25 +2469,8 @@ def spatial_phase(dev, card):
             launches[k] += v
 
     # (a) + (b): float32 DDIM-100, one device and split
-    one, s_one, c_one = _sp_run(proc.ddim_sampler(DDIM_STEPS, clip_x0=True), x_T, lr)
-    want = {k: n * DDIM_STEPS for k, n in per_forward("stem").items()}
-    check(c_one == want, f"spatial (b): one device launched {c_one}, expected {want}")
-    tally(c_one)
-    res["ddim100_float32"] = {"one_device": {"seconds": s_one, "launches": _nonzero(c_one)}}
-    for k in SPATIAL_BANDS:
-        spatial = spatial_sharding(make_mesh([process_device(dev.type)] * k))
-        out, secs, counts = _sp_run(proc.ddim_sampler(DDIM_STEPS, clip_x0=True, spatial=spatial),
-                                    x_T, lr)
-        err = float(np.abs(out - one).max())
-        seam = float(np.abs(out[:, _sp_seam_rows(k)] - one[:, _sp_seam_rows(k)]).max())
-        check(out.shape == one.shape and np.isfinite(out).all() and err <= TILE_TOL,
-              f"spatial (a) {k} bands: differs from one device by {err} (seams {seam})")
-        check(counts == {name: k * v for name, v in c_one.items()},
-              f"spatial (b) {k} bands: launches {counts}, one device {c_one}")
-        tally(counts)
-        res["ddim100_float32"][f"bands_{k}"] = {
-            "seconds": secs, "max_abs_diff": err, "seam_max_abs_diff": seam,
-            "launches": _nonzero(counts), "launches_per_band_equal_one_device": True}
+    res["ddim100_float32"], one = _sp_splits(proc, "stem", DDIM_STEPS, x_T, lr, dev,
+                                             SPATIAL_BANDS, tally, "(a)")
     # (c) the fused update's chain from the warm start, one device and 2 bands
     ah = float(proc.schedule.alpha_hat[SPATIAL_START_T])
     init = upsample_bicubic(lr, 2)
@@ -2292,22 +2496,22 @@ def spatial_phase(dev, card):
                                           - f_one[:, _sp_seam_rows(2)]).max()),
         "launches_bands_2": _nonzero(fc_two), "band_layout": _sp_update_bands(dev)}
     # (d) bfloat16: the split finite, its distance from one device's
-    proc16 = _sp_process(dev, torch.bfloat16)
-    b_one, bs_one, bc_one = _sp_run(proc16.ddim_sampler(DDIM_STEPS, clip_x0=True), x_T, lr)
-    b_two, bs_two, bc_two = _sp_run(
-        proc16.ddim_sampler(DDIM_STEPS, clip_x0=True, spatial=spatial2), x_T, lr)
-    check(np.isfinite(b_two).all() and bc_two == {name: 2 * v for name, v in bc_one.items()},
-          f"spatial (d): bf16 split finite {np.isfinite(b_two).all()}, launches {bc_two}, "
-          f"one device {bc_one}")
-    tally(bc_one)
-    tally(bc_two)
-    res["ddim100_bfloat16_bands_2"] = {
-        "seconds_one_device": bs_one, "seconds_split": bs_two,
-        "max_abs_diff": float(np.abs(b_two - b_one).max()),
-        "seam_max_abs_diff": float(np.abs(b_two[:, _sp_seam_rows(2)]
-                                          - b_one[:, _sp_seam_rows(2)]).max())}
-    del proc16
-    torch.cuda.empty_cache()
+    res["ddim100_bfloat16_bands_2"] = _sp_bf16(dev, "stem", DDIM_STEPS, x_T, lr, tally, "(d)")
+    # (f) the configurations whose kernels run inside a chain on an extended
+    # band; (h) int8 on the 'l1' one
+    res["levels_float32"] = {}
+    for name in SPATIAL_LEVELS:
+        proc_l = _sp_process(dev, config=name)
+        res["levels_float32"][name], _ = _sp_splits(proc_l, name, SPATIAL_LEVEL_STEPS, x_T, lr,
+                                                    dev, SPATIAL_BANDS, tally, "(f)")
+        if name == "l1":
+            res["int8_l1_bands_2"] = _sp_int8(proc_l, x_T, lr, dev, tally)
+        del proc_l
+        torch.cuda.empty_cache()
+    # (g) one of them in bfloat16
+    res["l1_bfloat16_bands_2"] = _sp_bf16(dev, "l1", SPATIAL_LEVEL_STEPS, x_T, lr, tally, "(g)")
+    # (i) the four kernels at the bands' shapes
+    res["band_shape_kernels"] = _sp_band_kernels(dev)
     # (e) two processes
     res["group_two_ranks"] = _sp_group(dev, x_T, lr, one)
     res["card"] = card

@@ -50,8 +50,8 @@ Where the port differs from the reference package:
   this process, or the ranks of a torchrun group, whose tiles rank 0 writes.
   ``--data_parallel`` on ``serve`` splits every micro-batch over the cards of
   the process (``--device``'s type), collective-free.
-* **Not ported yet**: ``--checkpoint_backend orbax`` (ROADMAP Queue 1, item
-  4: the Orbax backend) raises a ``NotImplementedError``.
+* **Not ported yet**: ``--checkpoint_backend orbax`` (ROADMAP Queue 1: the
+  Orbax backend) raises a ``NotImplementedError``.
 * ``DRS_TRAIN_SEED`` seeds the trainers' initial weights (torch's default
   initialisation drawn under that seed) and their noise, as in the
   reference.
@@ -133,8 +133,8 @@ def _make_mesh_if(multiple: bool, device: torch.device):
 
 def _refuse_orbax() -> None:
     raise NotImplementedError(
-        "--checkpoint_backend orbax: the Orbax backend waits for its port (ROADMAP Queue 1, "
-        "item 4); use msgpack, which the reference package reads too")
+        "--checkpoint_backend orbax: the Orbax backend waits for its port (ROADMAP Queue "
+        "1); use msgpack, which the reference package reads too")
 
 
 def _check_unet_type(name: Optional[str]) -> None:

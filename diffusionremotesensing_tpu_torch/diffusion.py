@@ -46,7 +46,9 @@ the whole chain, runs the model on them with its halos exchanged
 the whole image's, drawn once a step and sliced; the fused update's kernel
 draws a band's quads where they sit in the whole state (``item_quads``).
 So a split image gives the image one device would give, up to float32
-rounding.
+rounding (with a W8A8 quant map, also an activation that this rounding
+moves across a quantizer's edge). Every inference configuration of the
+model splits.
 """
 
 from __future__ import annotations
@@ -510,14 +512,13 @@ class DiffusionProcess:
 
     def _bands(self, spatial):
         """(spatial, the hooks of its local bands' replicas) for the
-        samplers, or None; raises for a configuration the split does not run
-        (``ResidualAttentionUNet.check_spatial``)."""
+        samplers, or None. Every inference configuration splits, a quant
+        map attached or not."""
         if spatial is None:
             return None
         if not isinstance(spatial, SpatialSharding):
             raise TypeError(f"spatial= takes parallel.sharding.spatial_sharding(mesh), got "
                             f"{type(spatial).__name__}")
-        self.net.check_spatial()
         spatial.local_bands()
         return spatial, self._replicas(spatial.mesh)[1]
 

@@ -35,7 +35,7 @@ class QConv2d(nn.Conv2d):
     site = ""
 
     def forward(self, x):
-        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x)
+        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x, rows=2)
         if amax is None:
             return super().forward(x)
         y = conv_int8(x.permute(0, 2, 3, 1), self.weight, amax, stride=self.stride,
@@ -139,7 +139,7 @@ class QConvTranspose2d(nn.ConvTranspose2d):
     site = ""
 
     def forward(self, x, output_size=None):
-        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x)
+        amax = None if self.quant_sites is None else self.quant_sites.amax(self.site, x, rows=2)
         if amax is None:
             return super().forward(x, output_size)
         w = self.weight.permute(1, 0, 2, 3).flip(2, 3)  # the forward conv's OIHW kernel

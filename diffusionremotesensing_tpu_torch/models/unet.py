@@ -57,6 +57,20 @@ one CUDA kernel a gate on the card: all three on the plain forward, gates 0
 and 1 on the s2d path (gate 2 there is the s2d gate or ``att_head_block``;
 under ``tap44='l1'`` gate 1 is the s2d gate too).
 
+``band=`` (a ``parallel.halo.Band``) runs the inference forward on one band
+of rows of a spatial split, in every configuration: each chain between
+two exchange points goes through ``parallel.halo.site``, which extends the
+band by the chain's halo, runs it unchanged and crops (the halo table is
+``parallel.halo``'s). The hand-written kernels run inside their chains on
+the extended band: ``tap_stem_block``, ``tap_block``, ``tap_conv_pair`` and
+``tap_conv`` in the stem's chain (``stem_s2d``); under 'l1' the stride-2
+down0, the level-1 ``tap_block`` and down1 as three chains of their own
+(``down0s``, ``block_s2d``, ``down1_s2d``), gate 1 row for row after them;
+``dec_block``, ``att_head_block`` and ``packed_head`` in the head's chain.
+A W8A8 quant map applies to a band's sites as to the whole image's (each
+quantizer reads the global per-site scale). Training refuses a band
+(:meth:`check_spatial`).
+
 Public tensors are NHWC, as in the reference package: ``forward`` takes x
 (B, H, W, image_channels), t (B,), the condition (the LR image (B, H/mag,
 W/mag, C), the SAR image (B, H, W, 2), labels (B,) or None) and
@@ -307,17 +321,14 @@ class ResidualAttentionUNet(nn.Module):
         return t_emb.to(self.dtype)
 
     def check_spatial(self, train: bool = False) -> None:
-        """Raise NotImplementedError for a configuration a spatial split
-        (``parallel.halo``) does not run: the tap44 levels True, 'conv2' and
-        'l1', packed_head, a W8A8 quant map, training."""
-        quant = self.quant_sites.scales is not None or self.quant_sites.calib is not None
-        for what, refused in (("training", train), ("tap44=True", self.tap44 is True),
-                              (f"tap44={self.tap44!r}", self.tap44 in ("conv2", "l1")),
-                              ("packed_head", self._packed_tail), ("--quant int8", quant)):
-            if refused:
-                raise NotImplementedError(
-                    f"spatial sharding does not run {what} (ROADMAP Queue 1: tap_conv/"
-                    "tap_conv_pair, 'l1', packed_head and int8 under bands)")
+        """Raise NotImplementedError for training under a spatial split
+        (``parallel.halo``): every inference configuration splits, but
+        training shards by batch, as the JAX package's does."""
+        if train:
+            raise NotImplementedError(
+                "spatial sharding splits inference only: the training forward's BatchNorms "
+                "take their statistics over the whole batch; shard training by batch "
+                "(parallel.sharding.Mesh)")
 
     def forward(self, x, t, cond=None, cond_mask=None, cond_features=None, s2d_kernels=None,
                 s2d_io: bool = False, train: bool = False, band=None):
@@ -542,11 +553,12 @@ class ResidualAttentionUNet(nn.Module):
             kern["frames"][(Hs, Ws)] = frame
         return frame
 
-    def _qconv(self, label, x, w, bias=None, padding=0, stride=1):
+    def _qconv(self, label, x, w, bias=None, padding=0, stride=1, top=False):
         """:func:`ops.s2d.conv_nhwc` as an s2d conv site named ``label`` (the
         reference's label): the int8 convolution when the quant map holds
-        a scale for it (``ops.quant``), else the exact one."""
-        amax = self.quant_sites.amax(label, x)
+        a scale for it (``ops.quant``), else the exact one. ``top``: x is
+        the first row of its chain's tensor (``parallel.halo.own_rows``)."""
+        amax = self.quant_sites.amax(label, x, rows=1, top=top)
         if amax is None:
             return conv_nhwc(x, w, bias, padding=padding, stride=stride)
         y = conv_int8(x, w, amax, stride=stride, padding=padding).to(x.dtype)
@@ -670,12 +682,17 @@ class ResidualAttentionUNet(nn.Module):
         if l1:
             # down0 at stride 2 emitting s2d, ResConvBlock-1 as one tap_block
             # call (no skip conv), down1 from s2d back to the normal layout
-            h1_s = self._qconv("s2d.down0s", res0_s, kern["down0_s2d"], kern["down0_s2d_b"],
-                               padding=((1, 0), (1, 0)), stride=2)
+            h1_s = site(band, "down0s",
+                        lambda r: self._qconv("s2d.down0s", r, kern["down0_s2d"],
+                                              kern["down0_s2d_b"], padding=((1, 0), (1, 0)),
+                                              stride=2), res0_s)
             te1 = self.conv_blocks[1].time_bias(t_emb).repeat(1, 4)
-            res1_s = tap_block(h1_s.contiguous(), te1.contiguous(), kern["tap_block1"])
-            h = self._qconv("s2d.down1", res1_s, kern["down1_s2d"], kern["down1_b"],
-                            padding=((1, 0), (1, 0)))
+            res1_s = site(band, "block_s2d",
+                          lambda h: tap_block(h.contiguous(), te1.contiguous(), kern["tap_block1"]),
+                          h1_s)
+            h = site(band, "down1_s2d",
+                     lambda r: self._qconv("s2d.down1", r, kern["down1_s2d"], kern["down1_b"],
+                                           padding=((1, 0), (1, 0))), res1_s)
             h = h.permute(0, 3, 1, 2)
         else:
             h = site(band, "down0_s2d",
@@ -740,7 +757,7 @@ class ResidualAttentionUNet(nn.Module):
             # zeroed (on a band's halo rows when the band is not the
             # image's top: cropped)
             out_s[:, :1] -= self._qconv("s2d.head_fix_x", hh_row0, kern["head_fix_x"],
-                                        padding=((0, 0), (1, 2)))
+                                        padding=((0, 0), (1, 2)), top=True)
             out_s[:, :, :1] -= self._qconv("s2d.head_fix_y", hh_col0, kern["head_fix_y"],
                                            padding=((1, 2), (0, 0)))
             out_s[:, :1, :1] += (hh_row0[:, 0, 0] @ kern["head_fix_c"])[:, None, None]

@@ -38,17 +38,32 @@ K * 127^2 passes 2^24 at K = 1041.
 The probes' noise comes from an explicit ``torch.Generator`` where the
 reference folds keys, so a calibration here draws other noise than the
 reference's; :func:`calibrate` on the same probes gives the same scales.
+
+Under a spatial split (``calibrate(..., spatial=...)``, the reference's
+calibration on ``spatial_sharding`` probes, whose maxima XLA reduces over
+the mesh) each probe runs band by band (``parallel.halo.run_bands``), every
+band on its own thread in one process: a site records the max over the
+band's own rows of its input (``parallel.halo.own_rows``), merged under a
+lock, and the ranks of a process group merge theirs by one
+``all_reduce(MAX)``. So every row of the image counts once and no halo row
+counts: the scales are the whole image's, up to the float rounding of the
+convolutions before each site. With a quant map attached, a band's sites
+read the same global scales.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from diffusionremotesensing_tpu_torch.ops.resize import resize_bicubic_keys
+from diffusionremotesensing_tpu_torch.parallel.halo import own_rows, run_bands
 
 # sites never quantized by default (substring match on the site name): the
 # composed output head and its boundary fixes ("s2d.head*"), the plain
@@ -72,11 +87,23 @@ class QuantSites:
     during a calibration pass (None outside one). A model's replicas on
     other devices (``DiffusionProcess.replica``) share this object, so a
     quant map attached to the model reaches them too: each device reads its
-    own copy of the scales, made on its first read after the map changed."""
+    own copy of the scales, made on its first read after the map changed.
+    The bands of a spatial split call :meth:`amax` from several threads at
+    once: the merge of a maximum and the copy to a device hold a lock."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.scales = None
         self.calib: Optional[Dict[str, torch.Tensor]] = None
+
+    def __getstate__(self):  # a model's deep copy copies this; a lock does not copy
+        state = dict(self.__dict__)
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
 
     @property
     def scales(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -87,21 +114,31 @@ class QuantSites:
         self._scales = qmap
         self._on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
-    def amax(self, name: str, x: torch.Tensor) -> Optional[torch.Tensor]:
+    def amax(self, name: str, x: torch.Tensor, rows: int,
+             top: bool = False) -> Optional[torch.Tensor]:
         """During calibration record max|x| under ``name`` (merged by
-        maximum) and return None, so the caller runs the exact conv; with
-        a quant map, the site's scale on ``x``'s device (None if it has
-        none); else None."""
+        maximum; on a band of a spatial split over the band's own rows of
+        x's axis ``rows``, ``parallel.halo.own_rows``, 0 where it owns none)
+        and return None, so the caller runs the exact conv; with a quant
+        map, the site's scale on ``x``'s device (None if it has none); else
+        None."""
         if self.calib is not None:
-            a = abs_max(x)
-            prev = self.calib.get(name)
-            self.calib[name] = a if prev is None else torch.maximum(prev, a.to(prev.device))
+            own = own_rows(x, rows, top)
+            a = abs_max(own) if own.numel() else torch.zeros((), device=x.device)
+            with self._lock:
+                prev = self.calib.get(name)
+                self.calib[name] = a if prev is None else torch.maximum(prev, a.to(prev.device))
             return None
         if self._scales is None:
             return None
-        if x.device not in self._on_device:
-            self._on_device[x.device] = {k: v.to(x.device) for k, v in self._scales.items()}
-        return self._on_device[x.device].get(name)
+        on = self._on_device.get(x.device)
+        if on is None:
+            with self._lock:
+                on = self._on_device.get(x.device)
+                if on is None:
+                    on = {k: v.to(x.device) for k, v in self._scales.items()}
+                    self._on_device[x.device] = on
+        return on.get(name)
 
 
 def weight_qparams(w: torch.Tensor):
@@ -201,21 +238,65 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, amax: torch.Tensor, stride=1, pa
 
 
 @torch.no_grad()
-def calibrate(model, probes: Sequence[tuple], **forward_kwargs) -> Dict[str, torch.Tensor]:
+def calibrate(model, probes: Sequence[tuple], spatial=None,
+              **forward_kwargs) -> Dict[str, torch.Tensor]:
     """Each conv site's activation max|x| over ``probes`` (tuples of the
     model's positional arguments, e.g. (x, t, cond)), merged by maximum
     across them: {site name: float32 scalar}. Every site runs its exact
     convolution meanwhile. Build the model with the flags it will serve
     with (s2d, tap44, dtype) first: the sites a forward reaches are those of
-    its execution path."""
+    its execution path.
+
+    ``spatial`` (``parallel.sharding.spatial_sharding(mesh)``): each probe's
+    height split into bands over the mesh (module docstring), the model
+    copied onto each band's device; under a process group every rank
+    passes the same whole probes and gets the same scales."""
     sites = model.quant_sites
     sites.calib = {}
     try:
-        for probe in probes:
-            model(*probe, **forward_kwargs)
-        return dict(sites.calib)
+        if spatial is None:
+            for probe in probes:
+                model(*probe, **forward_kwargs)
+        else:
+            nets = _band_nets(model, spatial)
+            for probe in probes:
+                run_bands(spatial, [lambda band, *a, net=net: net(
+                    *(v.to(net.conv0.weight.device) if torch.is_tensor(v) else v for v in a),
+                    band=band, **forward_kwargs) for net in nets], probe)
+        return _max_over_ranks(dict(sites.calib), spatial)
     finally:
         sites.calib = None
+
+
+def _band_nets(model, spatial) -> list:
+    """The model on each of this process's band devices: itself for the
+    first band on its device, else a copy that shares its ``QuantSites``
+    (a band's forward may swap its module's parameters, so no two bands
+    share one module)."""
+    nets, home = [], model.conv0.weight.device
+    for j, d in enumerate(spatial.mesh.devices):
+        d = torch.device(d)
+        if d == home and j == 0:
+            nets.append(model)
+        else:
+            sites = model.quant_sites
+            nets.append(copy.deepcopy(model, {id(sites): sites}).to(d))
+    return nets
+
+
+def _max_over_ranks(qmap: Dict[str, torch.Tensor], spatial) -> Dict[str, torch.Tensor]:
+    """``qmap`` with every site's value the maximum over the ranks of the
+    spatial split's process group: one all_reduce(MAX) of the values in
+    the sites' sorted order, on the card under NCCL, through the host
+    under gloo (``parallel.sharding.BACKENDS``)."""
+    if spatial is None or spatial.mesh.world == 1:
+        return qmap
+    group, names = spatial.mesh.group, sorted(qmap)
+    dev = spatial.mesh.device
+    via = dev if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    vals = torch.stack([qmap[k].float().to(via) for k in names])
+    dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=group)
+    return {k: v.to(qmap[k].device) for k, v in zip(names, vals)}
 
 
 def filter_scales(qmap: Dict[str, torch.Tensor], exclude=DEFAULT_EXCLUDE,
@@ -244,12 +325,15 @@ def _merge_max(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> Dict[s
 def quantize_for_sampling(model, alpha_hat: torch.Tensor, x0_proxy: torch.Tensor, cond,
                           generator: Optional[torch.Generator], ts=None,
                           exclude=DEFAULT_EXCLUDE, margin: float = 1.05,
-                          cond_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                          cond_mask: Optional[torch.Tensor] = None,
+                          spatial=None) -> Dict[str, torch.Tensor]:
     """The W8A8 quant map of a sampling workload: probes spanning the
     denoising trajectory (:func:`sampling_probes`), every site calibrated,
     the default policy applied; :func:`attach` it to the model that samples.
     ``cond_mask`` (classifier-free guidance): a half-ones, half-zeros mask,
-    so that the scales see both guidance regimes.
+    so that the scales see both guidance regimes. ``spatial``: each probe
+    split into bands, as :func:`calibrate` (under a process group the
+    generator's state the same on every rank, so the probes are).
 
     As in the reference, a model with a ``tap44`` level is calibrated on the
     dense-s2d branch as well (tap44 off over the same probes, merged by
@@ -257,12 +341,12 @@ def quantize_for_sampling(model, alpha_hat: torch.Tensor, x0_proxy: torch.Tensor
     takes."""
     probes = [p if cond is None else (p + (cond,) if cond_mask is None else p + (cond, cond_mask))
               for p in sampling_probes(x0_proxy, alpha_hat, generator, ts)]
-    qmap = calibrate(model, probes)
+    qmap = calibrate(model, probes, spatial)
     level = getattr(model, "tap44", False)
     if level:
         model.tap44 = False
         try:
-            qmap = _merge_max(qmap, calibrate(model, probes))
+            qmap = _merge_max(qmap, calibrate(model, probes, spatial))
         finally:
             model.tap44 = level
     return filter_scales(qmap, exclude=exclude, margin=margin)

@@ -48,6 +48,16 @@ down         l -> l+1 (l = 0..2)  (2, 0)      3x3 stride 2, padding 1: output ro
                                               2j+1, one row above; 2 keep the extended band on an
                                               even row, crop 1 at l+1
 down0_s2d    0s -> 1              (1, 0)      down0 on the s2d grid: 2x2 with padding (1, 0)
+down0s       0s -> 1s ('l1')      (2, 0)      down0 emitting level 1 in s2d (H/4 rows): 3x3
+                                              stride 2, padding (1, 0): output row m reads 0s
+                                              rows 2m-1 .. 2m+1, one above; 2 keep the extended
+                                              band on an even row, crop 1 at 1s
+block_s2d    1s ('l1')            (1, 1)      tap_block at level 1 without its skip conv:
+                                              conv1 3x3 and conv2 3x3 at level 1, 2 rows of
+                                              level 1 each side, one s2d row (the kernel's 4x4
+                                              windows leave out the level-1 rows a 3x3 does not
+                                              read), shortcut 1x1
+down1_s2d    1s -> 2 ('l1')       (1, 0)      down1 on the s2d grid, as down0_s2d
 block        1, 2; 3 (bottleneck) (2, 2)      ResConvBlock: conv1 3x3, conv2 3x3, shortcut 1x1
 up           3 -> 2, 2 -> 1,      (1, 2)      UpConvBlock: 3x3 conv, then ConvTranspose2x (k3 s2
              1 -> 0                           p1 op1: output 2m reads m, 2m+1 reads m and m+1);
@@ -67,7 +77,25 @@ head         1 = 0s               (3, 4)      s2d tail: up_convs[1] 3x3, UpConvB
 gates        -                    none        gating 1x1; w_x 2x2 stride 2 on bands that start on
                                               even rows (H a multiple of 8 x the bands), psi 1x1
                                               upsampled x2 nearest, result 1x1: row for row
+                                              ('l1''s s2d gate 1 too: w_x a 1x1 over the taps of
+                                              res1_s, psi broadcast over them, result
+                                              block-diagonal; g at level 2 has res1_s's rows)
 ===========  ===================  ==========  ===================================================
+
+``stem_s2d`` and ``head`` need no other halo for the kernels that run
+inside them: ``tap_conv_pair`` (conv1 and the skip conv) and ``tap_conv``
+(conv2) are the same three 3x3 convolutions at H as ``tap_stem_block`` and
+the dense s2d convs, each a 4x4 window of H rows, one s2d row each side;
+``packed_head`` is ``head_up4`` (4x4, padding (1, 2)) and ``head_at`` (3x3)
+in one call, the head's own convolutions. Each kernel pads with zeros at
+its tensor's edge, as its convolutions do at the image's, so on an
+extended band it computes the chain's rows as the separate ops would. The
+rows they get (:func:`band_row_counts`; first, inner, last band) at HR 512
+over 2 and 4 bands: ``tap_conv``/``tap_conv_pair`` 130; 66, 68, 66 of the
+256-row s2d grid; ``tap_block`` at level 1 65; 33, 34, 33 of 128;
+``packed_head`` 132, 131; 68, 71, 67 of 256: none a multiple of their
+8-row tiles, which the kernels count with ceil (and their TMA boxes
+zero-fill past the last row).
 
 A band takes a halo from its neighbours alone, so each band must hold at
 least a site's halo at that site's level: with H a multiple of 8 x the
@@ -80,7 +108,11 @@ so that cuDNN's per-thread plans stay built, a slice handed over and moved with
 ``.to(device)``; :class:`RankLink` between the ranks of a process group,
 one band a rank, ``dist.batch_isend_irecv`` of the rows, through the host
 under gloo) happens inside :meth:`Band.site`; :func:`site` is what the
-model calls, a plain call without a band.
+model calls, a plain call without a band. While a site's chain runs,
+:func:`own_rows` gives any tensor of it cut to the band's own rows, so a
+statistic taken band by band (the int8 calibration's maximum) reads each
+row of the image once and never a halo row; :func:`run_bands` calls a
+function on each band's rows of its arguments at once.
 """
 
 from __future__ import annotations
@@ -103,6 +135,9 @@ HALOS = {
     "stem_s2d": (2, 2),
     "down": (2, 0),
     "down0_s2d": (1, 0),
+    "down0s": (2, 0),
+    "block_s2d": (1, 1),
+    "down1_s2d": (1, 0),
     "block": (2, 2),
     "up": (1, 2),
     "up_conv": (1, 1),
@@ -286,9 +321,13 @@ class Band:
                 [got[self.index + 1][j]] if down else [])
             ext.append(_like(torch.cat(parts, d), x) if len(parts) > 1 else x)
             j += 1
-        out = fn(*ext)
-        od = live[0][1] if out_dims is None else out_dims
         total = rows + up + down
+        _WINDOW.ext = (up, down, total, name)
+        try:
+            out = fn(*ext)
+        finally:
+            _WINDOW.ext = None
+        od = live[0][1] if out_dims is None else out_dims
         if isinstance(out, tuple):
             return tuple(_crop(o, od, total, up, down, name) for o in out)
         return _crop(out, od, total, up, down, name)
@@ -306,18 +345,48 @@ def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.contiguous()
 
 
+def _own(y: torch.Tensor, d: int, total: int, up: int, down: int, name: str) -> torch.Tensor:
+    """The view of the band's rows of ``y`` (rows on axis ``d``), a tensor
+    at any level of a site whose input has ``total`` rows, ``up`` and
+    ``down`` of them halo: the same share of y's rows."""
+    n = y.shape[d]
+    if (n * up) % total or (n * down) % total:
+        raise ValueError(f"spatial site {name!r}: a tensor of {n} rows does not crop from "
+                         f"{total} (halo {up}, {down})")
+    a, b = n * up // total, n * down // total
+    return y.narrow(d, a, n - a - b)
+
+
 def _crop(y, d: int, total: int, up: int, down: int, name: str):
     """The band's rows of a site's output ``y`` on axis ``d``, its rows
     ``total`` at the input's level, ``up`` and ``down`` of them halo;
     anything but a tensor with that axis passes through."""
     if not torch.is_tensor(y) or y.dim() <= d or (up == 0 and down == 0):
         return y
-    n = y.shape[d]
-    if (n * up) % total or (n * down) % total:
-        raise ValueError(f"spatial site {name!r}: an output of {n} rows does not crop from "
-                         f"{total} (halo {up}, {down})")
-    a, b = n * up // total, n * down // total
-    return _like(y.narrow(d, a, n - a - b), y)
+    return _like(_own(y, d, total, up, down, name), y)
+
+
+# the extension (up, down, total rows, site) of the site this thread's band
+# is running, None between sites: what own_rows crops by
+_WINDOW = threading.local()
+
+
+def own_rows(x: torch.Tensor, axis: int, top: bool = False) -> torch.Tensor:
+    """The rows of ``x`` (rows on ``axis``) that the band running on this
+    thread owns, a view: inside a site's chain x spans the extended band, and
+    its halo rows (the neighbours', and those the chain computes wrongly
+    near the extended band's edge) are cut off; elsewhere x itself. With
+    ``top``, x is the extended band's first row alone (the head's row-0
+    correction reads it), the band's own only where nothing was added above
+    (the image's top); else no rows. What a statistic of the whole image
+    reads, band by band (``ops.quant``'s calibration maximum)."""
+    ext = getattr(_WINDOW, "ext", None)
+    if ext is None:
+        return x
+    up, down, total, name = ext
+    if top:
+        return x if up == 0 else x.narrow(axis, 0, 0)
+    return _own(x, axis, total, up, down, name)
 
 
 def site(band: Optional[Band], name: str, fn: Callable, *xs, dims=1, out_dims=None):
@@ -335,6 +404,40 @@ def make_link(spatial, bands: List[int]):
     if mesh.world > 1:
         return RankLink(mesh.group)
     return LocalLink(bands[0], len(bands))
+
+
+def band_row_counts(name: str, rows: int, k: int) -> List[int]:
+    """The row counts the chain of site ``name`` sees on the bands of an
+    image split into k bands, ``rows`` rows at the site's level: the first
+    band's, the inner ones' and the last's, each extended by the site's
+    halo toward its neighbours only (the shapes its kernels get)."""
+    above, below = HALOS[name]
+    n = rows // k
+    return sorted({n + below, n + above} | ({n + above + below} if k > 2 else set()))
+
+
+def run_bands(spatial, fns: Sequence[Callable], args: Sequence) -> list:
+    """``fns[j](band, *rows)`` for each of this process's bands j at once
+    (one :func:`make_link` between them), ``rows`` each of ``args`` cut to
+    the band's image rows: a tensor of 4 or more dims (NHWC, rows on axis
+    1, at its own level: H, H/2 in s2d, H/mag) its share of them, any other
+    argument whole. The image height is ``args[0]``'s. Results in band
+    order."""
+    local = spatial.local_bands()
+    link = make_link(spatial, local)
+    height = args[0].shape[1]
+    rows = spatial.band_rows(height)
+
+    def cut(a, r0, r1):
+        if not torch.is_tensor(a) or a.dim() < 4:
+            return a
+        h = a.shape[1]
+        return a.narrow(1, r0 * h // height, (r1 - r0) * h // height)
+
+    def call(fn, i):
+        return fn(Band(i, spatial.bands, link), *(cut(a, *rows[i]) for a in args))
+
+    return link.run([lambda fn=fn, i=i: call(fn, i) for fn, i in zip(fns, local)])
 
 
 def gather_bands(xs: List[torch.Tensor], spatial, device) -> torch.Tensor:

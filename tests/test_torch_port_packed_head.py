@@ -21,6 +21,7 @@ from diffusionremotesensing_tpu_torch.ops.packed_head import (
     packed_head_plain,
     wgmma_takes,
 )
+from diffusionremotesensing_tpu_torch.parallel.halo import band_row_counts
 from tests.torch_port_helpers import compile_emulated
 
 
@@ -205,6 +206,19 @@ def test_cuda_source_emulated_matches_plain(emulated, B, H, W, c1, c2, out4, dty
 def test_cuda_source_emulated_bf16_wgmma(emulated, B, H, W, c1, c2, out4, blocks):
     assert wgmma_takes(c1, c2)
     _run_emulated(emulated, B, H, W, c1, c2, out4, torch.bfloat16, blocks)
+
+
+# the head chain's row counts on the bands of a split of the HR-64 image
+# (32 rows and columns of hh and attn_s), k = 2 and 4: 19, 20; 11, 12, 15
+BAND_ROWS = sorted(set(band_row_counts("head", 32, 2) + band_row_counts("head", 32, 4)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", BAND_ROWS)
+def test_cuda_source_emulated_at_the_band_shapes(emulated, dtype, h):
+    """The served widths on an extended band of a spatial split: the
+    head's (3, 4) halo gives odd row counts, which no 8-row tile divides."""
+    _run_emulated(emulated, 1, h, 32, 64, 128, 12, dtype)
 
 
 def test_explicit_dispatch_by_shape(emulated):

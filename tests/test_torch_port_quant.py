@@ -208,7 +208,7 @@ def test_without_a_quant_map_the_forward_is_bitwise_unchanged(name, monkeypatch)
                 if isinstance(mod, cls):
                     mod.__class__ = cls
         monkeypatch.setattr(ResidualAttentionUNet, "_qconv",
-                            lambda self, label, x, w, bias=None, padding=0, stride=1:
+                            lambda self, label, x, w, bias=None, padding=0, stride=1, top=False:
                             conv_nhwc(x, w, bias, padding=padding, stride=stride))
         want = plain(*args)
     assert qmap and torch.equal(before, want) and torch.equal(after, want)

@@ -7,26 +7,33 @@ B = 1; one B = 2 case), float32, on the CPU, where every kernel's wrapper
 runs its plain version:
 
 * the port's DDPM sampler split over ``make_mesh(["cpu"] * k)``, k = 2 and
-  4, in the dense, 'block', fused and 'stem' configurations, against the
-  reference package's sampler on ``spatial_sharding`` inputs over conftest's
-  8 host devices, given the noise the reference's key chain draws (through
-  ``noise_fn``, as tests/test_torch_port_quality_superres.py replays it):
-  within 1e-4. The reference runs its plain forward for all four (its s2d
-  forwards compute the same function, tests/test_torch_port_s2d_model.py
-  and ..._fused_stack hold the port's to them, and its s2d sampler compiles
-  for 10-15 s on the CPU under the 8-device sharding); against one device
-  within 1e-5, the rows at each seam on their own;
+  4, in the dense, 'block', fused and 'stem' configurations and in those
+  whose kernels run inside a chain on an extended band: tap44 True
+  (``tap_conv_pair`` and ``tap_conv``), 'conv2', 'l1' (its stride-2 s2d
+  down0, ``tap_block`` at level 1 and down1 as sites of their own) and
+  'block' with ``packed_head``, against the reference package's sampler
+  on ``spatial_sharding`` inputs over conftest's 8 host devices, given the
+  noise the reference's key chain draws (through ``noise_fn``, as
+  tests/test_torch_port_quality_superres.py replays it): within 1e-4. The
+  reference runs its plain forward for all of them (its s2d forwards
+  compute the same function, tests/test_torch_port_s2d_model.py,
+  ..._tap44_levels and ..._fused_stack hold the port's to them, and its s2d
+  sampler compiles for 10-15 s on the CPU under the 8-device sharding);
+  against one device within 1e-5, the rows at each seam on their own;
 * a halo one row short at one site (and the head's not extended at all)
-  leaves the seam rows wrong: the checks above see seams;
+  leaves the seam rows wrong: the checks above see seams; 'l1''s three
+  sites are read on one forward;
 * the fused update's band layout (``item_quads``): two bands of B = 2 items
   bitwise the whole state's rows, the whole image as its band bitwise
   today's stream, in the plain version and in csrc/ancestral_update.cu under
   tests/torch_port_helpers.py's emulation (against the plain words and
   update), and the fused sampler split against one device;
 * two ranks of a gloo group (tests/torch_port_mp_worker.py's run_spatial,
-  one band a rank, halos by ``batch_isend_irecv``) against one process;
-* the configurations out of this slice and heights the split cannot take
-  raise.
+  one band a rank, halos by ``batch_isend_irecv``) against one process,
+  the int8 calibration over the ranks too;
+* training under a band and heights the split cannot take raise.
+
+int8 under bands is tests/test_torch_port_spatial_quant.py's.
 """
 
 import ctypes
@@ -67,6 +74,10 @@ CONFIGS = {
     "block": dict(s2d=True, tap44="block"),
     "fused": dict(s2d=True, tap44="block", fused_att=True, dec_block=True),
     "stem": STEM,
+    "tap44_true": dict(s2d=True, tap44=True),
+    "conv2": dict(s2d=True, tap44="conv2"),
+    "l1": dict(s2d=True, tap44="l1"),
+    "packed": dict(s2d=True, tap44="block", packed_head=True),
 }
 SPAWN_TIMEOUT = 300
 
@@ -166,6 +177,55 @@ def test_a_halo_one_row_short_shows_at_the_seams(monkeypatch, name, short):
         x_T, cond, generator=gen()).numpy()
     seam = _seams(2)
     assert np.abs(got[:, seam] - want[:, seam]).max() > 1e-5
+
+
+L1_FORWARD_TOL = 1e-6  # one 'l1' forward split in 2 against one device (read 1.5e-8)
+
+
+def _l1_forward_seams():
+    """max |split - one device| over the seam rows of one forward of the
+    'l1' model at t = 3, split in 2."""
+    model = port_model(_variables(), **CONFIGS["l1"])
+    x_T, cond = (torch.from_numpy(a) for a in _inputs())
+    args = (x_T, torch.tensor([3.0]), cond)
+    with torch.no_grad():
+        want = model(*args)
+        got = torch.cat(halo.run_bands(spatial_sharding(make_mesh(["cpu"] * 2)),
+                                       [lambda band, *a: model(*a, band=band)] * 2, args), 1)
+    seam = _seams(2)
+    return float((got - want)[:, seam].abs().max())
+
+
+@pytest.mark.parametrize("name,short", [(None, None), ("down0s", (0, 0)), ("block_s2d", (0, 1)),
+                                        ("block_s2d", (1, 0)), ("down1_s2d", (0, 0))],
+                         ids=["halos", "down0s", "block_s2d_below", "block_s2d_above",
+                              "down1_s2d"])
+def test_an_l1_halo_one_row_short_shows_at_the_seams(monkeypatch, name, short):
+    """'l1''s three sites of its own (the stride-2 s2d down0, tap_block at
+    level 1, down1 from s2d): with the HALOS table one forward split in 2
+    is one device's within L1_FORWARD_TOL at the seams; with one site's
+    halo a row short the seam rows move beyond it (read 6.2e-6 to 4.2e-4;
+    the sampler's last steps scale an eps error down ~100x, so one forward
+    is read). down0s needs its 2 rows above also for the even start: 1
+    raises, its output not cropping to whole rows."""
+    if name is None:
+        assert _l1_forward_seams() <= L1_FORWARD_TOL
+        monkeypatch.setitem(halo.HALOS, "down0s", (1, 0))
+        with pytest.raises(ValueError, match="does not crop"):
+            _l1_forward_seams()
+    else:
+        monkeypatch.setitem(halo.HALOS, name, short)
+        assert _l1_forward_seams() > L1_FORWARD_TOL
+
+
+def test_band_row_counts_follow_the_halo_table():
+    """The row counts a site's chain sees on the first, inner and last band
+    (the shapes chip_smoke.py holds the kernels to at HR 512)."""
+    assert halo.band_row_counts("stem_s2d", 256, 2) == [130]
+    assert halo.band_row_counts("stem_s2d", 256, 4) == [66, 68]
+    assert halo.band_row_counts("block_s2d", 128, 4) == [33, 34]
+    assert halo.band_row_counts("head", 256, 2) == [131, 132]
+    assert halo.band_row_counts("head", 256, 4) == [67, 68, 71]
 
 
 def test_two_items_split_in_four_with_ddim_and_the_fused_update():
@@ -368,11 +428,15 @@ def test_the_band_layout_in_the_cuda_source_emulated(emulated):
 def test_two_ranks_of_a_gloo_group_equal_one_process(tmp_path):
     """The 'stem' image (DDPM and DDIM-3, the generator's noise) with its
     height split over two gloo ranks, one band a rank: both ranks hold the
-    one-process image within 1e-5."""
+    one-process image within 1e-5, and the int8 scales of one probe
+    calibrated band by band, merged over the ranks by one all_reduce(MAX),
+    the one process's within 1e-6 (the row-0 correction's site too, which
+    only the top band owns)."""
     model = port_model(_variables(), **STEM)
     x_T, cond = (torch.from_numpy(a) for a in _inputs())
+    t = torch.tensor([3.0])
     torch.save({"state": model.state_dict(), "flags": STEM, "steps": STEPS, "x_T": x_T,
-                "cond": cond, "seed": 12}, str(tmp_path / "spatial_inputs.pt"))
+                "cond": cond, "t": t, "seed": 12}, str(tmp_path / "spatial_inputs.pt"))
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=torch_port_mp_worker.run_spatial, args=(r, 2, str(tmp_path)))
              for r in range(2)]
@@ -389,38 +453,21 @@ def test_two_ranks_of_a_gloo_group_equal_one_process(tmp_path):
     proc = make_process(model, "linear", STEPS, HR)
     want = {"ddpm": proc.sampler()(x_T, cond, generator=torch.Generator().manual_seed(12)),
             "ddim": proc.ddim_sampler(3)(x_T, cond, generator=torch.Generator().manual_seed(12))}
+    calib = tq.calibrate(proc.net, [(x_T, t, cond)])
     for r in range(2):
         got = torch.load(str(tmp_path / f"spatial{r}.pt"), weights_only=False)
         assert got["bands"] == 2 and got["local"] == [r]
         for name, w in want.items():
             _assert_split(got[name].numpy(), w.numpy(), 2, 1e-5)
+        assert set(got["calib"]) == set(calib) and "s2d.head_fix_x" in calib
+        for site, a in calib.items():
+            assert float(got["calib"][site]) == pytest.approx(float(a), rel=1e-6), site
 
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("flags", [dict(s2d=True, tap44=True), dict(s2d=True, tap44="conv2"),
-                                   dict(s2d=True, tap44="l1"),
-                                   dict(s2d=True, tap44="block", packed_head=True)],
-                         ids=["tap44_true", "conv2", "l1", "packed_head"])
-def test_configurations_out_of_the_slice_raise(flags):
-    proc = make_process(port_model(_variables(), **flags), "linear", STEPS, HR)
-    spatial = spatial_sharding(make_mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        proc.sampler(spatial=spatial)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        proc.ddim_sampler(3, spatial=spatial)
-
-
-def test_int8_and_training_raise_under_a_split():
+def test_training_raises_under_a_split():
     model = port_model(_variables(), s2d=True, tap44="block")
-    proc = make_process(model, "linear", STEPS, HR)
-    spatial = spatial_sharding(make_mesh(["cpu"] * 2))
-    tq.attach(proc.net, {"s2d.conv0": torch.ones(())})
-    try:
-        with pytest.raises(NotImplementedError, match="int8"):
-            proc.sampler(spatial=spatial)
-    finally:
-        tq.attach(proc.net, None)
     band = halo.Band(0, 2, None)
     x = torch.zeros(1, HR // 2, HR, 3)
     with pytest.raises(NotImplementedError, match="training"):

@@ -29,6 +29,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_block import (
     tap_block_plain,
 )
 from diffusionremotesensing_tpu_torch.ops.tap_conv import PIECES
+from diffusionremotesensing_tpu_torch.parallel.halo import band_row_counts
 from tests.torch_port_helpers import TAP_TC_EMULATION, compile_emulated
 
 
@@ -247,6 +248,19 @@ def test_cuda_source_emulated_level1_matches_plain(emulated_kernel, B, H2, W2, d
     """Level 1's block (no skip conv) against the plain version, on images
     that cross the tile edges."""
     _emulate(emulated_kernel, 1, B, H2, W2, dtype, 13)
+
+
+# 'l1''s level-1 chain (block_s2d) row counts on the bands of a split of
+# the HR-64 image (16 rows and columns on the level-1 s2d grid), k = 2 and
+# 4: 9; 5 and 6
+BAND_ROWS = sorted(set(band_row_counts("block_s2d", 16, 2) + band_row_counts("block_s2d", 16, 4)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h2", BAND_ROWS)
+def test_cuda_source_emulated_level1_at_the_band_shapes(emulated_kernel, dtype, h2):
+    """Level 1's block on an extended band of a spatial split under 'l1'."""
+    _emulate(emulated_kernel, 1, 1, h2, 16, dtype, 19)
 
 
 def test_shared_memory_fits_at_both_levels(emulated_kernel):

@@ -26,6 +26,7 @@ from diffusionremotesensing_tpu_torch.ops.tap_conv import (
     tap_conv_plain,
     tap_weight,
 )
+from diffusionremotesensing_tpu_torch.parallel.halo import band_row_counts
 from tests.torch_port_helpers import compile_emulated
 
 
@@ -190,6 +191,20 @@ def test_cuda_source_emulated_matches_plain(emulated, pair, B, H2, W2, dtype):
 ])
 def test_cuda_source_emulated_bf16_persistent(emulated, pair, B, H2, W2, blocks, tap):
     _run_emulated(emulated, pair, B, H2, W2, torch.bfloat16, blocks, tap)
+
+
+# the stem chain's row counts on the bands of a split of the HR-64 image
+# (32 rows and columns on the s2d grid), k = 2 and 4: 18; 10 and 12
+BAND_ROWS = sorted(set(band_row_counts("stem_s2d", 32, 2) + band_row_counts("stem_s2d", 32, 4)))
+
+
+@pytest.mark.parametrize("pair,dtype", [(False, torch.float32), (True, torch.float32),
+                                        (False, torch.bfloat16), (True, torch.bfloat16)])
+@pytest.mark.parametrize("h2", BAND_ROWS)
+def test_cuda_source_emulated_at_the_band_shapes(emulated, pair, dtype, h2):
+    """conv2 and the pair on an extended band of a spatial split: row
+    counts no 8-row tile divides, on the 32 s2d columns of the image."""
+    _run_emulated(emulated, pair, 1, h2, 32, dtype)
 
 
 def test_smem_budget_matches_the_source(emulated):

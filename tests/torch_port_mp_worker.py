@@ -231,13 +231,16 @@ def run_spatial(rank, world, workdir):
     the group, sample the image of ``spatial_inputs.pt`` (the weights, x_T,
     cond, the model's flags and the generator's seed) with its height
     split over the ranks (``spatial_sharding``: one band a rank, halos by
-    ``batch_isend_irecv`` under gloo), DDPM and DDIM, and save what this
-    rank got to ``spatial<r>.pt``."""
+    ``batch_isend_irecv`` under gloo), DDPM and DDIM, calibrate the int8
+    scales on (x_T, t, cond) split the same way (the ranks' maxima merged
+    by ``all_reduce(MAX)``), and save what this rank got to
+    ``spatial<r>.pt``."""
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
     import torch
 
     torch.set_num_threads(1)
     from diffusionremotesensing_tpu_torch.diffusion import make_process
+    from diffusionremotesensing_tpu_torch.ops.quant import calibrate
     from diffusionremotesensing_tpu_torch.parallel.sharding import (
         initialize_distributed,
         make_mesh,
@@ -254,6 +257,8 @@ def run_spatial(rank, world, workdir):
     out = {"ddpm": proc.sampler(spatial=spatial)(inputs["x_T"], inputs["cond"], generator=gen()),
            "ddim": proc.ddim_sampler(3, spatial=spatial)(inputs["x_T"], inputs["cond"],
                                                          generator=gen()),
+           "calib": calibrate(proc.net, [(inputs["x_T"], inputs["t"], inputs["cond"])],
+                              spatial=spatial),
            "bands": spatial.bands, "local": spatial.local_bands()}
     torch.save(out, os.path.join(workdir, f"spatial{rank}.pt"))
     torch.distributed.destroy_process_group()

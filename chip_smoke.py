@@ -128,7 +128,17 @@ Phases, each printing one line with its name, seconds and result:
              msgpack, written by the port's own writer) into a temporary
              directory, load_snapshot back (the weights equal), and
              InferenceServer.from_snapshot: one bfloat16 forward bitwise
-             equal to the original model's, one served micro-batch.
+             equal to the original model's, one served micro-batch. Which
+             of tensorstore, zstandard and orbax are installed (read from
+             their metadata, none imported), and with tensorstore the
+             Orbax step: the train phase's flagship recipe 3 steps, then
+             Trainer.save_snapshot with checkpoint_backend='orbax'
+             (returns before the write) and finalize_snapshots, each on
+             the host clock beside the msgpack backend's save of the same
+             state; a second save leaves one step directory and no
+             temporary one; a new Trainer resumes from the directory with
+             the weights and BatchNorm statistics bitwise and the epochs
+             (without tensorstore one line says so and the phase goes on).
 8. quality - the repo's trained x2 snapshot
              (benchmarks/gate_artifacts/snapshot_x2.pt, read by the port's
              io) served by InferenceServer.from_snapshot in the stem
@@ -175,7 +185,36 @@ Phases, each printing one line with its name, seconds and result:
              matplotlib, cv2 and imageio import, and with matplotlib the
              superres trainer for one epoch of the train phase's 32 images
              as PNG files (previews written, no hand kernel launched).
-10. train  - training, where no hand kernel runs (the JAX model gates every
+10. helpers - the port's inference helpers (superres_and_NDVIgen,
+             imgs_generator) from the in-repo snapshots in a temporary
+             working directory laid out as models_run/<name>/weights,
+             float32, DDIM-100, tap44 'block' (tap_block, 100 launches a
+             call, exact): super_resolver on the x2 snapshot (a model name
+             of LR 128) for one eval tile's LR, (256, 256, 3) in [0, 1],
+             its PSNR and bicubic's; SAR_to_NDVI_generator on the SAR
+             snapshot at its name's 128 px, two generations from a .npy of
+             learning_check's SAR pair in [-1, 1] (the rescale taken);
+             imgs_generator's sampling step (its main without the grid:
+             the card has no matplotlib) on init_params(SEED,
+             'generation') weights of ten classes written by save_snapshot
+             to ../models_run, ten images in [0, 1]. The first two are
+             held to make_process(...).sample of the same model and
+             generator (bitwise expected, 1e-6 of max |out| allowed).
+             First, with torch's TF32 defaults restored, a float32
+             InferenceServer turns cuDNN's TF32 off and its forward equals
+             the TF32-off reading within MODEL_TOL.
+11. task_quality - the trained SAR->NDVI and generation snapshots
+             (snapshot_sar.pt, snapshot_gen.pt: 4 classes, 32 px) served
+             by InferenceServer.from_snapshot in the 'stem' configuration,
+             bfloat16, DDIM-100 with x0 clamping: the stem at CX4 = 4 and
+             bias-only, the heads at out4 = 4, CFG, on trained weights,
+             exact launches. SAR on learning_check's 8 eval pairs: PSNR
+             within 1 dB of the reference's (evals/sar_ddim100_clip.json)
+             and above the per-pixel linear baseline; generation, 32
+             images a class: CFG-3 accuracy by pattern >= 0.9 and the
+             CFG-1 diversity ratio >= 0.5 (evaluate_gen's rule); each
+             score beside the reference's.
+12. train  - training, where no hand kernel runs (the JAX model gates every
              Pallas kernel off under train=True): the flagship recipe at
              full width (x2, init_params(SEED), HR 256, batch 32, uint8
              images from default_rng(SEED) through the on-device DownBlur
@@ -199,7 +238,7 @@ Phases, each printing one line with its name, seconds and result:
              InferenceServer.from_snapshot in the 'stem' configuration: one
              DDIM-100 micro-batch of 8, finite, with the exact launches of
              the stem, gate, attention-head and decoder kernels.
-11. parallel - data parallelism (parallel/): torch.distributed's NCCL
+13. parallel - data parallelism (parallel/): torch.distributed's NCCL
              availability and version printed; (a) a world-1 group
              (NCCL, or gloo by a printed choice where the card's torch has
              no NCCL) runs 3 + 5 steps of the train phase's flagship recipe
@@ -217,7 +256,7 @@ Phases, each printing one line with its name, seconds and result:
              (loss, statistics, gradient in L2, parameters), and the
              DDIM-100 tile split over the ranks against (b)'s one-device
              tile.
-12. spatial - spatial partitioning (parallel.sharding.spatial_sharding,
+14. spatial - spatial partitioning (parallel.sharding.spatial_sharding,
              parallel.halo): one whole x2 image (LR 256 -> HR 512, B = 1, one
              512-px image of learning_check's kind) through the x2 snapshot
              in the 'stem' configuration (tap_stem_block, the gates,
@@ -255,7 +294,7 @@ Phases, each printing one line with its name, seconds and result:
              row counts the bands give at HR 512 (first, inner and last
              band, k = 2 and 4, parallel.halo.HALOS), float32 and bfloat16.
              The seconds of each run.
-13. profile - only with --profile: where one sampler step's time goes, for
+15. profile - only with --profile: where one sampler step's time goes, for
              one UNet forward of the unfused, fused, stem, tap, packed and l1
              configurations at B=48 and B=1: device ms, host ms to issue it
              (one forward queued alone behind a sleep kernel), wall ms, and
@@ -265,8 +304,9 @@ Phases, each printing one line with its name, seconds and result:
              device ms, the busy share, the top kernels.
 
 Then a JSON line with each kernel's numbers (its launches summed over the
-serve phase's paths, the quality phase's passes, the cli phase's runs and
-the parallel phase's split tiles and the spatial phase's runs,
+serve phase's paths, the quality phase's passes, the cli phase's runs, the
+helpers' calls, the task_quality phase's samplers, the parallel phase's
+split tiles and the spatial phase's runs,
 packed_conv's the
 kernel phase's; its times at B=48 in
 its main path's dtype), a row of its own for each shape of SHAPE_ROWS
@@ -280,6 +320,8 @@ import argparse
 import base64
 import contextlib
 import importlib
+import importlib.metadata
+import importlib.util
 import io
 import itertools
 import json
@@ -562,6 +604,30 @@ INT8_SITES = ("s2d.down0", "ups.1.transform")
 CALIB_PROBES = 6  # quant.sampling_probes' default timesteps at T=1500
 CENSUS_TOTALS = (4_383_058, 4_382_238, 4_383_022)
 MEDIA_PACKAGES = ("matplotlib", "cv2", "imageio")
+# the checkpoint phase's Orbax step: the packages the Orbax backend could
+# use, by their distributions' names (tensorstore is the one it needs; the
+# probe imports none of them), and the flagship recipe's steps before the
+# saves
+CHECKPOINT_PACKAGES = {"tensorstore": "tensorstore", "zstandard": "zstandard",
+                       "orbax": "orbax-checkpoint"}
+ORBAX_STEPS = 3
+# the helpers phase: super_resolver on the x2 snapshot under a model name
+# of LR 128 (one eval tile's LR), SAR_to_NDVI_generator on the SAR snapshot
+# at its name's 128 px, imgs_generator's sampling step, each at DDIM-100 in
+# float32 and held to the direct sampler of the same model and generator
+# (the same calls: bitwise expected; 1e-6 of max |out| allowed)
+SAR_SNAPSHOT = os.path.join(ARTIFACTS, "snapshot_sar.pt")
+GEN_SNAPSHOT = os.path.join(ARTIFACTS, "snapshot_gen.pt")
+HELPER_SR_NAME = "Residual_Attention_UNet_superres_magnification2_LRimgsize128_x2_snapshot"
+HELPER_DDIM_STEPS, HELPER_TOL = 100, 1e-6
+# the task_quality phase: the SAR->NDVI and generation snapshots in bf16,
+# 'stem', DDIM-100 with x0 clamping, held to the CPU gates
+# (tests/test_torch_port_tasks_quality.py): SAR on 8 eval pairs within 1 dB
+# of the reference's PSNR (evals/sar_ddim100_clip.json) and above the
+# linear baseline; generation 32 images a class, CFG-3 accuracy >= 0.9 and
+# the CFG-1 diversity ratio >= 0.5 (learning_check.evaluate_gen's `passes`)
+SAR_EVAL_PAIRS, SAR_PSNR_TOL = 8, 1.0
+GEN_PER_CLASS, GEN_ACCURACY, GEN_DIVERSITY = 32, 0.9, 0.5
 PROFILE_N = 4  # forwards per profile reading, each issued alone behind a sleep kernel
 SLEEP_CYCLES = 200_000_000  # the sleep window, ~0.1 s: many times a forward's issue time
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
@@ -1590,6 +1656,405 @@ def train_phase(dev, card):
         served = _learn_and_serve(dev, d)
     lines.append(json.dumps({"card_vs_cpu_step": steps, **served, **data}))
     return "\n".join(lines)
+
+
+# ------------------------------------------------- the Orbax step, the helpers, the task scores
+
+def checkpoint_packages():
+    """{package: version, or None where it is not installed} of the
+    packages the Orbax backend could use (CHECKPOINT_PACKAGES), read from
+    the installed distributions' metadata: nothing is imported (orbax
+    would import JAX)."""
+    out = {}
+    for name, dist in CHECKPOINT_PACKAGES.items():
+        if importlib.util.find_spec(name) is None:
+            out[name] = None
+            continue
+        try:
+            out[name] = importlib.metadata.version(dist)
+        except importlib.metadata.PackageNotFoundError:
+            out[name] = "installed, version unknown"
+    return out
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def _orbax_step(dev, tmp):
+    """The Orbax backend on the card: the train phase's flagship recipe
+    (TRAIN_*) ORBAX_STEPS steps, then Trainer.save_snapshot with
+    checkpoint_backend='orbax' (which returns before the write is done) and
+    finalize_snapshots, each timed on the host clock beside the msgpack
+    backend's save of the same state; a second save keeps one step
+    directory and no temporary one; a new Trainer resumes from the
+    directory with the saved weights and BatchNorm statistics bitwise and
+    the epochs. Where tensorstore is missing it says so and returns the
+    probe alone."""
+    found = checkpoint_packages()
+    out = {"packages": found}
+    if found["tensorstore"] is None:
+        print(f"[checkpoint] the Orbax step does not run: tensorstore is not installed on this "
+              f"machine (probe: {json.dumps(found)})", flush=True)
+        out["orbax"] = "not run: tensorstore is not installed"
+        return out
+    path = os.path.join(tmp, "orbax_ckpt")
+    recipe = dict(lr=TRAIN_LR, loss="MSE", ema_smoothing=True, seed=SEED, device=dev,
+                  batch_transform=make_downblur_transform(TRAIN_HR, 2, TRAIN_BLUR))
+
+    def trainer(backend, snapshot):
+        return Trainer(FACTORIES["superres"](compute_dtype=torch.bfloat16), "cosine", T_STEPS,
+                       TRAIN_HR, snapshot_path=snapshot, checkpoint_backend=backend, **recipe)
+
+    tr = trainer("orbax", path)
+    state = tr.init_state(init_params(SEED, device="cpu"))
+    batch = tr._prep_batch({"hr_u8": _U8Images(TRAIN_B, TRAIN_HR, TRAIN_B, SEED).pool})
+    for _ in range(ORBAX_STEPS):
+        tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    saved = {k: v.detach().cpu().clone() for k, v in tr.ema_model(state).state_dict().items()
+             if "num_batches" not in k}
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return 1e3 * (time.perf_counter() - t0)
+
+    ms = {"orbax_save_ms": host_ms(lambda: tr.save_snapshot(state, ORBAX_STEPS)),
+          "orbax_finalize_ms": host_ms(tr.finalize_snapshots)}
+    first_steps = sorted(os.listdir(path))
+    msgpack_path = os.path.join(tmp, "orbax_cmp.msgpack")
+    tr_msgpack = trainer("msgpack", msgpack_path)
+    ms["msgpack_save_ms"] = host_ms(lambda: tr_msgpack.save_snapshot(state, ORBAX_STEPS))
+    ms["orbax_save2_ms"] = host_ms(lambda: tr.save_snapshot(state, ORBAX_STEPS))
+    ms["orbax_finalize2_ms"] = host_ms(tr.finalize_snapshots)
+    left = sorted(os.listdir(path))
+    check(first_steps == ["0"] and left == ["1"],
+          f"checkpoint orbax: step directories {first_steps} after one save, {left} after two "
+          "(keep-one, no temporary directory)")
+    nbytes = _dir_bytes(path)
+    tr2 = trainer("orbax", path)
+    state2 = tr2.maybe_resume(tr2.init_state(init_params(SEED + 1, device="cpu")))
+    got = state2.model.state_dict()
+    check(tr2.epochs_run == ORBAX_STEPS and all(torch.equal(got[k].cpu(), v)
+                                                for k, v in saved.items()),
+          f"checkpoint orbax: the resumed trainer's epochs ({tr2.epochs_run}) or weights and "
+          "BatchNorm statistics differ from the saved ones")
+    out["orbax"] = {"train_steps": ORBAX_STEPS, "hr": TRAIN_HR, "batch": TRAIN_B, **ms,
+                    "orbax_directory_bytes": nbytes,
+                    "msgpack_bytes": os.path.getsize(msgpack_path),
+                    "float32_weight_bytes": sum(v.numel() * 4 for v in saved.values()),
+                    "steps_after_two_saves": left, "resumed_epochs_run": tr2.epochs_run,
+                    "resumed_bitwise_equal": True}
+    return out
+
+
+def _tf32_check(dev):
+    """torch's defaults restored (cuDNN TF32 on, matmul TF32 off): a float32
+    InferenceServer turns cuDNN's TF32 off, and its forward (the dense-s2d
+    configuration: cuDNN convolutions) equals the reading taken with TF32
+    off within MODEL_TOL; the TF32 reading's distance is printed."""
+    x, t, cond = (torch.from_numpy(a).to(dev) for a in golden_input())
+    m = model_with("dense", dev)
+
+    def forward(model):
+        with torch.inference_mode():
+            return model(x, t, cond)
+
+    torch.backends.cudnn.allow_tf32 = False
+    off = forward(m)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    on = forward(m)
+    server = InferenceServer(m, "cosine", T_STEPS, HR, ddim_steps=DDIM_STEPS, device="cuda")
+    try:
+        left_on = torch.backends.cudnn.allow_tf32
+        served = forward(server.process.net)
+    finally:
+        server.shutdown()
+        torch.backends.cudnn.allow_tf32 = False
+    scale = max(1.0, float(off.abs().max()))
+    err, tf32_err = (float((a - off).abs().max()) for a in (served, on))
+    check(left_on is False, "tf32: a float32 InferenceServer left cuDNN's TF32 on")
+    check(err <= MODEL_TOL[torch.float32] * scale,
+          f"tf32: the float32 server's forward is {err} from the TF32-off reading")
+    return {"float32_server_sets_cudnn_tf32": left_on, "max_abs_err_vs_tf32_off": err,
+            "tf32_on_max_abs_err": tf32_err, "scale": scale}
+
+
+def _helper_launches(counts, forwards, variant, what):
+    want = {k: n * forwards for k, n in per_forward("block").items()}
+    check(counts == want, f"helpers {what}: launches {counts}, expected {want}")
+    return {row_of(k, variant): n for k, n in counts.items() if n}
+
+
+def _max_rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def helpers_phase(dev, card):
+    """The port's inference helpers from the in-repo snapshots, in a
+    temporary working directory laid out as models_run/<name>/weights
+    (module docstring, helpers). Returns the JSON lines and the launches of
+    the helpers' own calls."""
+    from diffusionremotesensing_tpu_torch import imgs_generator
+    from diffusionremotesensing_tpu_torch import superres_and_NDVIgen as helpers
+
+    sar_size = helpers.parse_imgsize(helpers.SAR_MODEL_NAME)
+    level = cli.resolve_tap44(None, dev)  # the helpers' tap44 on this device: 'block' on a card
+
+    for snap in (QUALITY_SNAPSHOT, SAR_SNAPSHOT):
+        check(os.path.exists(snap), f"helpers: {snap} is missing")
+    results = {"tf32": _tf32_check(dev)}
+    launches = dict.fromkeys(list(KERNELS) + list(SHAPE_ROWS), 0)
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        for name, snap in ((HELPER_SR_NAME, QUALITY_SNAPSHOT),
+                           (helpers.SAR_MODEL_NAME, SAR_SNAPSHOT)):
+            os.makedirs(os.path.join(d, "models_run", name, "weights"))
+            os.symlink(snap, os.path.join(d, "models_run", name, "weights", "snapshot.pt"))
+        os.chdir(d)
+        try:
+            # super_resolver: one eval tile's LR 128 -> 256
+            hr = eval_tiles()[0]
+            lr = pil_downblur_u8(hr, 2, EVAL_BLUR).astype(np.float32) / 255.0
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            sr = helpers.super_resolver(lr, device="cuda", model_name=HELPER_SR_NAME,
+                                        generator=torch.Generator(device=dev).manual_seed(SEED),
+                                        ddim_steps=HELPER_DDIM_STEPS)
+            secs = time.perf_counter() - t0
+            sr_launch = _helper_launches(read_counts(), HELPER_DDIM_STEPS, "superres",
+                                         "super_resolver")
+            check(sr.shape == (2 * lr.shape[0], 2 * lr.shape[1], 3) and np.isfinite(sr).all()
+                  and sr.min() >= 0.0 and sr.max() <= 1.0,
+                  f"helpers super_resolver: output {sr.shape} out of range")
+            model = residual_attention_unet_superres(magnification_factor=2, s2d=True, tap44=level)
+            model.load_state_dict(load_snapshot(QUALITY_SNAPSHOT)[0])
+            proc = make_process(model.to(dev).eval(), "cosine", T_STEPS, 2 * lr.shape[0])
+            direct = np.clip(proc.sample(1, cond=lr, ddim_steps=HELPER_DDIM_STEPS,
+                                         generator=torch.Generator(device=dev).manual_seed(SEED))
+                             [0].cpu().numpy(), 0.0, 1.0)
+            sr_diff = _max_rel(sr, direct)
+            check(sr_diff <= HELPER_TOL, f"helpers super_resolver: {sr_diff} of max |out| from "
+                                         "the direct sampler")
+            hr_f = hr.astype(np.float32) / 255.0
+            bic = upsample_bicubic(torch.from_numpy(lr[None]), 2)[0].clamp(0, 1).numpy()
+            results["super_resolver"] = {
+                "snapshot": os.path.basename(QUALITY_SNAPSHOT), "model_name": HELPER_SR_NAME,
+                "lr": list(lr.shape), "ddim_steps": HELPER_DDIM_STEPS, "seconds": secs,
+                "max_rel_diff_vs_direct_sampler": sr_diff, "bitwise": bool(np.array_equal(sr, direct)),
+                "psnr_db": psnr(sr, hr_f), "bicubic_psnr_db": psnr(bic, hr_f), "launches": sr_launch}
+
+            # SAR_to_NDVI_generator: a learning_check SAR pair at 128 px, as
+            # prepare_sar writes it ([-1, 1], CHW)
+            sar, ndvi = _sar_pair(np.random.default_rng(SEED + 11), sar_size)
+            np.save("sar.npy", (sar * 2 - 1).astype(np.float32))
+            raw = np.load("sar.npy").astype(np.float32)
+            check(-1.0 < raw.min() < 0.0, "helpers: the SAR input misses the rescale")
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            gen = helpers.SAR_to_NDVI_generator(
+                "sar.npy", device="cuda", n_generations=2,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                ddim_steps=HELPER_DDIM_STEPS)
+            secs = time.perf_counter() - t0
+            sar_launch = _helper_launches(read_counts(), HELPER_DDIM_STEPS, "sar",
+                                          "SAR_to_NDVI_generator")
+            check(gen.shape == (2, sar_size, sar_size, 1) and np.isfinite(gen).all(),
+                  f"helpers SAR_to_NDVI_generator: output {gen.shape} or not finite")
+            m_sar = residual_attention_unet_sar_to_ndvi(s2d=True, tap44=level)
+            m_sar.load_state_dict(load_snapshot(SAR_SNAPSHOT)[0])
+            cond = (raw.transpose(1, 2, 0) + 1) / 2
+            direct = make_process(m_sar.to(dev).eval(), "cosine", T_STEPS, sar_size).sample(
+                2, cond=cond, ddim_steps=HELPER_DDIM_STEPS,
+                generator=torch.Generator(device=dev).manual_seed(SEED)).cpu().numpy()
+            sar_diff = _max_rel(gen, direct)
+            check(sar_diff <= HELPER_TOL, f"helpers SAR_to_NDVI_generator: {sar_diff} of max "
+                                          "|out| from the direct sampler")
+            results["SAR_to_NDVI_generator"] = {
+                "snapshot": os.path.basename(SAR_SNAPSHOT), "size": sar_size,
+                "n_generations": 2, "ddim_steps": HELPER_DDIM_STEPS, "seconds": secs,
+                "max_rel_diff_vs_direct_sampler": sar_diff,
+                "bitwise": bool(np.array_equal(gen, direct)),
+                "psnr_db_vs_pair_ndvi": [psnr(np.clip(g, 0, 1), ndvi.transpose(1, 2, 0))
+                                         for g in gen],
+                "launches": sar_launch}
+
+            # imgs_generator's sampling step, init_params weights of ten
+            # classes written by the port's save_snapshot to ../models_run
+            gen_model = residual_attention_unet_generation(num_classes=len(imgs_generator.CLASSES))
+            gen_model.load_state_dict(init_params(SEED, "generation", device="cpu"))
+            save_snapshot(os.path.join(d, "models_run", imgs_generator.MODEL_NAME, "weights",
+                                       "snapshot.pt"), gen_model, 0)
+            os.makedirs(os.path.join(d, "gen"))
+            os.chdir(os.path.join(d, "gen"))
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            imgs = imgs_generator._generate(
+                ddim_steps=HELPER_DDIM_STEPS, device="cuda",
+                generator=torch.Generator(device=dev).manual_seed(SEED))
+            secs = time.perf_counter() - t0
+            gen_launch = _helper_launches(read_counts(), HELPER_DDIM_STEPS, "generation",
+                                          "imgs_generator")
+            check(imgs.shape == (len(imgs_generator.CLASSES), imgs_generator.IMAGE_SIZE,
+                                 imgs_generator.IMAGE_SIZE, 3)
+                  and np.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0,
+                  f"helpers imgs_generator: images {imgs.shape} out of range")
+            results["imgs_generator"] = {"weights": f"init_params({SEED}, 'generation')",
+                                         "images": list(imgs.shape), "cfg": imgs_generator.CFG_SCALE,
+                                         "ddim_steps": HELPER_DDIM_STEPS, "seconds": secs,
+                                         "launches": gen_launch}
+        finally:
+            os.chdir(home)
+    for part in (sr_launch, sar_launch, gen_launch):
+        for k, n in part.items():
+            launches[k] += n
+    return json.dumps({**results, "card": card}), launches
+
+
+# learning_check's SAR->NDVI and generation evaluation (benchmarks/
+# learning_check.py: _structure, _sar_pair, _class_pattern, _gen_image,
+# classify_by_pattern, _color_diversity), kept here so that the script
+# needs nothing of benchmarks/
+SAR_SIZE, GEN_SIZE = 64, 32
+GEN_CLASSES = ["checker", "diag", "stripes_h", "stripes_v"]
+
+
+def _sar_pair(rng, size):
+    a, b = (draw_image(rng, size).astype(np.float32).mean(axis=2) / 255.0 for _ in range(2))
+    ndvi = np.clip(0.5 + 0.5 * np.tanh(3.0 * (a - b)) + 0.3 * (a * b - 0.25), 0.0, 1.0)
+    return np.stack([a, b]), ndvi[None]
+
+
+def _class_pattern(name, size=GEN_SIZE):
+    y, x = np.mgrid[0:size, 0:size]
+    if name == "stripes_h":
+        return ((y // 4) % 2).astype(np.float32)
+    if name == "stripes_v":
+        return ((x // 4) % 2).astype(np.float32)
+    if name == "checker":
+        return (((y // 4) + (x // 4)) % 2).astype(np.float32)
+    return (((x + y) // 6) % 2).astype(np.float32)  # diag
+
+
+def _gen_image(rng, name):
+    p = _class_pattern(name)[:, :, None]
+    c1, c2 = rng.random(3).astype(np.float32), rng.random(3).astype(np.float32)
+    while np.abs(c1 - c2).mean() < 0.25:
+        c2 = rng.random(3).astype(np.float32)
+    img = p * c1 + (1 - p) * c2 + 0.03 * rng.standard_normal((GEN_SIZE, GEN_SIZE, 3))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def classify_by_pattern(imgs):
+    pats = np.stack([_class_pattern(c) for c in GEN_CLASSES])
+    pats = pats - pats.mean(axis=(1, 2), keepdims=True)
+    pats /= np.linalg.norm(pats, axis=(1, 2), keepdims=True) + 1e-9
+    g = imgs.mean(axis=3)
+    g = g - g.mean(axis=(1, 2), keepdims=True)
+    g /= np.linalg.norm(g, axis=(1, 2), keepdims=True) + 1e-9
+    return np.abs(np.einsum("bhw,chw->bc", g, pats)).argmax(axis=1)
+
+
+def _color_diversity(imgs, labels, n_classes):
+    return float(np.mean([imgs[labels == c].mean(axis=(1, 2)).std(axis=0).mean()
+                          for c in range(n_classes)]))
+
+
+def task_quality_phase(dev, card):
+    """The trained SAR->NDVI and generation snapshots on the card, bf16, the
+    'stem' configuration, DDIM-100 with x0 clamping, through
+    InferenceServer.from_snapshot, scored as
+    tests/test_torch_port_tasks_quality.py scores them on the CPU (module
+    docstring, task_quality). Returns the JSON lines and the launches."""
+    for snap in (SAR_SNAPSHOT, GEN_SNAPSHOT):
+        check(os.path.exists(snap), f"task_quality: {snap} is missing")
+    launches = dict.fromkeys(list(KERNELS) + list(SHAPE_ROWS), 0)
+    lines = []
+
+    def serve(path, size, **kw):
+        return InferenceServer.from_snapshot(path, "cosine", T_STEPS, size,
+                                             model_flags=CONFIGS["stem"], ddim_steps=DDIM_STEPS,
+                                             dtype=torch.bfloat16, device="cuda", **kw)
+
+    def counted(variant, forwards, what):
+        counts = read_counts()
+        want = {k: n * forwards for k, n in per_forward("stem").items()}
+        check(counts == want, f"task_quality {what}: launches {counts}, expected {want}")
+        for k, n in counts.items():
+            launches[row_of(k, variant)] += n
+        return {row_of(k, variant): n for k, n in counts.items() if n}
+
+    # SAR->NDVI: prepare_sar's 8 eval pairs (seed 0 + 10000)
+    erng = np.random.default_rng(10_000)
+    pairs = [_sar_pair(erng, SAR_SIZE) for _ in range(SAR_EVAL_PAIRS)]
+    sar = np.stack([p[0] for p in pairs]).transpose(0, 2, 3, 1).astype(np.float32)
+    gt = np.stack([p[1] for p in pairs]).transpose(0, 2, 3, 1).astype(np.float32)
+    server = serve(SAR_SNAPSHOT, SAR_SIZE, task="sar")
+    try:
+        g = torch.Generator(device=dev).manual_seed(5)
+        x_T = torch.randn((len(sar), SAR_SIZE, SAR_SIZE, 1), generator=g, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        pred = server.process.ddim_sampler(DDIM_STEPS, clip_x0=True)(
+            x_T, torch.from_numpy(sar).to(dev)).float().clamp(0.0, 1.0).cpu().numpy()
+        secs = time.perf_counter() - t0
+        sar_launch = counted("sar", DDIM_STEPS, "sar")
+    finally:
+        server.shutdown()
+    X = np.stack([sar[..., 0].ravel(), sar[..., 1].ravel(), np.ones(gt.size)], axis=1)
+    w, *_ = np.linalg.lstsq(X, gt.ravel(), rcond=None)
+    lin = np.clip((X @ w).reshape(gt.shape), 0.0, 1.0)
+    ref = _reference_scores("sar_ddim100_clip.json")
+    got = {"sar_psnr_db": psnr(pred, gt), "sar_ssim": ssim(pred, gt),
+           "linear_baseline_psnr_db": psnr(lin, gt)}
+    check(np.isfinite(pred).all() and got["sar_psnr_db"] > got["linear_baseline_psnr_db"]
+          and abs(got["sar_psnr_db"] - ref["sar_psnr_db"]) <= SAR_PSNR_TOL,
+          f"task_quality sar: {got}, the reference's {ref['sar_psnr_db']} dB")
+    lines.append(json.dumps({"task": "sar", "snapshot": os.path.basename(SAR_SNAPSHOT),
+                             "config": "stem", "dtype": "bfloat16", "pairs": len(sar), **got,
+                             "reference_sar_psnr_db": ref["sar_psnr_db"],
+                             "reference_sar_ssim": ref["sar_ssim"], "seconds": secs,
+                             "launches": sar_launch, "card": card}))
+
+    # generation: 32 images a class at CFG 3 (accuracy) and CFG 1 (diversity)
+    labels = np.repeat(np.arange(len(GEN_CLASSES)), GEN_PER_CLASS)
+    server = serve(GEN_SNAPSHOT, GEN_SIZE, task="generation", num_classes=len(GEN_CLASSES))
+    try:
+        kw = dict(ddim_steps=DDIM_STEPS, ddim_clip_x0=True)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        imgs, imgs_nc = (server.process.sample(
+            len(labels), cond=labels, cfg_scale=cfg,
+            generator=torch.Generator(device=dev).manual_seed(seed), **kw).float().clamp(0.0, 1.0)
+            .cpu().numpy() for cfg, seed in ((CFG, 11), (1.0, 13)))
+        secs = time.perf_counter() - t0
+        gen_launch = counted("generation", 2 * DDIM_STEPS, "generation")
+    finally:
+        server.shutdown()
+    acc = float((classify_by_pattern(imgs) == labels).mean())
+    rng = np.random.default_rng(23)
+    ref_imgs = np.stack([_gen_image(rng, n).astype(np.float32) / 255.0
+                         for n in GEN_CLASSES for _ in range(GEN_PER_CLASS)])
+    ratio = (_color_diversity(imgs_nc, labels, len(GEN_CLASSES))
+             / max(_color_diversity(ref_imgs, labels, len(GEN_CLASSES)), 1e-9))
+    ref = _reference_scores("gen_ddim100_clip.json")
+    check(np.isfinite(imgs).all() and acc >= GEN_ACCURACY and ratio >= GEN_DIVERSITY,
+          f"task_quality generation: accuracy {acc} (>= {GEN_ACCURACY}), CFG-1 diversity ratio "
+          f"{ratio} (>= {GEN_DIVERSITY}); the reference's {ref['accuracy']}, "
+          f"{ref['diversity_ratio_cfg1']}")
+    lines.append(json.dumps({"task": "generation", "snapshot": os.path.basename(GEN_SNAPSHOT),
+                             "config": "stem", "dtype": "bfloat16", "images": len(labels),
+                             "accuracy_cfg3": acc, "diversity_ratio_cfg1": ratio,
+                             "reference_accuracy": ref["accuracy"],
+                             "reference_diversity_ratio_cfg1": ref["diversity_ratio_cfg1"],
+                             "seconds": secs, "launches": gen_launch, "card": card}))
+    return "\n".join(lines), launches
 
 
 def _run_cli(argv):
@@ -3281,12 +3746,15 @@ def main():
         return json.dumps(paths)
 
     def checkpoint():
-        """save_snapshot of init_params(SEED)'s model into a temporary
+        """The Orbax step (_orbax_step: the package probe, and with
+        tensorstore a flagship trainer's Orbax saves, keep-one and resume);
+        save_snapshot of init_params(SEED)'s model into a temporary
         directory, load_snapshot back (the same weights), a server from it:
         one bfloat16 forward bitwise equal to the original model's, and one
         served micro-batch."""
         src = model_with("block", dev)
         with tempfile.TemporaryDirectory() as d:
+            orbax = _orbax_step(dev, d)
             path = os.path.join(d, "snapshot.msgpack")
             save_snapshot(path, src, 7)
             size = os.path.getsize(path)
@@ -3320,7 +3788,8 @@ def main():
         finally:
             server.shutdown()
         return json.dumps({"snapshot_bytes": size, "epochs_run": epochs,
-                           "forward_bitwise_equal": True, "micro_batches": server.batches_run})
+                           "forward_bitwise_equal": True, "micro_batches": server.batches_run,
+                           **orbax})
 
     def quality():
         lines, launches = quality_phase(dev, state["smi"], QUALITY_DRAWS)
@@ -3353,6 +3822,22 @@ def main():
     phase("checkpoint", checkpoint)
     phase("quality", quality)
     phase("cli", cli_)
+
+    def helpers():
+        line, launches = helpers_phase(dev, state["smi"])
+        for k, n in launches.items():
+            state["launches"][k] += n
+        return line
+
+    phase("helpers", helpers)
+
+    def task_quality():
+        lines, launches = task_quality_phase(dev, state["smi"])
+        for k, n in launches.items():
+            state["launches"][k] += n
+        return lines
+
+    phase("task_quality", task_quality)
     phase("train", lambda: train_phase(dev, state["smi"]))
 
     def parallel():

@@ -50,8 +50,13 @@ Where the port differs from the reference package:
   this process, or the ranks of a torchrun group, whose tiles rank 0 writes.
   ``--data_parallel`` on ``serve`` splits every micro-batch over the cards of
   the process (``--device``'s type), collective-free.
-* **Not ported yet**: ``--checkpoint_backend orbax`` (ROADMAP Queue 1: the
-  Orbax backend) raises a ``NotImplementedError``.
+* **Snapshots.** ``--checkpoint_backend orbax`` writes the reference
+  package's Orbax checkpoint directory through ``tensorstore``
+  (``io.OrbaxSnapshotter``; no orbax, no JAX), in the background; msgpack
+  (the default) needs no package beyond torch and numpy.
+* **Float32** is IEEE float32: the aggregation launcher, the trainers of a
+  float32 model and a float32 server turn cuDNN's TF32 off
+  (``utils.ieee_float32``); bfloat16 runs are left as they are.
 * ``DRS_TRAIN_SEED`` seeds the trainers' initial weights (torch's default
   initialisation drawn under that seed) and their noise, as in the
   reference.
@@ -68,7 +73,7 @@ import numpy as np
 import torch
 
 from diffusionremotesensing_tpu_torch.parallel.sharding import is_main_process
-from diffusionremotesensing_tpu_torch.utils import default_device, resolve_device
+from diffusionremotesensing_tpu_torch.utils import default_device, ieee_float32, resolve_device
 
 # --tap44 spellings -> the model's tap44 level (models.unet.TAP44_LEVELS)
 TAP44_SPELLINGS = {"off": False, "conv2": "conv2", "full": True, "block": "block",
@@ -131,12 +136,6 @@ def _make_mesh_if(multiple: bool, device: torch.device):
     return make_mesh(local_devices(device.type))
 
 
-def _refuse_orbax() -> None:
-    raise NotImplementedError(
-        "--checkpoint_backend orbax: the Orbax backend waits for its port (ROADMAP Queue "
-        "1); use msgpack, which the reference package reads too")
-
-
 def _check_unet_type(name: Optional[str]) -> None:
     """Only the Residual Attention UNet exists (the reference's two MultiHead
     variants are unfinished there)."""
@@ -194,7 +193,9 @@ def _load_vgg(args):
 
 def _check_train_flags(args) -> None:
     if getattr(args, "checkpoint_backend", "msgpack") == "orbax":
-        _refuse_orbax()
+        from diffusionremotesensing_tpu_torch.io import require_tensorstore
+
+        require_tensorstore()  # before any data is read
     # before the loaders: the group gives each rank its shard
     args.mesh = _make_mesh_if(args.multiple_gpus, resolve_device(default_device()))
 
@@ -528,7 +529,7 @@ def aggregation_outputs(img_dir: str, dest_dir: str):
 def launch_aggregation(args) -> None:
     """Aggregation_Sampling: load the LR image (or every image of
     --img_lr_dir), squarify it if needed, super-resolve it by tiling, save
-    it as PNG."""
+    it as PNG. The model computes in float32 with cuDNN's TF32 off."""
     from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler
     from diffusionremotesensing_tpu_torch.diffusion import make_process
     from diffusionremotesensing_tpu_torch.io import load_snapshot
@@ -551,6 +552,7 @@ def launch_aggregation(args) -> None:
     state, _ = load_snapshot(os.path.join(args.snapshot_folder_path, args.snapshot_name))
     model.load_state_dict(state, strict=True)
     model = model.to(device).eval()
+    ieee_float32(model.dtype)
 
     img_dir = getattr(args, "img_lr_dir", None)
     if img_dir:
@@ -753,7 +755,8 @@ def _train_engine(p):
                    help="data-loading threads (0 = synchronous)")
     p.add_argument("--checkpoint_backend", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="snapshot writer: msgpack (the only one ported; orbax raises)")
+                   help="snapshot writer: msgpack (one file) or orbax (a checkpoint "
+                        "directory written in the background; needs tensorstore)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="capture a torch.profiler trace of training into this directory")
 

@@ -1,38 +1,55 @@
 """Snapshot load and save (port of ``diffusionremotesensing_tpu/io.py``).
 
-A snapshot is one file holding the model's weights and the epochs run, in
-either of the two formats the reference package reads:
+A snapshot holds the model's weights and the epochs run, in any of the
+three formats the reference package reads:
 
 * its own, flax's msgpack (``flax.serialization.msgpack_serialize`` of
   ``{'EPOCHS_RUN': int, 'MODEL_STATE': {'batch_stats': ..., 'params': ...}}``),
-  which :func:`save_snapshot` writes and :func:`load_snapshot` reads with a
-  msgpack reader and writer of the standard library's own (the card's
-  machine has neither ``msgpack`` nor ``flax``);
+  one file, which :func:`save_snapshot` writes and :func:`load_snapshot`
+  reads with a msgpack reader and writer of the standard library's own (the
+  card's machine has neither ``msgpack`` nor ``flax``);
 * the reference's torch ``snapshot.pt`` (``{'MODEL_STATE': state_dict,
   'EPOCHS_RUN': int}``, optionally with DDP's ``module.`` prefix), read with
   ``torch.load`` and mapped through :func:`to_jax_variables`, the port's copy
-  of ``import_torch_state_dict``.
+  of ``import_torch_state_dict``;
+* an Orbax checkpoint directory, as the reference package's
+  ``OrbaxSnapshotter`` writes it: one step directory a save,
+  ``<path>/<step>/``, holding ``_CHECKPOINT_METADATA`` (JSON),
+  ``default/_METADATA`` (the tree's metadata, JSON) and an OCDBT key-value
+  store in ``default/`` whose arrays are zarr v2, one zstd-1 chunk each,
+  keyed by their dotted path (``MODEL_STATE.params.conv0.conv.kernel``;
+  ``EPOCHS_RUN`` a 0-d int64). :class:`OrbaxSnapshotter` writes it in a
+  background thread and :func:`load_snapshot_orbax` reads its latest
+  committed step, both through ``tensorstore`` (imported inside them: it
+  is needed only by this format) and neither through ``orbax`` nor JAX.
 
 Either way :func:`load_snapshot` returns a state_dict for
 :class:`~diffusionremotesensing_tpu_torch.models.unet.ResidualAttentionUNet`
 of the snapshot's model (super-resolution, SAR->NDVI or class-conditional,
 read from its variables), through
 :func:`~diffusionremotesensing_tpu_torch.convert.from_jax_variables`.
-Orbax checkpoint directories are not read (ROADMAP, Queue 1).
 
 Example:
     state, epochs = load_snapshot("snapshot_x2.pt")
     model = residual_attention_unet_superres(magnification_factor=2, s2d=True)
     model.load_state_dict(state)
     save_snapshot("copy.msgpack", model, epochs)
+    writer = OrbaxSnapshotter("ckpt")       # a directory
+    writer.save(model, epochs)              # returns before the write is done
+    writer.wait_until_finished()
+    state, epochs = load_snapshot("ckpt")
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import struct
 import tempfile
-from typing import Dict, Tuple
+import threading
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -380,12 +397,11 @@ def to_jax_variables(state_dict) -> Tuple[dict, dict]:
 
 def load_snapshot(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     """(state_dict, epochs_run) of the snapshot at ``path``: a reference
-    torch ``snapshot.pt`` (recognised by its first bytes) or the reference
-    package's flax msgpack. The state_dict is float32 on the CPU."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an Orbax checkpoint): the port reads msgpack and torch "
-            "snapshots only; the Orbax format waits for a port of its own (ROADMAP, Queue 1)")
+    torch ``snapshot.pt`` (recognised by its first bytes), the reference
+    package's flax msgpack, or an Orbax checkpoint directory
+    (:func:`load_snapshot_orbax`). The state_dict is float32 on the CPU."""
+    if os.path.isdir(path):  # Orbax checkpoints are directories
+        return load_snapshot_orbax(path)
     with open(path, "rb") as f:
         head = f.read(2)
         if head not in _TORCH_HEADS:
@@ -425,3 +441,219 @@ def save_snapshot(path: str, model: torch.nn.Module, epochs_run: int) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+# ------------------------------------------------------------------- Orbax
+
+# orbax's suffix of a step directory still being written: its readers, and
+# this module's, skip such a directory
+ORBAX_TMP_SUFFIX = ".orbax-checkpoint-tmp"
+# the item handler the reference package's writer records, by which orbax
+# restores the step without being told how
+_ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                  "StandardCheckpointHandler")
+# the OCDBT store's settings as orbax makes them
+_OCDBT_CONFIG = {"compression": {"id": "zstd"}, "max_decoded_node_bytes": 100_000_000,
+                 "max_inline_value_bytes": 1024, "version_tree_arity_log2": 4}
+_KEY_TYPE_DICT = 2  # orbax's tree metadata: a dict key
+
+
+def require_tensorstore():
+    """The ``tensorstore`` module, or an ImportError that names it and the
+    backend that needs it."""
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError("the Orbax checkpoint backend needs the 'tensorstore' package, which "
+                          "is not installed; the msgpack backend needs nothing more") from e
+    return tensorstore
+
+
+def _ocdbt(item_dir: str, key: str, **config) -> dict:
+    """The kvstore spec of array ``key`` in the OCDBT store at ``item_dir``
+    (``config``: a new store's settings)."""
+    return {"driver": "ocdbt", "base": "file://" + os.path.abspath(item_dir) + "/",
+            "path": key + "/", **config}
+
+
+def _leaves(tree, prefix=()):
+    """(path, leaf) of a tree of dicts, keys in sorted order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def committed_steps(path: str):
+    """The step numbers of an Orbax checkpoint directory whose write has
+    committed, ascending (a step still being written, or cut short, lies in
+    a directory with ``ORBAX_TMP_SUFFIX`` and is not one)."""
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(n) for n in os.listdir(path)
+                  if n.isdigit() and os.path.isdir(os.path.join(path, n)))
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _write_orbax_item(item_dir: str, payload: dict) -> dict:
+    """Every leaf of ``payload`` (numpy arrays; an int is a scalar) as a
+    zarr v2 array of one zstd-1 chunk in a new OCDBT store at ``item_dir``,
+    committed as one transaction; returns the tree metadata."""
+    ts = require_tensorstore()
+    os.makedirs(item_dir)
+    leaves = list(_leaves(payload))
+    # one atomic transaction over a cache that holds all of it: one OCDBT
+    # commit of ~2 files. A cache of tensorstore's default size (0) writes
+    # each array back as it goes: 20x the files and the bytes, 10x the time.
+    nbytes = sum(np.asarray(v).nbytes for _, v in leaves)
+    ctx = ts.Context({"cache_pool": {"total_bytes_limit": 2 * nbytes + (64 << 20)}})
+    txn = ts.Transaction(atomic=True)
+    writes, tree_metadata = [], {}
+    for path, value in leaves:
+        arr = np.asarray(value)
+        key = ".".join(path)
+        meta = {"shape": list(arr.shape), "chunks": list(arr.shape), "dtype": arr.dtype.str,
+                "compressor": {"id": "zstd", "level": 1}, "fill_value": None, "filters": None,
+                "order": "C", "dimension_separator": ".", "zarr_format": 2}
+        store = ts.open({"driver": "zarr", "kvstore": _ocdbt(item_dir, key, config=_OCDBT_CONFIG),
+                         "metadata": meta,
+                         "store_data_equal_to_fill_value": True},
+                        create=True, transaction=txn, context=ctx).result()
+        writes.append(store.write(arr))
+        tree_metadata[str(path)] = {
+            "key_metadata": [{"key": k, "key_type": _KEY_TYPE_DICT} for k in path],
+            "value_metadata": {"value_type": "np.ndarray" if isinstance(value, np.ndarray)
+                               else "scalar", "skip_deserialize": False}}
+    for w in writes:
+        w.result()
+    txn.commit_async().result()
+    return tree_metadata
+
+
+def write_orbax_step(step_dir: str, payload: dict) -> None:
+    """Write ``payload`` as one Orbax step at ``step_dir``: into the sibling
+    ``step_dir + ORBAX_TMP_SUFFIX`` first (the leftovers of a write cut short
+    there are removed), renamed to ``step_dir`` once every array and both
+    metadata files are written."""
+    tmp = step_dir + ORBAX_TMP_SUFFIX
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    init_ns = time.time_ns()
+    tree_metadata = _write_orbax_item(os.path.join(tmp, "default"), payload)
+    _write_json(os.path.join(tmp, "default", "_METADATA"),
+                {"tree_metadata": tree_metadata, "use_ocdbt": True, "use_zarr3": False,
+                 "store_array_data_equal_to_fill_value": True, "custom_metadata": None})
+    _write_json(os.path.join(tmp, "_CHECKPOINT_METADATA"),
+                {"item_handlers": {"default": _ORBAX_HANDLER}, "metrics": {},
+                 "performance_metrics": {}, "init_timestamp_nsecs": init_ns,
+                 "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}})
+    os.rename(tmp, step_dir)
+
+
+def _copied(tree):
+    """The tree with every leaf a float32 copy of its own: the numpy arrays
+    of a model on the CPU are views of its tensors, which training goes on
+    to change."""
+    return {k: _copied(v) if isinstance(v, dict) else np.array(v, np.float32, order="C")
+            for k, v in tree.items()}
+
+
+class OrbaxSnapshotter:
+    """The reference package's ``OrbaxSnapshotter`` without orbax: one
+    logical snapshot, a directory at ``path`` with one step directory a
+    save, whose latest committed step :func:`load_snapshot` reads.
+
+    ``save`` copies the weights to host memory (float32 numpy, the tree
+    :func:`save_snapshot` writes) and returns; a background thread writes
+    the step (:func:`write_orbax_step`: temporary directory, then rename)
+    and only then deletes the steps before it, so that a write cut short
+    leaves the last committed one. At most one write is in flight: ``save``
+    first waits for the one before. An error of the writer is raised by the
+    next ``save``, ``wait_until_finished`` or ``close``.
+
+    The step is a save counter, one past the latest committed step when
+    the snapshotter is made, never the epoch (which rides in the payload):
+    a resumed run saves again the epoch it restarted from. Under a process
+    group every rank calls ``save`` alike and only ``primary`` writes (the
+    weights are replicated); the caller's barrier after
+    ``wait_until_finished`` keeps the others until the step is committed."""
+
+    def __init__(self, path: str, primary: bool = True):
+        require_tensorstore()  # the named ImportError before any training
+        self.path = os.path.abspath(path)
+        self.primary = primary
+        steps = committed_steps(self.path)
+        self._next_step = steps[-1] + 1 if steps else 0
+        self._thread = None
+        self._error = None
+
+    def save(self, model: Optional[torch.nn.Module], epochs_run: int) -> None:
+        """Copy ``model``'s weights and start writing them with ``epochs_run``
+        as the next step; returns before the write is done. A rank that is
+        not ``primary`` only counts the step (``model`` may be None)."""
+        self.wait_until_finished()
+        step = self._next_step
+        self._next_step += 1
+        if not self.primary:
+            return
+        params, stats = to_jax_variables(model.state_dict())
+        payload = {"MODEL_STATE": {"params": _copied(params), "batch_stats": _copied(stats)},
+                   "EPOCHS_RUN": np.int64(epochs_run)}
+        self._thread = threading.Thread(target=self._write, args=(step, payload),
+                                        name=f"orbax-step-{step}")
+        self._thread.start()
+
+    def _write(self, step: int, payload: dict) -> None:
+        try:
+            write_orbax_step(os.path.join(self.path, str(step)), payload)
+            for old in committed_steps(self.path):
+                if old < step:
+                    shutil.rmtree(os.path.join(self.path, str(old)))
+        except Exception as e:  # raised again on the caller's thread
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Wait for the write in flight; raise its error, if it had one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def close(self) -> None:
+        self.wait_until_finished()
+
+
+def load_snapshot_orbax(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """(state_dict, epochs_run) of the latest committed step of the Orbax
+    checkpoint directory ``path`` (written by :class:`OrbaxSnapshotter` or
+    by the reference package's), as :func:`load_snapshot` returns them."""
+    ts = require_tensorstore()
+    steps = committed_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no committed orbax checkpoint under {path}")
+    item_dir = os.path.join(path, str(steps[-1]), "default")
+    with open(os.path.join(item_dir, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{item_dir}: an Orbax item of zarr v2 arrays in an OCDBT store is "
+                         f"read, found use_ocdbt={meta.get('use_ocdbt')}, "
+                         f"use_zarr3={meta.get('use_zarr3')}")
+    reads = []
+    for entry in meta["tree_metadata"].values():
+        keys = tuple(k["key"] for k in entry["key_metadata"])
+        store = ts.open({"driver": "zarr", "kvstore": _ocdbt(item_dir, ".".join(keys))},
+                        open=True, read=True).result()
+        reads.append((keys, store.read()))
+    tree: dict = {}
+    for keys, r in reads:
+        _assign(tree, keys, r.result())
+    state = tree["MODEL_STATE"]
+    return (from_jax_variables(state["params"], state.get("batch_stats", {})),
+            int(tree["EPOCHS_RUN"]))

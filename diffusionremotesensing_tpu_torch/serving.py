@@ -57,7 +57,7 @@ from diffusionremotesensing_tpu_torch.models.unet import (
 )
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 from diffusionremotesensing_tpu_torch.png import decode_png, encode_png, is_png
-from diffusionremotesensing_tpu_torch.utils import require_pil, resolve_device
+from diffusionremotesensing_tpu_torch.utils import ieee_float32, require_pil, resolve_device
 
 # the model's conditioning each task serves
 TASKS = {"superres": "superres", "sar": "sar", "generation": "class"}
@@ -143,7 +143,8 @@ class InferenceServer:
     (``parallel.make_mesh``, the CLI's ``--data_parallel``) replicates the
     model onto the mesh's devices and splits each micro-batch and each
     tile's chunks over them, collective-free; ``max_batch`` divides over
-    the mesh size."""
+    the mesh size. A float32 server turns cuDNN's TF32 off
+    (``utils.ieee_float32``): its float32 is IEEE float32."""
 
     def __init__(self, model, noise_schedule: str, noise_steps: int, image_size: int,
                  task: str = "superres", max_batch: int = 8, max_wait_ms: float = 10.0,
@@ -173,6 +174,7 @@ class InferenceServer:
         self.model = model.to(self.device)
         self.max_batch = max_batch
         self.process = make_process(self.model, noise_schedule, noise_steps, image_size, dtype)
+        ieee_float32(self.process.dtype)
         self._ddim_steps = ddim_steps
         self._ddim_clip_x0 = ddim_clip_x0
         self._start_t = start_t

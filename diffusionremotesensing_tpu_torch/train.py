@@ -44,8 +44,19 @@ the EMA then run alike on every rank. Only rank 0 writes snapshots and
 metrics; a stop requested on any rank stops every rank after the same
 epoch (an all-reduce of the flags at one point of each epoch); previews
 sample alike on every rank from rank 0's noise. A (data, model) mesh
-(``parallel.tensor``) trains over its data axis. The Orbax checkpoint
-format waits for its port and raises.
+(``parallel.tensor``) trains over its data axis.
+
+Snapshots: ``checkpoint_backend='msgpack'`` (the default) writes the
+reference package's msgpack file on rank 0, in the loop's thread;
+``'orbax'`` writes an Orbax checkpoint directory (``io.OrbaxSnapshotter``,
+``tensorstore``) in a background thread, which the next snapshot, the end
+of ``train`` (``finalize_snapshots``) or a resume waits for. Under a group
+every rank enters each Orbax save and rank 0 alone writes;
+``finalize_snapshots`` ends with a barrier of the group, so that no rank
+leaves ``train`` before rank 0's step has committed.
+
+Float32 is IEEE float32: a trainer of a float32 model turns cuDNN's TF32
+off (``utils.ieee_float32``), which torch leaves on by default.
 """
 
 from __future__ import annotations
@@ -63,14 +74,19 @@ import torch.distributed as dist
 
 from diffusionremotesensing_tpu_torch.diffusion import make_process, q_sample, sample_timesteps
 from diffusionremotesensing_tpu_torch.ema import EMA_BETA, EMA_WARMUP_STEPS, ema_update
-from diffusionremotesensing_tpu_torch.io import load_snapshot, save_snapshot
+from diffusionremotesensing_tpu_torch.io import (
+    OrbaxSnapshotter,
+    load_snapshot,
+    require_tensorstore,
+    save_snapshot,
+)
 from diffusionremotesensing_tpu_torch.losses import VGG19Features, make_loss_fn
 from diffusionremotesensing_tpu_torch.models.blocks import global_batch_statistics
 from diffusionremotesensing_tpu_torch.parallel.sharding import is_main_process, replicated_sharding
 from diffusionremotesensing_tpu_torch.parallel.tensor import sum_split_grads
 from diffusionremotesensing_tpu_torch.profiling import MetricsLogger
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
-from diffusionremotesensing_tpu_torch.utils import resolve_device
+from diffusionremotesensing_tpu_torch.utils import ieee_float32, resolve_device
 
 __all__ = ["TrainState", "Trainer"]
 
@@ -101,7 +117,8 @@ class Trainer:
     NHWC arrays: 'x' the clean target, optionally 'cond' (image or labels),
     'cond_mask' and 'pad_mask', or 'hr_u8' for ``batch_transform``.
     ``vgg`` is the perceptual loss's ``losses.VGG19Features`` (its weights
-    loaded by the caller)."""
+    loaded by the caller). A trainer of a float32 model turns cuDNN's TF32
+    off (``utils.ieee_float32``)."""
 
     def __init__(
         self,
@@ -133,16 +150,17 @@ class Trainer:
                 "devices in this process: start one process a device (torchrun "
                 "--nproc_per_node=N) and give each make_mesh(), its own device")
         self._group = None if self.mesh is None else self.mesh.group
-        if checkpoint_backend == "orbax":
-            raise NotImplementedError(
-                "checkpoint_backend='orbax' is a JAX format the port does not write (ROADMAP, "
-                "Queue 1); use 'msgpack', which the reference package reads")
-        if checkpoint_backend != "msgpack":
+        if checkpoint_backend not in ("msgpack", "orbax"):
             raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r}")
+        if checkpoint_backend == "orbax":
+            require_tensorstore()  # the named ImportError before any step
+        self.checkpoint_backend = checkpoint_backend
+        self._orbax: Optional[OrbaxSnapshotter] = None  # made at the first save
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         self.device = resolve_device(self.mesh.device if self.mesh is not None else device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        ieee_float32(model.dtype)
         self.noise_schedule, self.beta_start, self.beta_end = noise_schedule, beta_start, beta_end
         self.noise_steps = noise_steps
         self.image_size = image_size
@@ -210,9 +228,12 @@ class Trainer:
                 dist.broadcast(v, src=src, group=group)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
-        """Resume from the snapshot when it exists: its weights and BatchNorm
-        statistics, ``epochs_run``; Adam's moments restart and the EMA is a
-        copy of the loaded parameters."""
+        """Resume from the snapshot when it exists (a msgpack or torch file,
+        or an Orbax directory's latest committed step): its weights and
+        BatchNorm statistics, ``epochs_run``; Adam's moments restart and the
+        EMA is a copy of the loaded parameters."""
+        if self._orbax is not None:
+            self._orbax.wait_until_finished()
         if self.snapshot_path and os.path.exists(self.snapshot_path):
             variables, epochs_run = load_snapshot(self.snapshot_path)
             state.model.load_state_dict(variables, strict=True)
@@ -237,12 +258,33 @@ class Trainer:
 
     def save_snapshot(self, state: TrainState, epoch: int) -> None:
         """The EMA parameters (the online ones without EMA) with the online
-        BatchNorm statistics, in the reference package's msgpack format,
-        written by rank 0 alone."""
-        if not self.snapshot_path or not is_main_process():
+        BatchNorm statistics, in the backend's format: msgpack written by
+        rank 0 alone, or the next step of the Orbax directory, which every
+        rank enters and rank 0 alone writes, in the background."""
+        if not self.snapshot_path:
             return
-        save_snapshot(self.snapshot_path, self.ema_model(state), epoch)
-        print(f"Epoch {epoch} | Training snapshot saved at {self.snapshot_path}")
+        main = is_main_process()
+        if self.checkpoint_backend == "orbax":
+            if self._orbax is None:
+                self._orbax = OrbaxSnapshotter(self.snapshot_path, primary=main)
+            # every rank counts the step; rank 0 alone copies and writes
+            self._orbax.save(self.ema_model(state) if main else None, epoch)
+        elif main:
+            save_snapshot(self.snapshot_path, self.ema_model(state), epoch)
+        if main:
+            print(f"Epoch {epoch} | Training snapshot saved at {self.snapshot_path}")
+
+    def finalize_snapshots(self) -> None:
+        """Wait until the Orbax write in flight has committed (raising its
+        error, if it had one); under a group, then a barrier of the group.
+        ``train`` calls it at its end; safe to call any time (under a group,
+        on every rank)."""
+        try:
+            if self._orbax is not None:
+                self._orbax.wait_until_finished()
+        finally:
+            if self._group is not None and self.checkpoint_backend == "orbax":
+                dist.barrier(group=self._group)
 
     # ------------------------------------------------------------------ steps
 
@@ -480,6 +522,7 @@ class Trainer:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
             self._stop_requested = False
+            self.finalize_snapshots()
         if interrupted and verbose and main:
             print("Training stopped by signal; snapshot is durable — rerun to resume")
         return state

@@ -10,7 +10,9 @@ when called: ``video_maker`` cv2, ``gif_maker`` imageio and
 writer and the package where it is not installed.
 
 ``force_cpu_if_requested`` reads ``DRS_FORCE_CPU=1`` as the caller asking
-for the CPU (:func:`default_device`); it is never a fallback. The
+for the CPU (:func:`default_device`); it is never a fallback.
+``ieee_float32`` turns cuDNN's TF32 off for a float32 model, so that the
+port's float32 is IEEE float32 on the card as on the CPU. The
 reference's ``machine_scoped_cache_dir`` (XLA's compile cache) has no
 counterpart: the port's one cache is the kernels' build directory
 (``ops/cuda_build.BUILD_DIR``).
@@ -31,6 +33,7 @@ from diffusionremotesensing_tpu_torch.png import encode_png
 __all__ = [
     "resolve_device",
     "default_device",
+    "ieee_float32",
     "psnr",
     "ssim",
     "save_image",
@@ -55,6 +58,18 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def ieee_float32(dtype: torch.dtype) -> None:
+    """For a model computing in float32: turn cuDNN's TF32 off, process-wide
+    (torch turns it on by default, and its convolutions then round their
+    inputs to 10-bit mantissas on the card). The entry points call it as
+    they build a float32 model (``InferenceServer``, ``Trainer``, the
+    aggregation launcher, the inference helpers), so that float32 means the
+    IEEE float32 the CPU computes; a bfloat16 model leaves the setting as
+    it is."""
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def force_cpu_if_requested() -> bool:

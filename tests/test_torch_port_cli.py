@@ -11,6 +11,7 @@ import ast
 import base64
 import json
 import os
+import sys
 import urllib.request
 
 import numpy as np
@@ -225,7 +226,10 @@ def test_what_is_not_ported_or_present_raises(snapshot_dir, monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             cli.build_server(cli.parse_args(["serve", "--snapshot_path", snap]))
     monkeypatch.setenv("DRS_FORCE_CPU", "1")
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    # the Orbax backend is ported; without tensorstore it raises, naming
+    # it, before any data is read (test_torch_port_orbax.py trains with it)
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="Orbax checkpoint backend needs the 'tensorstore'"):
         cli.main(["sar_to_ndvi", "--model_name", "m", "--checkpoint_backend", "orbax"])
 
 
@@ -295,3 +299,33 @@ def test_generation_trains_and_resumes(tmp_path, monkeypatch, capsys):
     if not os.path.isdir("Cifar10"):  # the name 'cifar10' reads a local copy only
         with pytest.raises(FileNotFoundError, match="CIFAR10"):
             cli.main(["generation", *TRAIN, "--model_name", "c", "--dataset_path", "cifar10"])
+
+
+@pytest.mark.parametrize("entry", ["aggregation", "serve_float32", "serve_bfloat16", "trainer",
+                                   "trainer_bfloat16"])
+def test_float32_entry_points_turn_tf32_off(entry, snapshot_dir, monkeypatch):
+    """Each entry point that builds a float32 model sets cuDNN's TF32 off
+    (torch's default is on), so that the port's float32 is IEEE float32
+    on the card as on the CPU; a bfloat16 one leaves the setting as it is."""
+    from diffusionremotesensing_tpu_torch.train import Trainer
+
+    snap = str(snapshot_dir / "models_run" / "x2" / "weights" / "snapshot.pt")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        if entry == "aggregation":
+            monkeypatch.chdir(snapshot_dir)
+            _png(str(snapshot_dir / "tf32" / "lr.png"), np.random.default_rng(5))
+            cli.main(["aggregation", *AGG, "--img_lr_path", "tf32/lr.png",
+                      "--destination_path", "tf32/sr.png"])
+        elif entry.startswith("serve"):
+            dtype = entry.split("_")[1]
+            cli.build_server(cli.parse_args([*SERVE, "--snapshot_path", snap, "--compute_dtype",
+                                             dtype])).shutdown()
+        else:
+            dtype = torch.bfloat16 if entry.endswith("bfloat16") else None
+            Trainer(residual_attention_unet_superres(magnification_factor=2, compute_dtype=dtype),
+                    "linear", 20, 16, device="cpu")
+        assert torch.backends.cudnn.allow_tf32 is entry.endswith("bfloat16")
+    finally:
+        torch.backends.cudnn.allow_tf32 = before

@@ -39,7 +39,13 @@ def _port_sources():
 # and the packages each may import so
 LAZY = {os.path.join("diffusionremotesensing_tpu_torch", "utils.py"): {"PIL", "cv2", "imageio",
                                                                       "matplotlib"},
-        os.path.join("diffusionremotesensing_tpu_torch", "data", "degradations.py"): {"cv2"}}
+        os.path.join("diffusionremotesensing_tpu_torch", "data", "degradations.py"): {"cv2"},
+        os.path.join("diffusionremotesensing_tpu_torch", "io.py"): {"tensorstore"},
+        os.path.join("diffusionremotesensing_tpu_torch", "superres_and_NDVIgen.py"): {"matplotlib"},
+        os.path.join("diffusionremotesensing_tpu_torch", "imgs_generator.py"): {"matplotlib"}}
+# packages the port may import only lazily, where LAZY lists them, though
+# they are not forbidden: the Orbax backend's
+LAZY_ONLY = {"tensorstore"}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -62,6 +68,29 @@ def test_source_imports_nothing_forbidden(path):
             if top in lazy and id(node) in in_functions:
                 continue
             assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_lazy_only_packages_are_imported_inside_functions_of_lazy():
+    """tensorstore is imported by no port module and not by chip_smoke.py
+    but inside the functions of the modules LAZY lists it for."""
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        lazy = LAZY.get(os.path.relpath(path, REPO), set())
+        in_functions = {id(n) for fn in ast.walk(tree)
+                        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        for n in ast.walk(fn)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in LAZY_ONLY or (top in lazy and id(node) in in_functions), (
+                    f"{path} imports {name}")
 
 
 def test_lazy_imports_are_where_they_are_listed():
@@ -508,3 +537,69 @@ def test_the_fifteenth_slice_modules_are_guarded():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_eighteenth_slice_modules_are_guarded():
+    """The inference helpers and the class-grid generator are among what the
+    import guards above check, and importing them loads no forbidden
+    package (matplotlib only when a plot is drawn)."""
+    checked = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for mod in ("superres_and_NDVIgen.py", "imgs_generator.py", "io.py"):
+        assert mod in checked
+    code = ("import sys\nimport diffusionremotesensing_tpu_torch.superres_and_NDVIgen\n"
+            "import diffusionremotesensing_tpu_torch.imgs_generator\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_an_orbax_round_trip_loads_nothing_forbidden(tmp_path):
+    """The port writes an Orbax directory and reads it back through
+    tensorstore alone: in a fresh interpreter neither orbax nor JAX is
+    loaded."""
+    pytest.importorskip("tensorstore")
+    code = ("import sys\n"
+            "from diffusionremotesensing_tpu_torch.io import OrbaxSnapshotter, load_snapshot\n"
+            "from diffusionremotesensing_tpu_torch.models.unet import "
+            "residual_attention_unet_generation\n"
+            "m = residual_attention_unet_generation(num_classes=2)\n"
+            f"w = OrbaxSnapshotter({str(tmp_path / 'ckpt')!r})\n"
+            "w.save(m, 4)\nw.close()\n"
+            f"state, epochs = load_snapshot({str(tmp_path / 'ckpt')!r})\n"
+            "m.load_state_dict(state)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n" % (FORBIDDEN,)
+            + "print(epochs, bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and r.stdout.startswith("4 []"), r.stdout + r.stderr
+
+
+def test_chip_smoke_task_scoring_is_learning_checks():
+    """chip_smoke.py's copies of benchmarks/learning_check.py's SAR pairs,
+    class images, classifier and diversity statistic compute what the
+    originals compute; its package probe imports nothing."""
+    from benchmarks import learning_check as lc
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    assert (cs.SAR_SIZE, cs.GEN_SIZE, cs.GEN_CLASSES) == (lc.SAR_SIZE, lc.GEN_SIZE, lc.GEN_CLASSES)
+    a, b = np.random.default_rng(10_000), np.random.default_rng(10_000)
+    for _ in range(3):
+        for x, y in zip(cs._sar_pair(a, cs.SAR_SIZE), lc._sar_pair(b, lc.SAR_SIZE)):
+            assert np.array_equal(x, y)
+    a, b = np.random.default_rng(23), np.random.default_rng(23)
+    imgs = np.stack([cs._gen_image(a, n) for n in cs.GEN_CLASSES for _ in range(3)])
+    assert np.array_equal(imgs, np.stack([lc._gen_image(b, n) for n in lc.GEN_CLASSES
+                                          for _ in range(3)]))
+    f = imgs.astype(np.float32) / 255.0
+    labels = np.repeat(np.arange(4), 3)
+    assert np.array_equal(cs.classify_by_pattern(f), lc.classify_by_pattern(f))
+    assert cs._color_diversity(f, labels, 4) == pytest.approx(lc._color_diversity(f, labels, 4),
+                                                              rel=1e-12)
+    before = set(sys.modules)
+    found = cs.checkpoint_packages()
+    assert set(found) == {"tensorstore", "zstandard", "orbax"}
+    assert not {m for m in set(sys.modules) - before if m.split(".")[0] in FORBIDDEN | LAZY_ONLY}

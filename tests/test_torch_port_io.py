@@ -244,5 +244,11 @@ def test_server_from_snapshot_on_the_cpu():
 
 
 def test_orbax_directory_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A directory is read as an Orbax checkpoint: one without a committed
+    step is refused as the reference package refuses it; a step still being
+    written is not one."""
+    with pytest.raises(FileNotFoundError, match="no committed orbax checkpoint"):
+        io.load_snapshot(str(tmp_path))
+    os.makedirs(tmp_path / ("0" + io.ORBAX_TMP_SUFFIX))
+    with pytest.raises(FileNotFoundError, match="no committed orbax checkpoint"):
         io.load_snapshot(str(tmp_path))

@@ -27,6 +27,10 @@ store in the fixture's temporary directory), each running every scenario.
 * An aggregation tile split over the ranks equals the tile of one process
   within 1e-5 (float32 DDIM; the UNet's time MLP is a GEMM whose result
   depends on the rows it is given), on both ranks alike.
+* An Orbax snapshot (``checkpoint_backend='orbax'``) saved on both ranks:
+  each returns from ``finalize_snapshots`` and sees rank 0's step
+  committed there, and the directory loads (the port's counterpart of
+  tests/test_multiprocess.py's collective Orbax save).
 """
 
 import os
@@ -215,3 +219,16 @@ def test_aggregation_tile_split_over_the_ranks(run):
         assert r["tile_split"].shape == (32, 32, 3)
         np.testing.assert_allclose(r["tile_split"], r["tile_one"], rtol=0, atol=1e-5)
     assert np.array_equal(ranks[0]["tile_split"], ranks[1]["tile_split"])
+
+
+def test_orbax_save_on_both_ranks_commits_before_either_returns(run):
+    """Every rank enters the save and finalize_snapshots; rank 0 alone
+    writes, and the barrier that ends finalize_snapshots keeps rank 1 until
+    the step has committed: both ranks see step 0 just after."""
+    _, ranks, work = run
+    assert [r["orbax_finalized"] for r in ranks] == [True, True]
+    assert [r["orbax_steps"] for r in ranks] == [[0], [0]]
+    state, epochs = load_snapshot(str(work / "orbax_ckpt"))
+    assert epochs == 3
+    want = torch.load(str(work / "inputs.pt"), weights_only=False)["variables"]
+    assert all(torch.equal(state[k], want[k]) for k in want if "num_batches" not in k)

@@ -9,6 +9,7 @@ EMA weights, the refusals, and profiling's logger and timer."""
 import json
 import os
 import signal
+import sys
 
 import jax
 import numpy as np
@@ -214,8 +215,12 @@ def test_refusals(tmp_path):
     args = (model, "linear", 20, HR)
     with pytest.raises(ValueError, match="one process per device"):
         Trainer(*args, mesh=make_mesh(["cpu", "cpu"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        Trainer(*args, checkpoint_backend="orbax", device="cpu")
+    # the Orbax backend is ported: refused only where tensorstore is missing
+    assert Trainer(*args, checkpoint_backend="orbax", device="cpu").checkpoint_backend == "orbax"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "tensorstore", None)
+        with pytest.raises(ImportError, match="tensorstore"):
+            Trainer(*args, checkpoint_backend="orbax", device="cpu")
     with pytest.raises(ValueError, match="checkpoint_backend"):
         Trainer(*args, checkpoint_backend="zip", device="cpu")
     with pytest.raises(ValueError, match="steps_per_dispatch"):

@@ -18,7 +18,10 @@ temporary directory. Each runs every scenario once and saves what it saw to
 * ``tensor``: a train step over a (1, 2) (data, model) mesh and the
   replicated step on the same inputs;
 * ``tile``: an aggregation tile split over the ranks (an all-gather
-  assembles each chunk) and the same tile in the rank alone.
+  assembles each chunk) and the same tile in the rank alone;
+* ``orbax``: ``Trainer(checkpoint_backend='orbax')`` saves on both ranks
+  into one directory and returns from ``finalize_snapshots``; the steps
+  committed there as each rank sees them just after.
 
 :func:`run_spatial` is the rank of tests/test_torch_port_spatial.py's
 2-process group: one image's height split over the ranks
@@ -201,6 +204,17 @@ def _tile(rank, mesh):
     return dict(tile_split=tiles[0], tile_one=tiles[1])
 
 
+def _orbax(rank, inputs, mesh, workdir):
+    from diffusionremotesensing_tpu_torch.io import committed_steps
+
+    path = os.path.join(workdir, "orbax_ckpt")
+    tr = _trainer(_model(), mesh, snapshot_path=path, checkpoint_backend="orbax")
+    state = tr.init_state(inputs["variables"])
+    tr.save_snapshot(state, 3)
+    tr.finalize_snapshots()
+    return dict(orbax_finalized=True, orbax_steps=committed_steps(path))
+
+
 def run(rank, world, workdir):
     """Rank ``rank`` of ``world``: join the group, run every scenario, save
     ``rank<rank>.pt``."""
@@ -222,6 +236,7 @@ def run(rank, world, workdir):
     out["dispatch"] = _dispatch(rank, inputs, mesh)
     out.update(_tensor(rank, inputs))
     out.update(_tile(rank, mesh))
+    out.update(_orbax(rank, inputs, mesh, workdir))
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 

@@ -1,0 +1,2 @@
+"""device_idle.gen: the traced window's share with the card idle (readers.device_idle)."""
+from portbench.readers import device_idle as read  # noqa: F401

@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from diffusionremotesensing_tpu_torch import profiling
 from diffusionremotesensing_tpu_torch.diffusion import DiffusionProcess, warm_start_state
 from diffusionremotesensing_tpu_torch.ops.resize import upsample_bicubic
 
@@ -152,26 +153,28 @@ class AggregationSampler:
         sampler = self._sampler()
         hr = self.patch_size * self.mag
         pending = []
-        for start, size in self.chunk_plan(n):
+        for chunk, (start, size) in enumerate(self.chunk_plan(n)):
             k = min(size, n - start)
-            cond = torch.from_numpy(block_fn(np.arange(start, start + size) % n)).to(device)
-            c = cond.shape[-1]
-            if self.start_t is not None:
-                # warm start: each patch's bicubic upsample q-sampled to start_t
-                init = upsample_bicubic(cond, self.mag)
-                eps = torch.randn((k,) + tuple(init.shape[1:]), generator=generator, device=device)
-                x_T = warm_start_state(self.process.schedule, init, self.start_t,
-                                       noise=_pad_rows(eps, size))
-            else:
-                x_T = _pad_rows(torch.randn((k, hr, hr, c), generator=generator, device=device),
-                                size)
-            kw = {}
-            if k < size and not self.fused_update:
-                # the pad rows repeat the real patches' noise
-                kw["noise_fn"] = lambda i, shape, k=k: _pad_rows(
-                    torch.randn((k,) + tuple(shape[1:]), generator=generator, device=device),
-                    shape[0])
-            pending.append((start, k, sampler(x_T, cond, generator=generator, **kw)))
+            with profiling.annotate("aggregation.issue", chunk=chunk, rows=k):
+                cond = torch.from_numpy(block_fn(np.arange(start, start + size) % n)).to(device)
+                c = cond.shape[-1]
+                if self.start_t is not None:
+                    # warm start: each patch's bicubic upsample q-sampled to start_t
+                    init = upsample_bicubic(cond, self.mag)
+                    eps = torch.randn((k,) + tuple(init.shape[1:]), generator=generator,
+                                      device=device)
+                    x_T = warm_start_state(self.process.schedule, init, self.start_t,
+                                           noise=_pad_rows(eps, size))
+                else:
+                    x_T = _pad_rows(torch.randn((k, hr, hr, c), generator=generator,
+                                                device=device), size)
+                kw = {}
+                if k < size and not self.fused_update:
+                    # the pad rows repeat the real patches' noise
+                    kw["noise_fn"] = lambda i, shape, k=k: _pad_rows(
+                        torch.randn((k,) + tuple(shape[1:]), generator=generator, device=device),
+                        shape[0])
+                pending.append((start, k, sampler(x_T, cond, generator=generator, **kw)))
             if len(pending) >= self.MAX_IN_FLIGHT:
                 s, k, out = pending.pop(0)
                 yield s, out[:k]
@@ -195,28 +198,41 @@ class AggregationSampler:
         denoised together in chunks of ``batch_size`` (one image's patches
         are drawn as ``__call__`` draws them), each chunk blended into its
         images' canvases as it is gathered."""
-        imgs = [np.asarray(img, np.float32) for img in imgs]
-        mag = self.mag
-        index = [(k, box) for k, img in enumerate(imgs)
-                 for box in patchify_coords(img.shape[0], img.shape[1], self.patch_size,
-                                            self.stride, mag)]
-        canvases = [np.zeros((img.shape[0] * mag, img.shape[1] * mag, img.shape[2]), np.float32)
-                    for img in imgs]
-        counts = [np.zeros(c.shape[:2] + (1,), np.float32) for c in canvases]
-        wmask = self.weight[:, :, None]
+        with profiling.annotate("aggregation.call", tiles=len(imgs)):
+            return self._sample_tiles(imgs, generator, device)
+
+    def _sample_tiles(self, imgs, generator, device):
+        with profiling.annotate("aggregation.prepare"):
+            imgs = [np.asarray(img, np.float32) for img in imgs]
+            mag = self.mag
+            index = [(k, box) for k, img in enumerate(imgs)
+                     for box in patchify_coords(img.shape[0], img.shape[1], self.patch_size,
+                                                self.stride, mag)]
+            canvases = [np.zeros((img.shape[0] * mag, img.shape[1] * mag, img.shape[2]),
+                                 np.float32) for img in imgs]
+            counts = [np.zeros(c.shape[:2] + (1,), np.float32) for c in canvases]
+            wmask = self.weight[:, :, None]
 
         def block(idx):
             return np.stack([imgs[k][y0 // mag:y1 // mag, x0 // mag:x1 // mag]
                              for k, (y0, y1, x0, x1) in (index[i] for i in idx)])
 
+        per_chunk = self.batch_size * self.n_devices
         for start, out in self._sampled_chunks(len(index), block, generator, device):
-            for patch, (k, (y0, y1, x0, x1)) in zip(out.cpu().numpy(),
-                                                     index[start:start + len(out)]):
-                canvases[k][y0:y1, x0:x1] += patch * wmask
-                counts[k][y0:y1, x0:x1] += wmask
-        if not all((n != 0).all() for n in counts):
-            raise RuntimeError("patch grid left output pixels uncovered")
-        return [np.clip(c / n, 0.0, 1.0) for c, n in zip(canvases, counts)]
+            chunk, rows = start // per_chunk, len(out)
+            with profiling.annotate("aggregation.wait", chunk=chunk, rows=rows) as span:
+                if span and out.is_cuda:  # recording: the copy below then times the copy alone
+                    torch.cuda.current_stream(out.device).synchronize()
+            with profiling.annotate("aggregation.copy_out", chunk=chunk, rows=rows):
+                patches = out.cpu().numpy()
+            with profiling.annotate("aggregation.blend", chunk=chunk, rows=rows):
+                for patch, (k, (y0, y1, x0, x1)) in zip(patches, index[start:start + len(out)]):
+                    canvases[k][y0:y1, x0:x1] += patch * wmask
+                    counts[k][y0:y1, x0:x1] += wmask
+        with profiling.annotate("aggregation.finish"):
+            if not all((n != 0).all() for n in counts):
+                raise RuntimeError("patch grid left output pixels uncovered")
+            return [np.clip(c / n, 0.0, 1.0) for c, n in zip(canvases, counts)]
 
     def __call__(self, img_lr: np.ndarray, generator: Optional[torch.Generator] = None,
                  device="cuda") -> np.ndarray:

@@ -758,7 +758,9 @@ def _train_engine(p):
                    help="snapshot writer: msgpack (one file) or orbax (a checkpoint "
                         "directory written in the background; needs tensorstore)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="capture a torch.profiler trace of training into this directory")
+                   help="capture a torch.profiler trace of training into this directory; "
+                        "its timeline carries the program's spans (train.step, forward, "
+                        "backward, optimizer, ema) above the kernels they issued")
 
 
 def _train_vgg(p):

@@ -59,6 +59,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffusionremotesensing_tpu_torch import profiling
 from diffusionremotesensing_tpu_torch.ops.fused_update import (
     ancestral_update,
     draw_seed,
@@ -271,6 +272,10 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
         if not fused_update and bits_fn is not None:
             raise ValueError("bits_fn applies to the fused update (fused_update=True)")
         n = x_T.shape[0]
+        with profiling.annotate("sampler.call", rows=n):
+            return _ancestral(x_T, cond, generator, noise_fn, bits_fn, n)
+
+    def _ancestral(x_T, cond, generator, noise_fn, bits_fn, n):
         shards = _shards(replicas, bands, own, x_T, cond, cfg_scale)
         xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
         if bands is None:
@@ -287,11 +292,6 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                              "state row): the fused update cannot split this state")
         frames = []
         for i in range(t_start, 0, -1):
-            if fused_update:
-                bits = bits_fn(i, state_shape) if bits_fn is not None else None
-            elif i > 1:
-                z = _noise(noise_fn, generator, i, x_T.shape, x_T, enc)
-
             def step(k, sh, i=i):
                 x = xs[k]
                 eps_hat = sh.eps(x, torch.full((sh.hi - sh.lo,), float(i), device=sh.device))
@@ -310,10 +310,15 @@ def make_sampler(apply_fn: Callable, schedule: Schedule, *,
                 zk = sh.rows(z) if i > 1 else torch.zeros_like(x)
                 return ddpm_step(schedule, x, eps_hat, i, zk)
 
-            xs = _each(shards, step)
-            if capture_frames:
-                x = _gather(xs, replicas, bands, x_T.device)
-                frames.append(dec(x) if dec is not None else x)
+            with profiling.annotate("sampler.step", step=t_start - i, t=i, rows=n):
+                if fused_update:
+                    bits = bits_fn(i, state_shape) if bits_fn is not None else None
+                elif i > 1:
+                    z = _noise(noise_fn, generator, i, x_T.shape, x_T, enc)
+                xs = _each(shards, step)
+                if capture_frames:
+                    x = _gather(xs, replicas, bands, x_T.device)
+                    frames.append(dec(x) if dec is not None else x)
         x = _gather(xs, replicas, bands, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x
@@ -370,10 +375,15 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
 
     @torch.inference_mode()
     def sample(x_T, cond=None, generator=None, noise_fn=None):
+        n = x_T.shape[0]
+        with profiling.annotate("sampler.call", rows=n):
+            return _ddim(x_T, cond, generator, noise_fn, n)
+
+    def _ddim(x_T, cond, generator, noise_fn, n):
         shards = _shards(replicas, bands, own, x_T, cond, cfg_scale)
         xs = [enc(sh.rows(x_T)) if enc is not None else sh.rows(x_T) for sh in shards]
         frames = []
-        for t, t_prev in zip(taus.tolist(), taus_prev.tolist()):
+        for j, (t, t_prev) in enumerate(zip(taus.tolist(), taus_prev.tolist())):
             ah = schedule.alpha_hat[t]
             ah_prev = schedule.alpha_hat[t_prev] if t_prev > 0 else one
             sigma = eta * torch.sqrt((1.0 - ah_prev) / (1.0 - ah)) * torch.sqrt(1.0 - ah / ah_prev)
@@ -389,13 +399,14 @@ def make_ddim_sampler(apply_fn: Callable, schedule: Schedule, num_steps: int, *,
                           * eps_hat)
                 return float(torch.sqrt(ah_prev)) * x0_pred + dir_xt
 
-            xs = _each(shards, step)
-            if float(sigma) > 0.0:
-                z = _noise(noise_fn, generator, t, x_T.shape, x_T, enc)
-                xs = [x + float(sigma) * sh.rows(z) for x, sh in zip(xs, shards)]
-            if capture_frames:
-                x = _gather(xs, replicas, bands, x_T.device)
-                frames.append(dec(x) if dec is not None else x)
+            with profiling.annotate("sampler.step", step=j, t=t, rows=n):
+                xs = _each(shards, step)
+                if float(sigma) > 0.0:
+                    z = _noise(noise_fn, generator, t, x_T.shape, x_T, enc)
+                    xs = [x + float(sigma) * sh.rows(z) for x, sh in zip(xs, shards)]
+                if capture_frames:
+                    x = _gather(xs, replicas, bands, x_T.device)
+                    frames.append(dec(x) if dec is not None else x)
         x = _gather(xs, replicas, bands, x_T.device)
         x = dec(x) if dec is not None else x
         return (x, torch.stack(frames)) if capture_frames else x

@@ -38,6 +38,7 @@ Example:
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import queue
 import threading
@@ -47,6 +48,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from diffusionremotesensing_tpu_torch import profiling
 from diffusionremotesensing_tpu_torch.aggregation import AggregationSampler
 from diffusionremotesensing_tpu_torch.diffusion import make_process, warm_start_state
 from diffusionremotesensing_tpu_torch.io import load_snapshot
@@ -67,13 +69,16 @@ CFG_SCALE = 3.0  # the generation task's guidance, as the reference serves it
 class MicroBatcher:
     """Collects requests into micro-batches: waits up to ``max_wait_ms`` for
     the batch to fill, then hands up to ``max_batch`` items to ``run_batch``
-    on its worker thread."""
+    on its worker thread. While spans are recorded (``profiling``), each
+    request's wait is a ``serve.queue`` span and each batch, from taking its
+    first request to ``run_batch``'s return, a ``serve.batch`` span."""
 
     def __init__(self, run_batch, max_batch: int = 8, max_wait_ms: float = 10.0):
         self._run_batch = run_batch
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue" = queue.Queue()
+        self._requests = itertools.count()  # the ids of the requests' queue spans
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
@@ -83,7 +88,7 @@ class MicroBatcher:
         if self._stop.is_set():
             done.put(RuntimeError("server is shut down"))
             return done
-        self._q.put((item, done))
+        self._q.put((item, done, profiling.begin("serve.queue", request=next(self._requests))))
         return done
 
     def infer(self, item, timeout: Optional[float] = None):
@@ -99,21 +104,26 @@ class MicroBatcher:
             except queue.Empty:
                 continue
             batch = [first]
-            deadline = time.monotonic() + self.max_wait
-            while len(batch) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    batch.append(self._q.get(timeout=remaining))
-                except queue.Empty:
-                    break
             try:
-                outs = self._run_batch([b[0] for b in batch])
-                for (_, done), out in zip(batch, outs):
+                # each request's queue span ends as the batch takes it
+                with profiling.annotate("serve.batch", max_batch=self.max_batch) as span:
+                    first[2].finish(span)
+                    deadline = time.monotonic() + self.max_wait
+                    while len(batch) < self.max_batch:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            batch.append(self._q.get(timeout=remaining))
+                        except queue.Empty:
+                            break
+                        batch[-1][2].finish(span)
+                    span["rows"] = len(batch)
+                    outs = self._run_batch([b[0] for b in batch])
+                for (_, done, _), out in zip(batch, outs):
                     done.put(out)
             except Exception as e:  # noqa: BLE001 - the worker must outlive a failed batch
-                for _, done in batch:
+                for _, done, _ in batch:
                     done.put(e)
 
     def shutdown(self):
@@ -121,7 +131,7 @@ class MicroBatcher:
         self._worker.join(timeout=5)
         while True:  # fail requests still queued so their waiters return
             try:
-                _, done = self._q.get_nowait()
+                _, done, _ = self._q.get_nowait()
             except queue.Empty:
                 break
             done.put(RuntimeError("server is shut down"))
@@ -253,20 +263,23 @@ class InferenceServer:
 
     def _run_batch(self, conds: List[np.ndarray]) -> List[np.ndarray]:
         n = len(conds)
-        idx = list(range(n)) + [i % n for i in range(self.max_batch - n)]
-        if self.task == "generation":
-            cond = torch.tensor([int(conds[i]) for i in idx], dtype=torch.int64)
-        else:
-            cond = torch.from_numpy(np.stack([np.asarray(conds[i], np.float32) for i in idx]))
-        cond = cond.to(self.device)
-        gen = self._next_generator()
-        if self._start_t is not None:
-            init = upsample_bicubic(cond, self.model.magnification_factor)
-            x_T = warm_start_state(self.process.schedule, init, self._start_t, gen)
-        else:
-            x_T = torch.randn((self.max_batch, self.image_size, self.image_size,
-                               self.model.image_channels), generator=gen, device=self.device)
-        out = self._sampler(x_T, cond, generator=gen).clamp(0.0, 1.0).cpu().numpy()
+        with profiling.annotate("serve.prepare"):
+            idx = list(range(n)) + [i % n for i in range(self.max_batch - n)]
+            if self.task == "generation":
+                cond = torch.tensor([int(conds[i]) for i in idx], dtype=torch.int64)
+            else:
+                cond = torch.from_numpy(np.stack([np.asarray(conds[i], np.float32) for i in idx]))
+            cond = cond.to(self.device)
+            gen = self._next_generator()
+            if self._start_t is not None:
+                init = upsample_bicubic(cond, self.model.magnification_factor)
+                x_T = warm_start_state(self.process.schedule, init, self._start_t, gen)
+            else:
+                x_T = torch.randn((self.max_batch, self.image_size, self.image_size,
+                                   self.model.image_channels), generator=gen, device=self.device)
+        out = self._sampler(x_T, cond, generator=gen)
+        with profiling.annotate("serve.copy_out"):
+            out = out.clamp(0.0, 1.0).cpu().numpy()
         with self._lock:
             self.batches_run += 1
         return [out[i] for i in range(n)]

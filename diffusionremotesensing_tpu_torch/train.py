@@ -84,7 +84,7 @@ from diffusionremotesensing_tpu_torch.losses import VGG19Features, make_loss_fn
 from diffusionremotesensing_tpu_torch.models.blocks import global_batch_statistics
 from diffusionremotesensing_tpu_torch.parallel.sharding import is_main_process, replicated_sharding
 from diffusionremotesensing_tpu_torch.parallel.tensor import sum_split_grads
-from diffusionremotesensing_tpu_torch.profiling import MetricsLogger
+from diffusionremotesensing_tpu_torch.profiling import MetricsLogger, annotate
 from diffusionremotesensing_tpu_torch.schedules import Schedule, make_schedule
 from diffusionremotesensing_tpu_torch.utils import ieee_float32, resolve_device
 
@@ -327,31 +327,36 @@ class Trainer:
         trainer's generator unless given (then this rank's rows). Returns the
         loss (of the global batch; a device scalar, reading it waits for the
         step)."""
-        model = state.model
-        x0 = batch["x"]
-        t, noise = self._draw(x0, t, noise)
-        x_t = q_sample(self.schedule, x0, t, noise)
-        state.optimizer.zero_grad(set_to_none=True)
-        with global_batch_statistics(self._group):
-            out = model(x_t, t, batch.get("cond"), batch.get("cond_mask"), train=True)
-        params = list(model.parameters())
-        weights = batch.get("pad_mask")
-        # under a group: this rank's weighted loss sum, divided by the global
-        # count once the gradients are summed
-        loss = self.loss_fn(out, noise, weights=weights,
-                            **({} if self._group is None else {"denom": 1.0}))
-        loss.backward()
-        for p in params:
-            if p.grad is None:  # a skip conv the forward does not use
-                p.grad = torch.zeros_like(p)
-        sum_split_grads(model)
-        if self._group is not None:
-            loss = self._reduce_share(loss, weights, x0.shape[0], [p.grad for p in params])
-        state.optimizer.step()
-        if state.ema_params is not None:
-            ema_update(state.ema_params, params, state.step, EMA_BETA, EMA_WARMUP_STEPS)
-        state.step += 1
-        return loss.detach()
+        with annotate("train.step", step=state.step):
+            model = state.model
+            x0 = batch["x"]
+            with annotate("train.forward"):
+                t, noise = self._draw(x0, t, noise)
+                x_t = q_sample(self.schedule, x0, t, noise)
+                state.optimizer.zero_grad(set_to_none=True)
+                with global_batch_statistics(self._group):
+                    out = model(x_t, t, batch.get("cond"), batch.get("cond_mask"), train=True)
+                params = list(model.parameters())
+                weights = batch.get("pad_mask")
+                # under a group: this rank's weighted loss sum, divided by the
+                # global count once the gradients are summed
+                loss = self.loss_fn(out, noise, weights=weights,
+                                    **({} if self._group is None else {"denom": 1.0}))
+            with annotate("train.backward"):
+                loss.backward()
+                for p in params:
+                    if p.grad is None:  # a skip conv the forward does not use
+                        p.grad = torch.zeros_like(p)
+                sum_split_grads(model)
+                if self._group is not None:
+                    loss = self._reduce_share(loss, weights, x0.shape[0], [p.grad for p in params])
+            with annotate("train.optimizer"):
+                state.optimizer.step()
+            if state.ema_params is not None:
+                with annotate("train.ema"):
+                    ema_update(state.ema_params, params, state.step, EMA_BETA, EMA_WARMUP_STEPS)
+            state.step += 1
+            return loss.detach()
 
     @torch.no_grad()
     def val_step(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor],
